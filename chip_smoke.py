@@ -1,0 +1,690 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/H100 port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels of ``src/repro_torch/csrc`` from the checkout,
+then, on the card:
+
+1. holds every kernel against its plain PyTorch version at the main
+   path's shapes (inputs from a real 24x24-grid state after 20 steps,
+   and random ones), at ragged shapes, on all-silent spikes and on a
+   table wider than 131,072 lanes, and times each (kernel, plain
+   version, one library call where there is one, and the bound);
+2. runs a 4x4-column, 64-neuron network for 60 steps under the three
+   impls from one state and one drive: equal spikes and events;
+3. drives the main path, the paper's 24x24 grid of 1240-neuron columns
+   (``impl="cuda_fused"``, one ``fused_step`` launch per step), and the
+   staged path (``impl="cuda"``) over the same steps, with the launch
+   counts set to 0 just before each and read just after, and checks the
+   rate against the plain path.
+
+Every phase raises on failure and the script exits non-zero. Without a
+card, or without the rest of the repository beside it, it exits
+non-zero and prints no result. The last line of its output is
+``{"ok": true, "device": {...}}``; the line before it the per-kernel
+JSON; a fuller report goes to ``build/chip_smoke_report.json``.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM data-sheet peaks: memory rate and
+# float32 rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+TPU_KERNELS = {
+    "lif_step": "src/repro/kernels/lif_step.py:45",
+    "synapse_matmul": "src/repro/kernels/synapse_matmul.py:55",
+    "ell_gather": "src/repro/kernels/ell_gather.py:72",
+    "fused_step": "src/repro/kernels/fused_step.py:185",
+}
+# rtol = atol = 1e-5; the relative part of a sum's error is taken against
+# the sum of its absolute terms (Smoke.close)
+TOL = dict(rtol=1e-5, atol=1e-5)
+MAX_FLIP_SHARE = 1e-5     # 0.001 % of neurons: threshold flips
+MAIN_STEPS = 200
+WARMUP_STEPS = 20
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this "
+              "smoke test needs an NVIDIA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.kernels import ops  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: the repro_torch package is not beside this "
+              f"script ({exc})", file=sys.stderr)
+        return 2
+    return Smoke(torch).run()
+
+
+class Smoke:
+    def __init__(self, torch, device="cuda:0"):
+        from repro_torch.configs import dpsnn
+        from repro_torch.core import metrics, network, simulation
+        from repro_torch.kernels import ops, ref
+        self.torch, self.dpsnn, self.M = torch, dpsnn, metrics
+        self.net, self.sim = network, simulation
+        self.ops, self.ref = ops, ref
+        self.dev = torch.device(device)
+        self.report = {"kernels": {}, "checks": []}
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        # writing 128 MB evicts the 50 MB L2 before each timed launch
+        self.flush = torch.empty(32 << 20, dtype=torch.float32,
+                                 device=self.dev)
+
+    # ------------------------------------------------------------ helpers
+    def sync(self):
+        self.torch.cuda.synchronize(self.dev)
+
+    def time_ms(self, fn, iters=10):
+        """Median device time of ``fn`` over ``iters`` launches, each after
+        an L2 flush (CUDA events around the call alone, recorded while the
+        card is still busy with a spin kernel)."""
+        torch = self.torch
+        fn()
+        self.sync()
+        starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+        for s, e in zip(starts, ends):
+            self.flush.zero_()
+            # keep the card busy while the host enqueues the timed call, so
+            # that host-side launch overhead is not timed as device time
+            torch.cuda._sleep(2_000_000)
+            s.record()
+            fn()
+            e.record()
+        self.sync()
+        return statistics.median(s.elapsed_time(e)
+                                 for s, e in zip(starts, ends))
+
+    def close(self, name, got, want, scale=None, **tol):
+        """|got - want| <= atol + rtol * max(|want|, scale) elementwise;
+        returns the max abs error. ``scale`` is the sum of the absolute
+        terms of a float32 sum (|spikes| @ |w|, sum_k |tbl[idx] * w|):
+        summed in another order, a sum's error grows with its terms, not
+        with its value, which cancels when excitation meets inhibition."""
+        torch = self.torch
+        tol = tol or TOL
+        got, want = got.float(), want.float()
+        diff = (got - want).abs()
+        err = float(diff.max()) if got.numel() else 0.0
+        mag = want.abs() if scale is None else torch.maximum(want.abs(),
+                                                             scale)
+        bad = diff > tol["atol"] + tol["rtol"] * mag
+        if bool(bad.any()):
+            raise AssertionError(
+                f"{name}: {int(bad.sum())} values beyond rtol={tol['rtol']} "
+                f"atol={tol['atol']} (max abs err {err:.3e})")
+        return err
+
+    def close_step(self, name, got, want, scale=None):
+        """(v', c', refrac', spikes) against the plain version: spikes may
+        differ in at most MAX_FLIP_SHARE of neurons (a float32 sum taken in
+        another order can move v across the threshold); every other value
+        of the agreeing neurons is close at 1e-5, v relative to ``scale``
+        (the currents' absolute terms; the gain is below 1)."""
+        agree = got[3] == want[3]
+        flips = int((~agree).sum())
+        if flips > MAX_FLIP_SHARE * agree.numel():
+            raise AssertionError(f"{name}: {flips} spike flips in "
+                                 f"{agree.numel()} neurons")
+        err = max(self.close(f"{name}[{i}]", g[agree], w[agree],
+                             scale=None if i or scale is None
+                             else scale[agree])
+                  for i, (g, w) in enumerate(zip(got, want)))
+        return err, flips
+
+    def scale_local(self, s, w):
+        return self.ref.synapse_matmul_ref(s.abs(), w.abs())
+
+    def scale_remote(self, tbl, idx, w):
+        return self.ref.ell_gather_ref(tbl.abs(), idx, w.abs())
+
+    def scale_step(self, s_loc, w, tbl, idx, rw, ext):
+        return (self.scale_local(s_loc, w) + self.scale_remote(tbl, idx, rw)
+                + ext.abs())
+
+    def note(self, text):
+        log(text)
+        self.report["checks"].append(text)
+
+    # ------------------------------------------------------------- phases
+    def run(self) -> int:
+        torch = self.torch
+        t_start = time.perf_counter()
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+        log(smi)
+        self.report["nvidia_smi"] = smi
+        log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+            f"device {torch.cuda.get_device_name(0)}")
+
+        # 0. build the kernels from the checkout's sources
+        lib = self.ops.library()
+        log(f"phase 0: kernel library built in {lib.build_seconds:.1f} s "
+            f"({lib.path.name})")
+        for line in lib.log.splitlines():
+            if "Used" in line or "spill" in line:
+                log("  ptxas:", line.split("info    :")[-1].strip())
+
+        # 1. kernels against their plain versions
+        cfg = self.dpsnn.GRID_24
+        t0 = time.perf_counter()
+        params, state0 = self.sim.build(cfg, device=self.dev)
+        self.sync()
+        log(f"phase 1: built {cfg.name} ({cfg.n_columns} columns x "
+            f"{cfg.neurons_per_column} neurons, "
+            f"{cfg.total_equivalent_synapses/1e9:.3f}G equivalent synapses) "
+            f"on the card in {time.perf_counter()-t0:.1f} s")
+        state = self.sim.run(cfg, params, state0, WARMUP_STEPS,
+                             impl="cuda_fused").state
+        real = self.step_inputs(cfg, params, state)
+        self.check_kernels_real(cfg, params, real)
+        self.check_kernels_random(cfg, params, real)
+        self.check_ragged()
+        self.check_wide_table()
+
+        # 2. small run: three impls, one state, one drive
+        self.check_small_run()
+
+        # 3. the main path at full width, then the staged path
+        self.main_path(cfg, params, state)
+
+        kernels = [dict(name=name, route="cuda",
+                        source=f"src/repro_torch/csrc/{name}.cu",
+                        replaces=TPU_KERNELS[name],
+                        tpu_kernel=TPU_KERNELS[name],
+                        **self.report["kernels"][name])
+                   for name in TPU_KERNELS]
+        log(f"total {time.perf_counter()-t_start:.1f} s")
+        out = ROOT / "build"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_report.json").write_text(
+            json.dumps(dict(self.report, kernels=kernels), indent=1))
+        print(json.dumps({"kernels": kernels}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    def step_inputs(self, cfg, params, state):
+        """The inputs the main path's kernels see at the state's step."""
+        net = self.net
+        stencil = net.build_stencil(cfg)
+        t = int(state.t)
+        d = state.hist.shape[0]
+        ext, _ = net.external_drive(cfg, t, cfg.n_columns, self.dev)
+        s_loc = state.hist[(t - cfg.conn.min_delay_steps) % d]
+        s_flat = net.neighbour_table_single(state.hist, t, stencil,
+                                            (cfg.grid_h, cfg.grid_w))
+        return dict(v=state.lif.v, c=state.lif.c, refrac=state.lif.refrac,
+                    s_loc=s_loc, s_flat=s_flat, ext=ext)
+
+    def check_kernels_real(self, cfg, params, x):
+        torch, ops, ref, ncfg = self.torch, self.ops, self.ref, cfg.neuron
+        kinds = {}
+        # synapse_matmul, with its silent-block counter
+        counter = torch.zeros(1, dtype=torch.int64, device=self.dev)
+        got = ops.synapse_matmul(x["s_loc"], params.w_local,
+                                 silent_blocks=counter)
+        want = ref.synapse_matmul_ref(x["s_loc"], params.w_local)
+        kinds["synapse_matmul"] = self.close(
+            "synapse_matmul real", got, want,
+            scale=self.scale_local(x["s_loc"], params.w_local))
+        w64 = torch.einsum("cs,cst->ct", x["s_loc"].double(),
+                           params.w_local.double())
+        self.note(f"  synapse_matmul against float64: kernel "
+                  f"{float((got - w64).abs().max()):.2e}, plain "
+                  f"{float((want - w64).abs().max()):.2e}")
+        del w64
+        want_silent = int(ref.silent_block_count(x["s_loc"]))
+        if int(counter) != want_silent:
+            raise AssertionError(f"silent-block count {int(counter)} != "
+                                 f"plain count {want_silent}")
+        local = want
+        # ell_gather
+        got = ops.ell_gather(x["s_flat"], params.rem_flat, params.rem_w)
+        want = ref.ell_gather_ref(x["s_flat"], params.rem_flat, params.rem_w)
+        kinds["ell_gather"] = self.close(
+            "ell_gather real", got, want,
+            scale=self.scale_remote(x["s_flat"], params.rem_flat,
+                                    params.rem_w))
+        cur = local + want + x["ext"]
+        # lif_step on the real currents
+        got = ops.lif_step(ncfg, x["v"], x["c"], x["refrac"], cur)
+        want = ref.lif_step_ref(x["v"], x["c"], x["refrac"], cur,
+                                **ref.lif_constants(ncfg))
+        kinds["lif_step"], flips_lif = self.close_step("lif_step real",
+                                                       got, want)
+        # fused_step
+        args = (x["v"], x["c"], x["refrac"], x["s_loc"], params.w_local,
+                x["s_flat"], params.rem_flat, params.rem_w, x["ext"])
+        counter.zero_()
+        got = ops.fused_step(ncfg, *args, silent_blocks=counter)
+        want = ref.fused_step_ref(ncfg, *args)
+        kinds["fused_step"], flips = self.close_step(
+            "fused_step real", got, want,
+            scale=self.scale_step(x["s_loc"], params.w_local, x["s_flat"],
+                                  params.rem_flat, params.rem_w, x["ext"]))
+        if int(counter) != want_silent:
+            raise AssertionError("fused_step silent-block count differs")
+        # all-silent spikes: exact zeros
+        zeros = ops.synapse_matmul(torch.zeros_like(x["s_loc"]),
+                                   params.w_local)
+        if float(zeros.abs().max()) != 0.0:
+            raise AssertionError("synapse_matmul: all-silent input is not 0")
+        n_blocks = cfg.n_columns * -(-cfg.neurons_per_column // 128)
+        nnz = int((x["s_loc"] != 0).sum())
+        self.note(f"phase 1 real state (step {WARMUP_STEPS}): max abs err "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in kinds.items())
+                  + f"; spike flips lif {flips_lif} fused {flips}; "
+                  f"{nnz} spiking sources, silent 128-blocks "
+                  f"{want_silent}/{n_blocks}; all-silent exact zeros")
+        for name, err in kinds.items():
+            self.report["kernels"][name] = {"max_abs_err": err}
+        self.time_kernels(cfg, params, x, cur, nnz)
+
+    def time_kernels(self, cfg, params, x, cur, nnz):
+        """Kernel, plain version, one library call where there is one, and
+        the bound, at the main path's shapes and this state's data."""
+        torch, ops, ref, ncfg = self.torch, self.ops, self.ref, cfg.neuron
+        c, n = x["v"].shape
+        k = params.rem_flat.shape[-1]
+        t = x["s_flat"].shape[1]
+        f4 = 4
+        # the weight rows of the sources that spiked are all the product
+        # needs; the ELL idx+weights and the table are read once each
+        rows = nnz * n * f4
+        b_sm = 2 * c * n * f4 + rows
+        b_ell = c * t * f4 + 2 * c * n * k * f4 + c * n * f4
+        b_lif = 8 * c * n * f4
+        b_fused = (2 * c * n * f4 + rows + c * t * f4 + 2 * c * n * k * f4
+                   + 7 * c * n * f4)
+        flops = {"synapse_matmul": 2 * nnz * n, "ell_gather": 2 * c * n * k,
+                 "lif_step": 12 * c * n,
+                 "fused_step": 2 * nnz * n + 2 * c * n * k + 14 * c * n}
+        nbytes = {"synapse_matmul": b_sm, "ell_gather": b_ell,
+                  "lif_step": b_lif, "fused_step": b_fused}
+        args = (x["v"], x["c"], x["refrac"], x["s_loc"], params.w_local,
+                x["s_flat"], params.rem_flat, params.rem_w, x["ext"])
+        consts = ref.lif_constants(ncfg)
+        fns = {
+            "synapse_matmul": (
+                lambda: ops.synapse_matmul(x["s_loc"], params.w_local),
+                lambda: ref.synapse_matmul_ref(x["s_loc"], params.w_local)),
+            "ell_gather": (
+                lambda: ops.ell_gather(x["s_flat"], params.rem_flat,
+                                       params.rem_w),
+                lambda: ref.ell_gather_ref(x["s_flat"], params.rem_flat,
+                                           params.rem_w)),
+            "lif_step": (
+                lambda: ops.lif_step(ncfg, x["v"], x["c"], x["refrac"], cur),
+                lambda: ref.lif_step_ref(x["v"], x["c"], x["refrac"], cur,
+                                         **consts)),
+            "fused_step": (
+                lambda: ops.fused_step(ncfg, *args),
+                lambda: ref.fused_step_ref(ncfg, *args)),
+        }
+        library = {"synapse_matmul": self.library_bmm(x, params),
+                   "ell_gather": self.library_spmv(x, params),
+                   "lif_step": None, "fused_step": None}
+        for name, (kernel, plain) in fns.items():
+            ms = self.time_ms(kernel)
+            plain_ms = self.time_ms(plain)
+            lib_ms = (self.time_ms(library[name]) if library[name] else None)
+            t_bytes = nbytes[name] / PEAK_BYTES_PER_S * 1e3
+            t_ops = flops[name] / PEAK_F32_FLOPS * 1e3
+            entry = self.report["kernels"][name]
+            entry.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else
+                         "operations", bytes=nbytes[name], flops=flops[name])
+            if name == "fused_step":
+                # the same step with silent local spikes: the ELL + LIF part
+                silent = torch.zeros_like(x["s_loc"])
+                entry["ms_local_silent"] = self.time_ms(
+                    lambda: ops.fused_step(ncfg, *args[:3], silent,
+                                           *args[4:]))
+            log(f"  {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
+                f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
+                f"{entry['bound_ms']:.4f} ms by {entry['bound_by']}, "
+                f"{nbytes[name]/1e9:.4f} GB"
+                + (f"; with silent local spikes {entry['ms_local_silent']:.4f}"
+                   " ms" if "ms_local_silent" in entry else "") + ")")
+
+    def library_bmm(self, x, params):
+        """One cuBLAS batched product computing synapse_matmul."""
+        torch = self.torch
+        s = x["s_loc"].unsqueeze(1)
+        want = self.ref.synapse_matmul_ref(x["s_loc"], params.w_local)
+        self.close("library bmm", torch.bmm(s, params.w_local).squeeze(1),
+                   want, scale=self.scale_local(x["s_loc"], params.w_local))
+        return lambda: torch.bmm(s, params.w_local)
+
+    def library_spmv(self, x, params):
+        """One cuSPARSE CSR product computing ell_gather: row (c, n) holds
+        the entries at columns c*T + idx[c, n, k] (duplicates summed when
+        the matrix is built)."""
+        torch = self.torch
+        c, n, k = params.rem_flat.shape
+        t = x["s_flat"].shape[1]
+        rows = torch.arange(c * n, device=self.dev).repeat_interleave(k)
+        cols = (params.rem_flat.long()
+                + (torch.arange(c, device=self.dev) * t)[:, None, None])
+        a = torch.sparse_coo_tensor(
+            torch.stack([rows, cols.reshape(-1)]), params.rem_w.reshape(-1),
+            size=(c * n, c * t), check_invariants=True
+        ).coalesce().to_sparse_csr()
+        del rows, cols
+        tbl = x["s_flat"].reshape(-1)
+        want = self.ref.ell_gather_ref(x["s_flat"], params.rem_flat,
+                                       params.rem_w)
+        self.close("library spmv", (a @ tbl).reshape(c, n), want,
+                   scale=self.scale_remote(x["s_flat"], params.rem_flat,
+                                           params.rem_w))
+        return lambda: a @ tbl
+
+    def check_four(self, name, ncfg, v, cc, refrac, s_loc, w, s_flat, idx,
+                   rw, ext):
+        """All four kernels against their plain versions on one set of
+        inputs; returns the max abs errors and the fused spike flips."""
+        ops, ref = self.ops, self.ref
+        errs = {
+            "synapse_matmul": self.close(
+                f"synapse_matmul {name}", ops.synapse_matmul(s_loc, w),
+                ref.synapse_matmul_ref(s_loc, w),
+                scale=self.scale_local(s_loc, w)),
+            "ell_gather": self.close(
+                f"ell_gather {name}", ops.ell_gather(s_flat, idx, rw),
+                ref.ell_gather_ref(s_flat, idx, rw),
+                scale=self.scale_remote(s_flat, idx, rw)),
+            "lif_step": self.close_step(
+                f"lif_step {name}", ops.lif_step(ncfg, v, cc, refrac, ext),
+                ref.lif_step_ref(v, cc, refrac, ext,
+                                 **ref.lif_constants(ncfg)))[0]}
+        args = (v, cc, refrac, s_loc, w, s_flat, idx, rw, ext)
+        errs["fused_step"], flips = self.close_step(
+            f"fused_step {name}", ops.fused_step(ncfg, *args),
+            ref.fused_step_ref(ncfg, *args),
+            scale=self.scale_step(s_loc, w, s_flat, idx, rw, ext))
+        zero = ops.synapse_matmul(self.torch.zeros_like(s_loc), w)
+        if float(zero.abs().max()) != 0.0:
+            raise AssertionError(f"all-silent {name} is not 0")
+        for kname, e in errs.items():
+            entry = self.report["kernels"].setdefault(
+                kname, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], e)
+        return errs, flips
+
+    def check_kernels_random(self, cfg, params, real):
+        """Random spikes, table and state with the real weights."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(1)
+        c, n = real["v"].shape
+
+        def rnd(shape):
+            return torch.rand(shape, generator=g, device=self.dev)
+
+        s_loc = (rnd((c, n)) < 0.05).float()
+        s_flat = (rnd(real["s_flat"].shape) < 0.05).float()
+        v, cc = rnd((c, n)) * 21, rnd((c, n)) * 3
+        refrac = (rnd((c, n)) * 3).int()
+        ext = torch.poisson(torch.full((c, n), 1.62, device=self.dev),
+                            generator=g) * 0.6
+        errs, flips = self.check_four(
+            "random", cfg.neuron, v, cc, refrac, s_loc, params.w_local,
+            s_flat, params.rem_flat, params.rem_w, ext)
+        self.note(f"phase 1 random at the main shapes: max abs err "
+                  f"{max(errs.values()):.2e}, fused spike flips {flips}; "
+                  f"all-silent exact zeros")
+
+    def check_ragged(self):
+        """Ragged shapes: N = 70, 130, 257 with odd column counts."""
+        torch = self.torch
+        ncfg = self.dpsnn.GRID_24.neuron
+        g = torch.Generator(device=self.dev).manual_seed(2)
+        worst = 0.0
+        for c, n, k, o in [(3, 70, 17, 20), (5, 130, 248, 20),
+                           (7, 257, 31, 9)]:
+            def rnd(*shape):
+                return torch.rand(shape, generator=g, device=self.dev)
+            t = o * n
+            errs, _ = self.check_four(
+                f"{c}x{n}", ncfg, rnd(c, n) * 21, rnd(c, n) * 3,
+                (rnd(c, n) * 3).int(), (rnd(c, n) < 0.1).float(),
+                (rnd(c, n, n) - 0.5) * 2, (rnd(c, t) < 0.1).float(),
+                (rnd(c, n, k) * t).int().clamp_(max=t - 1),
+                (rnd(c, n, k) - 0.5) * 2, rnd(c, n) * 3)
+            worst = max(worst, *errs.values())
+        self.note(f"phase 1 ragged (3x70, 5x130, 7x257): max abs err "
+                  f"{worst:.2e}; all-silent exact zeros")
+
+    def check_wide_table(self):
+        """One ell_gather whose table is wider than 131,072 lanes."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(3)
+        c, n, k, t = 4, 1240, 497, 180_000
+        s_flat = (torch.rand((c, t), generator=g, device=self.dev)
+                  < 0.05).float()
+        idx = torch.randint(0, t, (c, n, k), generator=g, device=self.dev,
+                            dtype=torch.int32)
+        w = torch.randn((c, n, k), generator=g, device=self.dev)
+        err = self.close("ell_gather wide",
+                         self.ops.ell_gather(s_flat, idx, w),
+                         self.ref.ell_gather_ref(s_flat, idx, w),
+                         scale=self.scale_remote(s_flat, idx, w))
+        self.note(f"phase 1 wide table (T = {t}): max abs err {err:.2e}")
+
+    def check_small_run(self):
+        torch = self.torch
+        cfg = self.dpsnn.reduced(grid_h=4, grid_w=4, neurons=64, seed=0)
+        params, state = self.sim.build(cfg, device=self.dev)
+        counts = torch.stack([
+            self.net.external_drive(cfg, t, cfg.n_columns, self.dev)[1]
+            for t in range(60)])
+        res = {impl: self.sim.run(cfg, params, state, 60, impl=impl,
+                                  ext_counts=counts)
+               for impl in ("ref", "cuda", "cuda_fused")}
+        ref = res["ref"]
+        for impl in ("cuda", "cuda_fused"):
+            r = res[impl]
+            if float(r.spikes) != float(ref.spikes):
+                raise AssertionError(f"small run {impl}: {float(r.spikes)} "
+                                     f"spikes, ref {float(ref.spikes)}")
+            if float(r.events) != float(ref.events):
+                raise AssertionError(f"small run {impl}: events differ")
+            self.close(f"small run {impl} v", r.state.lif.v, ref.state.lif.v,
+                       rtol=2e-4, atol=2e-4)
+        self.note(f"phase 2 small run 4x4x64, 60 steps: {float(ref.spikes):.0f}"
+                  f" spikes, {float(ref.events):.0f} events, rate "
+                  f"{float(ref.rate_hz):.3f} Hz, equal under ref/cuda/"
+                  f"cuda_fused, v allclose 2e-4")
+
+    def timed_run(self, cfg, params, state, impl, counter=None):
+        """``MAIN_STEPS`` steps with the launch counts set to 0 just before
+        and read just after; device time by CUDA events, host time by the
+        wall clock, both ending in a synchronize."""
+        torch = self.torch
+        self.sync()
+        self.ops.reset_launches()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        w0 = time.perf_counter()
+        e0.record()
+        res = self.sim.run(cfg, params, state, MAIN_STEPS, impl=impl,
+                           silent_blocks=counter)
+        e1.record()
+        self.sync()
+        wall = time.perf_counter() - w0
+        launches = dict(self.ops.LAUNCHES)
+        return res, e0.elapsed_time(e1) / MAIN_STEPS, wall, launches
+
+    def run_rate(self, cfg, res, state):
+        """Mean rate (Hz) over the ``MAIN_STEPS`` steps from ``state`` to
+        ``res.state``: the spikes of earlier steps are not counted."""
+        spikes = float(res.spikes - state.spike_count)
+        return spikes / (cfg.n_neurons * MAIN_STEPS * cfg.neuron.dt_ms * 1e-3)
+
+    def profile(self, cfg, params, state, impl, ms_per_step, steps=20):
+        """Device time by kernel over ``steps`` steps (torch.profiler), and
+        the device's busy share: of the profiled wall time, and of
+        ``ms_per_step``, the same path's step time with the profiler off."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        self.sim.run(cfg, params, state, 2, impl=impl)
+        self.sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            self.sim.run(cfg, params, state, steps, impl=impl)
+            self.sync()
+            wall_us = (time.perf_counter() - w0) * 1e6
+        by_name = {}     # device-side events only: the kernels themselves
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[ev.key] = (by_name.get(ev.key, 0.0)
+                                   + ev.self_device_time_total)
+        device_us = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        out = dict(impl=impl, steps=steps,
+                   wall_ms_per_step=wall_us / steps / 1e3,
+                   device_ms_per_step=device_us / steps / 1e3,
+                   busy_share=device_us / wall_us,
+                   busy_share_unprofiled=device_us / steps / 1e3
+                   / ms_per_step,
+                   top_us_per_step={k[:60]: v / steps for k, v in top})
+        self.report.setdefault("profiles", []).append(out)
+        log(f"  profile {impl} ({steps} steps, profiler on): wall "
+            f"{out['wall_ms_per_step']:.4f} ms/step, device "
+            f"{out['device_ms_per_step']:.4f} ms/step, busy share "
+            f"{out['busy_share']:.3f} (of {ms_per_step:.4f} ms/step with "
+            f"the profiler off: {out['busy_share_unprofiled']:.3f}); per "
+            f"step: "
+            + ", ".join(f"{k[:40]} {v:.1f} us"
+                        for k, v in out["top_us_per_step"].items()))
+        return out
+
+    def main_path(self, cfg, params, state):
+        torch, M = self.torch, self.M
+        counter = torch.zeros(1, dtype=torch.int64, device=self.dev)
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        fused, ms, wall, launches = self.timed_run(cfg, params, state,
+                                                   "cuda_fused", counter)
+        if launches != {"lif_step": 0, "synapse_matmul": 0, "ell_gather": 0,
+                        "fused_step": MAIN_STEPS}:
+            raise AssertionError(f"cuda_fused launches {launches}")
+        self.report["kernels"]["fused_step"]["launches"] = launches[
+            "fused_step"]
+        v = fused.state.lif.v
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError("main path: non-finite v")
+        rate = self.run_rate(cfg, fused, state)
+        if not 0.0 < rate < 100.0:
+            raise AssertionError(f"main path rate {rate} Hz outside (0, 100)")
+        events = float(fused.events - state.event_count)
+        n_sblk = -(-cfg.neurons_per_column // 128)
+        silent = int(counter) / (cfg.n_columns * n_sblk * MAIN_STEPS)
+        peak_gb = torch.cuda.max_memory_allocated(self.dev) / 1e9
+        main = dict(
+            steps=MAIN_STEPS, rate_hz=rate, events=events,
+            ms_per_step=ms, wall_s=wall,
+            s_per_event=M.time_per_synaptic_event(ms * 1e-3 * MAIN_STEPS,
+                                                  events),
+            realtime_factor=M.realtime_factor(ms * 1e-3 * MAIN_STEPS,
+                                              MAIN_STEPS, cfg.neuron.dt_ms),
+            bytes_per_synapse=M.bytes_per_synapse(cfg, params, fused.state),
+            silent_block_share=silent, launches=launches,
+            peak_memory_gb=peak_gb)
+        self.report["main_path"] = main
+        log(f"phase 3 main path {cfg.name} impl=cuda_fused, {MAIN_STEPS} "
+            f"steps after {WARMUP_STEPS}: rate {rate:.4f} Hz, events "
+            f"{events:.6e}, {ms:.4f} ms/step (device), wall {wall:.3f} s, "
+            f"{main['s_per_event']:.4e} s/event, realtime factor "
+            f"{main['realtime_factor']:.4f}, bytes/synapse "
+            f"{main['bytes_per_synapse']:.4f}, silent 128-block share "
+            f"{silent:.4f}, peak memory {peak_gb:.2f} GB, launches "
+            f"{launches}")
+
+        self.profile(cfg, params, fused.state, "cuda_fused", ms)
+
+        plain, ms_ref, wall_ref, launches_ref = self.timed_run(
+            cfg, params, state, "ref")
+        if any(launches_ref.values()):
+            raise AssertionError(f"ref path launched kernels {launches_ref}")
+        rate_ref = self.run_rate(cfg, plain, state)
+        if abs(rate - rate_ref) > 0.05 * rate_ref:
+            raise AssertionError(f"main path rate {rate} Hz vs plain "
+                                 f"{rate_ref} Hz: beyond 5 %")
+        self.report["plain_path"] = dict(rate_hz=rate_ref,
+                                         ms_per_step=ms_ref, wall_s=wall_ref)
+        log(f"  plain path (impl=ref) same steps and drive: rate "
+            f"{rate_ref:.4f} Hz, {ms_ref:.4f} ms/step (device), wall "
+            f"{wall_ref:.3f} s")
+
+        # one step from the same state, kernel against plain
+        one_k = self.sim.run(cfg, params, fused.state, 1, impl="cuda_fused")
+        one_p = self.sim.run(cfg, params, fused.state, 1, impl="ref")
+        sk, sp = one_k.state, one_p.state
+        t = int(fused.state.t)
+        d = sk.hist.shape[0]
+        x = self.step_inputs(cfg, params, fused.state)
+        scale = self.scale_step(x["s_loc"], params.w_local, x["s_flat"],
+                                params.rem_flat, params.rem_w, x["ext"])
+        _err, flips = self.close_step(
+            "one step", (sk.lif.v, sk.lif.c, sk.lif.refrac, sk.hist[t % d]),
+            (sp.lif.v, sp.lif.c, sp.lif.refrac, sp.hist[t % d]), scale=scale)
+        cur_k = (self.ops.synapse_matmul(x["s_loc"], params.w_local)
+                 + self.ops.ell_gather(x["s_flat"], params.rem_flat,
+                                       params.rem_w) + x["ext"])
+        cur_p = (self.net.deliver_local_ref(x["s_loc"], params.w_local)
+                 + self.net.deliver_remote_ref(x["s_flat"], params.rem_flat,
+                                               params.rem_w) + x["ext"])
+        cur_err = self.close("one step currents", cur_k, cur_p, scale=scale)
+        self.note(f"  one step from step {t}: currents max abs err "
+                  f"{cur_err:.2e}, v allclose 1e-5, spike flips {flips} of "
+                  f"{v.numel()}")
+
+        staged, ms_st, wall_st, launches_st = self.timed_run(
+            cfg, params, state, "cuda")
+        if launches_st != {"lif_step": MAIN_STEPS,
+                           "synapse_matmul": MAIN_STEPS,
+                           "ell_gather": MAIN_STEPS, "fused_step": 0}:
+            raise AssertionError(f"cuda launches {launches_st}")
+        for name in ("lif_step", "synapse_matmul", "ell_gather"):
+            self.report["kernels"][name]["launches"] = launches_st[name]
+        self.profile(cfg, params, fused.state, "cuda", ms_st)
+        rate_st = self.run_rate(cfg, staged, state)
+        if abs(rate_st - rate_ref) > 0.05 * rate_ref:
+            raise AssertionError(f"staged path rate {rate_st} Hz vs plain "
+                                 f"{rate_ref} Hz: beyond 5 %")
+        self.report["staged_path"] = dict(rate_hz=rate_st, ms_per_step=ms_st,
+                                          wall_s=wall_st,
+                                          launches=launches_st)
+        log(f"  staged path (impl=cuda) same steps: rate {rate_st:.4f} Hz, "
+            f"{ms_st:.4f} ms/step (device), wall {wall_st:.3f} s, launches "
+            f"{launches_st}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,95 @@
+"""Simulation loop and summary metrics, single shard (the port of
+``repro/core/simulation.py``). The reference's ``lax.scan`` is a Python
+loop here; nothing in it waits for the card until the caller reads a
+result.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs.base import DPSNNConfig
+from repro_torch.core import network as net
+from repro_torch.core.connectivity import build_stencil
+from repro_torch.core.network import NetworkParams, NetworkState
+
+
+class SimResult(NamedTuple):
+    state: NetworkState
+    rate_hz: torch.Tensor      # mean firing rate over the run
+    events: torch.Tensor       # total synaptic events (paper metric)
+    spikes: torch.Tensor       # total spikes
+    rate_trace: torch.Tensor   # (T,) per-step population rate (Hz)
+    params: NetworkParams | None = None
+
+
+def build(cfg: DPSNNConfig, *, device="cuda"):
+    """Generate params + fresh state for the full grid on one shard, on
+    ``device`` (CUDA by default; raises when there is no card)."""
+    dev = net.resolve_device(device)
+    col_ids = range(cfg.n_columns)
+    params = net.build_params(cfg, col_ids, dev)
+    state = net.init_state(cfg, col_ids, device=dev)
+    return params, state
+
+
+def _recip(x: float) -> float:
+    """``1 / x`` in float32. The rates divide by constants as the reference
+    does after XLA folds each division into a multiplication by the
+    constant's float32 reciprocal, so both give the same bits."""
+    return float(1.0 / torch.tensor(x, dtype=torch.float32))
+
+
+def run(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
+        n_steps: int, impl: str = "cuda_fused",
+        ext_counts: torch.Tensor | None = None,
+        silent_blocks: torch.Tensor | None = None) -> SimResult:
+    """Simulate ``n_steps`` of ``cfg.neuron.dt_ms`` each.
+
+    ``ext_counts`` (n_steps, C, N), when given, are the Poisson drive
+    counts of each step (the tests pass the reference's); else each step
+    draws its own (``network.external_drive``). ``silent_blocks`` is
+    passed on to every step (``network.step_single``).
+    """
+    net.check_supported(cfg, impl)
+    stencil = build_stencil(cfg)
+    grid_hw = (cfg.grid_h, cfg.grid_w)
+    n_neurons = state.hist.shape[1] * state.hist.shape[2]
+    if ext_counts is not None:
+        ext_counts = torch.as_tensor(ext_counts, device=state.hist.device)
+        if ext_counts.shape[0] < n_steps:
+            raise ValueError(f"ext_counts has {ext_counts.shape[0]} steps, "
+                             f"the run takes {n_steps}")
+    per_neuron = _recip(n_neurons)
+    per_second = _recip(cfg.neuron.dt_ms * 1e-3)
+    rates = []
+    final = state
+    for i in range(n_steps):
+        s0 = final
+        final = net.step_single(
+            cfg, params, s0, stencil=stencil, grid_hw=grid_hw, impl=impl,
+            ext_counts=None if ext_counts is None else ext_counts[i],
+            silent_blocks=silent_blocks)
+        rates.append((final.spike_count - s0.spike_count) * per_neuron
+                     * per_second)
+    sim_seconds = n_steps * cfg.neuron.dt_ms * 1e-3
+    rate_trace = (torch.stack(rates) if rates else
+                  torch.zeros((0,), device=state.hist.device))
+    return SimResult(
+        state=final,
+        rate_hz=final.spike_count * _recip(n_neurons * sim_seconds),
+        events=final.event_count,
+        spikes=final.spike_count,
+        rate_trace=rate_trace,
+        params=params,
+    )
+
+
+def events_per_simulated_second(cfg: DPSNNConfig, rate_hz: float) -> float:
+    """Analytic synaptic-event throughput (paper's normalisation):
+    recurrent events = rate * recurrent synapses; external events =
+    nu_ext * C_ext * neurons."""
+    rec = rate_hz * (cfg.local_fanin + cfg.remote_fanin) * cfg.n_neurons
+    ext = cfg.nu_ext_hz * cfg.c_ext * cfg.n_neurons
+    return rec + ext

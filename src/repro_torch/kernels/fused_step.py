@@ -1,0 +1,63 @@
+"""Fused column step on the card: ``csrc/fused_step.cu``.
+
+Replaces ``repro/kernels/fused_step.py::fused_step`` in its static,
+guard-off variant (the STDP-trace and guard-flag epilogues wait for the
+plasticity and integrity slices). Per target neuron: the block-skipped
+local product, + the ELL gather, + the external drive, then LIF+SFA,
+with nothing written to device memory between the stages. Bound by
+bytes: the weight rows the spikes need plus the ELL idx and weights
+plus the state. One CTA per (column, 128-target block); see the source
+for the design. Its plain version is ``ref.fused_step_ref``.
+
+``silent_blocks`` counts skipped (column, 128-source block) pairs, as in
+``synapse_matmul``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.lif_step import _c_lif
+from repro_torch.kernels.ref import (fused_step_ref, lif_constants,
+                                     silent_block_count)
+from repro_torch.kernels.synapse_matmul import _counter_arg, _counter_ptr
+
+
+def fused_step(ncfg, v, c, refrac, s_loc, w_local, s_flat, rem_flat, rem_w,
+               ext, *, silent_blocks: torch.Tensor | None = None):
+    """One static step over all columns of a shard.
+
+    ``v, c, refrac, s_loc, ext`` (C, N); ``w_local`` (C, N, N) [src, tgt];
+    ``s_flat`` (C, T) neighbour-spike table; ``rem_flat, rem_w`` (C, N, K).
+    Returns ``(v', c', refrac', spikes)``.
+    """
+    if v.device.type == "cpu":
+        if silent_blocks is not None:
+            silent_blocks += silent_block_count(s_loc)
+        return fused_step_ref(ncfg, v, c, refrac, s_loc, w_local, s_flat,
+                              rem_flat, rem_w, ext)
+    nc, n = v.shape
+    t = s_flat.shape[1]
+    k = rem_flat.shape[-1]
+    f32 = torch.float32
+    _build.check_args("fused_step", v.device,
+                      v=(v, f32, (nc, n)), c=(c, f32, (nc, n)),
+                      refrac=(refrac, torch.int32, (nc, n)),
+                      s_loc=(s_loc, f32, (nc, n)),
+                      w_local=(w_local, f32, (nc, n, n)),
+                      s_flat=(s_flat, f32, (nc, t)),
+                      rem_flat=(rem_flat, torch.int32, (nc, n, k)),
+                      rem_w=(rem_w, f32, (nc, n, k)),
+                      ext=(ext, f32, (nc, n)),
+                      **_counter_arg(silent_blocks))
+    v_out, c_out, s_out = (torch.empty_like(v) for _ in range(3))
+    r_out = torch.empty_like(refrac)
+    _build.launch("fused_step", "repro_fused_step", v.device,
+                  s_loc.data_ptr(), w_local.data_ptr(), s_flat.data_ptr(),
+                  rem_flat.data_ptr(), rem_w.data_ptr(), ext.data_ptr(),
+                  v.data_ptr(), c.data_ptr(), refrac.data_ptr(),
+                  v_out.data_ptr(), c_out.data_ptr(), r_out.data_ptr(),
+                  s_out.data_ptr(), nc, n, t, k,
+                  *_c_lif(lif_constants(ncfg, v.dtype)),
+                  _counter_ptr(silent_blocks))
+    return v_out, c_out, r_out, s_out

@@ -1,0 +1,18 @@
+"""Public wrappers of the port's kernels.
+
+``impl='cuda'`` in core/network.py takes :func:`synapse_matmul`,
+:func:`ell_gather` and :func:`lif_step`; ``impl='cuda_fused'`` takes
+:func:`fused_step`. Each wrapper runs its plain PyTorch version for CPU
+tensors and launches its CUDA kernel for CUDA tensors, or raises.
+``LAUNCHES`` counts the kernel launches by name.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels._build import LAUNCHES, library, reset_launches
+from repro_torch.kernels.ell_gather import ell_gather
+from repro_torch.kernels.fused_step import fused_step
+from repro_torch.kernels.lif_step import lif_step
+from repro_torch.kernels.synapse_matmul import synapse_matmul
+
+__all__ = ["synapse_matmul", "ell_gather", "lif_step", "fused_step",
+           "LAUNCHES", "reset_launches", "library"]

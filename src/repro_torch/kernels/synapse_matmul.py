@@ -1,0 +1,51 @@
+"""Block-event-driven local synaptic delivery on the card:
+``csrc/synapse_matmul.cu``.
+
+Replaces ``repro/kernels/synapse_matmul.py::synapse_matmul``:
+``out[c, t] = sum_s spikes[c, s] * w[c, s, t]`` with float32
+accumulation. Bound by bytes: a batched vector-matrix product whose
+weights are read once. One CTA per (column, 128-target block), one
+thread per target; a 128-source block whose spikes are all zero is
+skipped before its weight tile is read, and in an active block only the
+rows of spiking sources are read. Its plain version is ``ref.synapse_matmul_ref``.
+
+``silent_blocks``, when given, is a one-element int64 tensor on the
+same device to which the call adds the number of (column, 128-source
+block) pairs it skipped.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import silent_block_count, synapse_matmul_ref
+
+
+def synapse_matmul(spikes: torch.Tensor, w_local: torch.Tensor, *,
+                   silent_blocks: torch.Tensor | None = None) -> torch.Tensor:
+    """(C, N) x (C, N, N)[src, tgt] -> (C, N)."""
+    if spikes.device.type == "cpu":
+        if silent_blocks is not None:
+            silent_blocks += silent_block_count(spikes)
+        return synapse_matmul_ref(spikes, w_local)
+    c, n = spikes.shape
+    f32 = torch.float32
+    _build.check_args("synapse_matmul", spikes.device,
+                      spikes=(spikes, f32, (c, n)),
+                      w_local=(w_local, f32, (c, n, n)),
+                      **_counter_arg(silent_blocks))
+    out = torch.empty_like(spikes)
+    _build.launch("synapse_matmul", "repro_synapse_matmul", spikes.device,
+                  spikes.data_ptr(), w_local.data_ptr(), out.data_ptr(), c, n,
+                  _counter_ptr(silent_blocks))
+    return out
+
+
+def _counter_arg(counter: torch.Tensor | None) -> dict:
+    if counter is None:
+        return {}
+    return {"silent_blocks": (counter, torch.int64, (1,))}
+
+
+def _counter_ptr(counter: torch.Tensor | None):
+    return None if counter is None else counter.data_ptr()

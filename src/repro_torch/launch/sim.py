@@ -1,0 +1,84 @@
+"""DPSNN simulation entry point on one card (the paper's workload, one shard).
+
+    PYTHONPATH=src python -m repro_torch.launch.sim --grid 24x24 \
+        --neurons 1240 --steps 200 [--impl cuda_fused|cuda|ref] \
+        [--device cuda|cpu] [--seed 42]
+
+The network is built on the device and the kernels from the sources,
+both before the clock starts; ``WARMUP_STEPS`` steps run untimed, and
+the timed steps end in ``torch.cuda.synchronize()``. The rate and the
+events count the timed steps alone. ``--mesh`` and ``--stdp`` wait for
+their slices of the port.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs.base import DPSNNConfig
+from repro_torch.core import metrics as M
+from repro_torch.core import network as net
+from repro_torch.core import simulation as sim
+from repro_torch.kernels import ops
+
+# untimed steps before the clock starts: the first steps on a card pay
+# for the CUDA context, the random generator and the library's loading
+WARMUP_STEPS = 2
+
+
+def parse_grid(s: str):
+    h, w = s.split("x")
+    return int(h), int(w)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--grid", default="8x8")
+    ap.add_argument("--neurons", type=int, default=64)
+    ap.add_argument("--steps", type=int, default=500)
+    ap.add_argument("--impl", default="cuda_fused", choices=net.IMPLS)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=42)
+    args = ap.parse_args(argv)
+
+    gh, gw = parse_grid(args.grid)
+    cfg = DPSNNConfig(grid_h=gh, grid_w=gw, neurons_per_column=args.neurons,
+                      seed=args.seed)
+    net.check_supported(cfg, args.impl)
+    device = net.resolve_device(args.device)
+    print(f"grid {gh}x{gw}, {cfg.n_neurons} neurons, "
+          f"{cfg.recurrent_synapses/1e6:.1f}M recurrent synapses "
+          f"({cfg.local_fanin}+{cfg.remote_fanin}/neuron), "
+          f"plasticity off, impl {args.impl} on {device}")
+
+    if device.type == "cuda" and args.impl != "ref":
+        ops.library()
+    params, state = sim.build(cfg, device=device)
+    state = sim.run(cfg, params, state, WARMUP_STEPS, impl=args.impl).state
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    sync()
+    t0 = time.perf_counter()
+    res = sim.run(cfg, params, state, args.steps, impl=args.impl)
+    sync()
+    dt = time.perf_counter() - t0
+    sim_s = args.steps * cfg.neuron.dt_ms * 1e-3
+    spikes = float(res.spikes - state.spike_count)
+    rate = spikes / (cfg.n_neurons * sim_s)
+    events = float(res.events - state.event_count)
+    print(f"bytes/synapse: {M.bytes_per_synapse(cfg, params, res.state):.2f}")
+    print(f"{args.steps} steps in {dt:.2f}s "
+          f"(after {WARMUP_STEPS} warm-up steps) | rate {rate:.2f} Hz | "
+          f"{events:.3e} synaptic events | "
+          f"{M.time_per_synaptic_event(dt, events):.3e} s/event | "
+          f"{dt/sim_s:.1f}x slower than real time")
+    return res
+
+
+if __name__ == "__main__":
+    main()

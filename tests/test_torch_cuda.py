@@ -1,0 +1,66 @@
+"""The port's CUDA kernels on the card: against their plain PyTorch
+versions (``chip_smoke.py``'s ragged-shape checks), the wrappers' input
+checks, and a small run under the three impls. Marked ``cuda``: they
+skip with a reason where there is no card or no nvcc. This file imports
+neither JAX nor the reference, so it also runs on a machine that has
+only PyTorch:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+"""
+import pathlib
+import sys
+
+import pytest
+import torch
+
+from repro_torch.configs.base import DPSNNConfig
+from repro_torch.core import simulation as sim
+from repro_torch.kernels import _build, ops
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    if _build.nvcc_path() is None:
+        pytest.skip("needs nvcc to build the kernels")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain(cuda_device):
+    """All four kernels against their plain versions at N = 70, 130, 257
+    with odd column counts, and all-silent spikes giving exact zeros: the
+    checks of ``chip_smoke.Smoke.check_ragged``, which raises on a miss."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    chip_smoke.Smoke(torch, str(cuda_device)).check_ragged()
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_bad_inputs(cuda_device):
+    s = torch.zeros(2, 40, device=cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.synapse_matmul(s, torch.zeros(2, 40, 40, dtype=torch.bfloat16,
+                                          device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.synapse_matmul(s, torch.zeros(2, 40, 40, device=cuda_device)
+                           .transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_small_run_impls_agree(cuda_device):
+    cfg = DPSNNConfig(grid_h=4, grid_w=4, neurons_per_column=64, seed=0)
+    params, state = sim.build(cfg, device=cuda_device)
+    runs = {impl: sim.run(cfg, params, state, 60, impl=impl)
+            for impl in ("ref", "cuda", "cuda_fused")}
+    for impl in ("cuda", "cuda_fused"):
+        assert float(runs[impl].spikes) == float(runs["ref"].spikes)
+        assert float(runs[impl].events) == float(runs["ref"].events)
+        torch.testing.assert_close(runs[impl].state.lif.v,
+                                   runs["ref"].state.lif.v,
+                                   rtol=2e-4, atol=2e-4)
