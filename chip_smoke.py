@@ -8,16 +8,23 @@ then, on the card:
 
 1. holds every kernel against its plain PyTorch version at the main
    path's shapes (inputs from a real 24x24-grid state after 20 steps,
-   and random ones), at ragged shapes, on all-silent spikes and on a
-   table wider than 131,072 lanes, and times each (kernel, plain
-   version, one library call where there is one, and the bound);
-2. runs a 4x4-column, 64-neuron network for 60 steps under the three
-   impls from one state and one drive: equal spikes and events;
+   static and plastic, and random ones), at ragged shapes, on all-silent
+   spikes and on a table wider than 131,072 lanes, and times each
+   (kernel, plain version, one library call where there is one, and the
+   bound); ``stdp_dense_update`` and the fused step's STDP-trace and
+   guard-flag epilogues are held to the bit;
+2. runs a 4x4-column, 64-neuron network for 60 steps, and a plastic
+   guarded 4x4x48 one for 100, under the three impls from one state and
+   one drive: equal spikes and events;
 3. drives the main path, the paper's 24x24 grid of 1240-neuron columns
    (``impl="cuda_fused"``, one ``fused_step`` launch per step), and the
    staged path (``impl="cuda"``) over the same steps, with the launch
    counts set to 0 just before each and read just after, and checks the
-   rate against the plain path.
+   rate against the plain path;
+4. drives the plastic guarded path on the same grid (STDP and the
+   integrity guard on) in the same way under ``cuda_fused``, ``cuda``
+   and ``ref``, checks rates, weights and the guard, and shows that the
+   guard leaves 50 plastic steps bitwise as they were without it.
 
 Every phase raises on failure and the script exits non-zero. Without a
 card, or without the rest of the repository beside it, it exits
@@ -27,6 +34,7 @@ JSON; a fuller report goes to ``build/chip_smoke_report.json``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -46,13 +54,18 @@ TPU_KERNELS = {
     "synapse_matmul": "src/repro/kernels/synapse_matmul.py:55",
     "ell_gather": "src/repro/kernels/ell_gather.py:72",
     "fused_step": "src/repro/kernels/fused_step.py:185",
+    "stdp_dense_update": "src/repro/kernels/stdp_update.py:76",
 }
+SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in TPU_KERNELS}
+SOURCES["stdp_dense_update"] = "src/repro_torch/csrc/stdp_update.cu"
 # rtol = atol = 1e-5; the relative part of a sum's error is taken against
 # the sum of its absolute terms (Smoke.close)
 TOL = dict(rtol=1e-5, atol=1e-5)
 MAX_FLIP_SHARE = 1e-5     # 0.001 % of neurons: threshold flips
 MAIN_STEPS = 200
 WARMUP_STEPS = 20
+NEUTRAL_STEPS = 50        # guard on against off, plastic, bitwise
+PLASTIC_TOL = dict(rtol=1e-6, atol=1e-6)   # weights across impls
 
 
 def log(*args):
@@ -77,12 +90,14 @@ def main() -> int:
 
 class Smoke:
     def __init__(self, torch, device="cuda:0"):
-        from repro_torch.configs import dpsnn
-        from repro_torch.core import metrics, network, simulation
+        from repro_torch.configs import base, dpsnn
+        from repro_torch.core import connectivity, metrics, network, simulation
         from repro_torch.kernels import ops, ref
         self.torch, self.dpsnn, self.M = torch, dpsnn, metrics
         self.net, self.sim = network, simulation
         self.ops, self.ref = ops, ref
+        self.STDPConfig, self.GuardConfig = base.STDPConfig, base.GuardConfig
+        self.neuron_types = connectivity.neuron_types
         self.dev = torch.device(device)
         self.report = {"kernels": {}, "checks": []}
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -122,15 +137,18 @@ class Smoke:
         returns the max abs error. ``scale`` is the sum of the absolute
         terms of a float32 sum (|spikes| @ |w|, sum_k |tbl[idx] * w|):
         summed in another order, a sum's error grows with its terms, not
-        with its value, which cancels when excitation meets inhibition."""
+        with its value, which cancels when excitation meets inhibition.
+        Equal values (NaN against NaN too) agree; a NaN against a number
+        does not."""
         torch = self.torch
         tol = tol or TOL
         got, want = got.float(), want.float()
-        diff = (got - want).abs()
+        same = (got == want) | (got.isnan() & want.isnan())
+        diff = torch.where(same, 0.0, (got - want).abs())
         err = float(diff.max()) if got.numel() else 0.0
         mag = want.abs() if scale is None else torch.maximum(want.abs(),
                                                              scale)
-        bad = diff > tol["atol"] + tol["rtol"] * mag
+        bad = (diff > tol["atol"] + tol["rtol"] * mag) | diff.isnan()
         if bool(bad.any()):
             raise AssertionError(
                 f"{name}: {int(bad.sum())} values beyond rtol={tol['rtol']} "
@@ -153,6 +171,13 @@ class Smoke:
                              else scale[agree])
                   for i, (g, w) in enumerate(zip(got, want)))
         return err, flips
+
+    def equal(self, name, got, want):
+        """Raise unless ``got`` equals ``want`` to the bit."""
+        if not self.torch.equal(got, want):
+            n_bad = int((got != want).sum())
+            raise AssertionError(f"{name}: {n_bad} of {want.numel()} values "
+                                 f"differ from the plain version")
 
     def scale_local(self, s, w):
         return self.ref.synapse_matmul_ref(s.abs(), w.abs())
@@ -202,18 +227,32 @@ class Smoke:
                              impl="cuda_fused").state
         real = self.step_inputs(cfg, params, state)
         self.check_kernels_real(cfg, params, real)
+        # the plastic guarded path's inputs: 20 plastic steps on the same
+        # network, STDPConfig() defaults and the guard on
+        pcfg = self.plastic_cfg(cfg)
+        pstate0 = self.net.init_state(pcfg, range(cfg.n_columns),
+                                      device=self.dev)
+        pwarm = self.sim.run(pcfg, params, pstate0, WARMUP_STEPS,
+                             impl="cuda_fused")
+        self.check_plastic_real(pcfg, pwarm)
         self.check_kernels_random(cfg, params, real)
         self.check_ragged()
         self.check_wide_table()
 
-        # 2. small run: three impls, one state, one drive
+        # 2. small runs: three impls, one state, one drive
         self.check_small_run()
+        self.check_small_plastic_run()
 
         # 3. the main path at full width, then the staged path
         self.main_path(cfg, params, state)
+        del state, real
 
-        kernels = [dict(name=name, route="cuda",
-                        source=f"src/repro_torch/csrc/{name}.cu",
+        # 4. the plastic guarded path at full width, and the guard's
+        # neutrality on it
+        self.plastic_path(pcfg, params, pwarm)
+        self.guard_neutrality(pcfg, pwarm)
+
+        kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                         replaces=TPU_KERNELS[name],
                         tpu_kernel=TPU_KERNELS[name],
                         **self.report["kernels"][name])
@@ -228,6 +267,149 @@ class Smoke:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+
+    def expected_launches(self, **counts):
+        """Every kernel's launch count: ``counts``, and 0 for the rest."""
+        return {name: counts.get(name, 0) for name in self.ops.LAUNCHES}
+
+    def plastic_cfg(self, cfg):
+        """``cfg`` with STDP (``STDPConfig()`` defaults) and the guard on."""
+        return dataclasses.replace(cfg, stdp=True,
+                                   guard=self.GuardConfig(enabled=True))
+
+    def stdp_args(self, cfg, params, state):
+        """The dense update's inputs as ``core/simulation.py`` hands them
+        over after the state's last step: weights, x_pre_exc, spk_exc,
+        spikes, x_post; and its constants."""
+        d = state.hist.shape[0]
+        spikes = state.hist[(int(state.t) - 1) % d]
+        exc = (~self.neuron_types(cfg, self.dev)).float()
+        scfg = cfg.stdp_cfg
+        kw = dict(a_plus=scfg.a_plus, a_minus=scfg.a_minus, lr=scfg.lr,
+                  w_max=scfg.w_max_factor * cfg.conn.j_exc)
+        return (params.w_local, state.stdp.x_pre * exc, spikes * exc, spikes,
+                state.stdp.x_post), kw
+
+    def check_stdp(self, name, args, kw):
+        """stdp_dense_update against its plain version, to the bit; and
+        the same inputs with silent spikes and the weights tripled (most
+        above w_max): the clip alone."""
+        ops, ref, torch = self.ops, self.ref, self.torch
+        self.equal(f"stdp_dense_update {name}",
+                   ops.stdp_dense_update(*args, **kw),
+                   ref.stdp_dense_update_ref(*args, **kw))
+        w3, z = args[0] * 3.0, torch.zeros_like(args[3])
+        silent = (w3, args[1], z, z, args[4])
+        got = ops.stdp_dense_update(*silent, **kw)
+        self.equal(f"stdp_dense_update {name} all-silent", got,
+                   ref.stdp_dense_update_ref(*silent, **kw))
+        self.equal(f"stdp_dense_update {name} clip only", got,
+                   torch.where(w3 > 0, w3.clamp(0.0, kw["w_max"]), w3))
+        entry = self.report["kernels"].setdefault(
+            "stdp_dense_update", {"max_abs_err": 0.0})
+        return entry
+
+    def check_epilogues(self, name, ncfg, args, x_pre, x_post, scfg, gcfg,
+                        scale=None):
+        """fused_step's STDP, guard and STDP+guard variants against
+        fused_step_ref: (v', c', refrac', spikes) as ``close_step`` holds
+        them, the traces to the bit on the neurons whose spikes agree, the
+        flags to the bit. Returns the flags and the spike flips."""
+        ops, ref = self.ops, self.ref
+        flips = 0
+        for sc, gc in ((scfg, None), (None, gcfg), (scfg, gcfg)):
+            tag = "+".join(k for k, on in (("stdp", sc), ("guard", gc)) if on)
+            tr = (x_pre, x_post) if sc is not None else ()
+            got = ops.fused_step(ncfg, *args, *tr, scfg=sc, gcfg=gc)
+            want = ref.fused_step_ref(ncfg, *args, *tr, scfg=sc, gcfg=gc)
+            _err, f = self.close_step(f"fused_step {tag} {name}", got[:4],
+                                      want[:4], scale=scale)
+            flips = max(flips, f)
+            agree = got[3] == want[3]
+            if sc is not None:
+                for i, leaf in ((4, "x_pre"), (5, "x_post")):
+                    self.equal(f"fused_step {tag} {name} {leaf}",
+                               got[i][agree], want[i][agree])
+            if gc is not None:
+                self.equal(f"fused_step {tag} {name} flags", got[-1],
+                           want[-1])
+                flags = got[-1].tolist()
+        return flags, flips
+
+    def silent_tile_share(self, spk_exc, spikes):
+        """Share of (column, 128-source block, 128-target block) tiles of
+        the dense update whose source and target spike slices are both
+        silent: the tiles that skip the products."""
+        torch, blk = self.torch, self.ref.BLK
+        c, n = spikes.shape
+
+        def active(x):
+            x = torch.nn.functional.pad(x, (0, (-n) % blk))
+            return (x.reshape(c, -1, blk) != 0).any(dim=-1)
+        s_act, t_act = active(spk_exc), active(spikes)
+        return float((~s_act[:, :, None] & ~t_act[:, None, :]).float().mean())
+
+    def check_plastic_real(self, pcfg, pwarm):
+        """The plastic path's kernels on its real inputs after 20 plastic
+        steps: stdp_dense_update to the bit, fused_step's epilogues, and
+        the times of both."""
+        torch, ops, ref, ncfg = self.torch, self.ops, self.ref, pcfg.neuron
+        params, state = pwarm.params, pwarm.state
+        args, kw = self.stdp_args(pcfg, params, state)
+        entry = self.check_stdp("real", args, kw)
+        share = self.silent_tile_share(args[2], args[3])
+        x = self.step_inputs(pcfg, params, state)
+        fargs = (x["v"], x["c"], x["refrac"], x["s_loc"], params.w_local,
+                 x["s_flat"], params.rem_flat, params.rem_w, x["ext"])
+        tr = (state.stdp.x_pre, state.stdp.x_post)
+        scale = self.scale_step(x["s_loc"], params.w_local, x["s_flat"],
+                                params.rem_flat, params.rem_w, x["ext"])
+        flags, flips = self.check_epilogues("real", ncfg, fargs, *tr,
+                                            pcfg.stdp_cfg, pcfg.guard,
+                                            scale=scale)
+        if any(flags):
+            raise AssertionError(f"guard flags {flags} on a healthy state")
+        c, n = args[3].shape
+        nbytes = 2 * c * n * n * 4 + 4 * c * n * 4
+        flops = 7 * c * n * n
+        ms = self.time_ms(lambda: ops.stdp_dense_update(*args, **kw))
+        plain_ms = self.time_ms(
+            lambda: ref.stdp_dense_update_ref(*args, **kw), iters=3)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        entry.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                     bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     bytes=nbytes, flops=flops, silent_tile_share=share)
+        # the fused step's variants on the same plastic inputs, in turns
+        scfg, gcfg = pcfg.stdp_cfg, pcfg.guard
+        variants = {"static": {}, "stdp": dict(scfg=scfg),
+                    "guard": dict(gcfg=gcfg),
+                    "stdp_guard": dict(scfg=scfg, gcfg=gcfg)}
+        fused = self.report["kernels"]["fused_step"]
+        fused["ms_variants"] = {
+            tag: self.time_ms(lambda v=v: ops.fused_step(
+                ncfg, *fargs, *(tr if "scfg" in v else ()), **v))
+            for tag, v in variants.items()}
+        fused["plain_ms_stdp_guard"] = self.time_ms(
+            lambda: ref.fused_step_ref(ncfg, *fargs, *tr, scfg=scfg,
+                                       gcfg=gcfg))
+        fused["bound_ms_stdp_guard"] = (
+            fused["bound_ms"] + (4 * c * n * 4 + c * 4) / PEAK_BYTES_PER_S
+            * 1e3)
+        log(f"phase 1 plastic real state (step {WARMUP_STEPS}): "
+            f"stdp_dense_update equal to its plain version (and all-silent "
+            f"clip only), silent tile share {share:.4f}; fused_step stdp/"
+            f"guard variants: traces and flags equal, spike flips {flips}")
+        log(f"  stdp_dense_update: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+            f"library -, bound {entry['bound_ms']:.4f} ms by "
+            f"{entry['bound_by']}, {nbytes/1e9:.4f} GB)")
+        log("  fused_step variants on the plastic inputs: "
+            + ", ".join(f"{k} {v:.4f} ms"
+                        for k, v in fused["ms_variants"].items())
+            + f" (with both epilogues: plain "
+            f"{fused['plain_ms_stdp_guard']:.4f} ms, bound "
+            f"{fused['bound_ms_stdp_guard']:.4f} ms)")
 
     def step_inputs(self, cfg, params, state):
         """The inputs the main path's kernels see at the state's step."""
@@ -456,14 +638,27 @@ class Smoke:
         errs, flips = self.check_four(
             "random", cfg.neuron, v, cc, refrac, s_loc, params.w_local,
             s_flat, params.rem_flat, params.rem_w, ext)
+        exc = (~self.neuron_types(cfg, self.dev)).float()
+        spikes = (rnd((c, n)) < 0.05).float()
+        for lr in (1.0, 0.7):
+            self.check_stdp(f"random lr={lr}", (
+                params.w_local, rnd((c, n)) * 3 * exc, spikes * exc, spikes,
+                rnd((c, n)) * 3), dict(a_plus=0.01, a_minus=0.012, lr=lr,
+                                       w_max=0.84))
         self.note(f"phase 1 random at the main shapes: max abs err "
                   f"{max(errs.values()):.2e}, fused spike flips {flips}; "
-                  f"all-silent exact zeros")
+                  f"all-silent exact zeros; stdp_dense_update equal to its "
+                  f"plain version at lr 1 and 0.7, and all-silent")
 
     def check_ragged(self):
-        """Ragged shapes: N = 70, 130, 257 with odd column counts."""
+        """Ragged shapes: N = 70, 130, 257 with odd column counts. The four
+        kernels of the static step; stdp_dense_update at lr 1 and 0.7 and
+        all-silent; fused_step's epilogues on a state with one NaN v and
+        one v at -1e4, in non-refractory neurons of the first and last
+        column."""
         torch = self.torch
         ncfg = self.dpsnn.GRID_24.neuron
+        scfg, gcfg = self.STDPConfig(), self.GuardConfig(enabled=True)
         g = torch.Generator(device=self.dev).manual_seed(2)
         worst = 0.0
         for c, n, k, o in [(3, 70, 17, 20), (5, 130, 248, 20),
@@ -471,15 +666,37 @@ class Smoke:
             def rnd(*shape):
                 return torch.rand(shape, generator=g, device=self.dev)
             t = o * n
-            errs, _ = self.check_four(
-                f"{c}x{n}", ncfg, rnd(c, n) * 21, rnd(c, n) * 3,
-                (rnd(c, n) * 3).int(), (rnd(c, n) < 0.1).float(),
-                (rnd(c, n, n) - 0.5) * 2, (rnd(c, t) < 0.1).float(),
-                (rnd(c, n, k) * t).int().clamp_(max=t - 1),
-                (rnd(c, n, k) - 0.5) * 2, rnd(c, n) * 3)
+            v, refrac = rnd(c, n) * 21, (rnd(c, n) * 3).int()
+            args = (v, rnd(c, n) * 3, refrac, (rnd(c, n) < 0.1).float(),
+                    (rnd(c, n, n) - 0.5) * 2, (rnd(c, t) < 0.1).float(),
+                    (rnd(c, n, k) * t).int().clamp_(max=t - 1),
+                    (rnd(c, n, k) - 0.5) * 2, rnd(c, n) * 3)
+            errs, _ = self.check_four(f"{c}x{n}", ncfg, *args)
             worst = max(worst, *errs.values())
+
+            w = (rnd(c, n, n) - 0.3) * 2
+            w[w.abs() < 0.1] = 0.0                # absent synapses
+            exc = (torch.arange(n, device=self.dev) < 0.8 * n).float()
+            spikes = (rnd(c, n) < 0.1).float()
+            x_pre, x_post = rnd(c, n) * 3, rnd(c, n) * 3
+            for lr in (1.0, 0.7):
+                self.check_stdp(f"{c}x{n} lr={lr}", (
+                    w, x_pre * exc, spikes * exc, spikes, x_post),
+                    dict(a_plus=0.05, a_minus=0.055, lr=lr, w_max=0.84))
+
+            v, refrac = v.clone(), refrac.clone()
+            v[0, 5], refrac[0, 5] = float("nan"), 0
+            v[c - 1, 7], refrac[c - 1, 7] = -1e4, 0
+            flags, _ = self.check_epilogues(
+                f"{c}x{n}", ncfg, (v, *args[1:2], refrac, *args[3:]),
+                x_pre, x_post, scfg, gcfg)
+            if flags != [1] + [0] * (c - 2) + [2]:
+                raise AssertionError(f"fused_step flags {flags} on the "
+                                     f"poisoned {c}x{n} state")
         self.note(f"phase 1 ragged (3x70, 5x130, 7x257): max abs err "
-                  f"{worst:.2e}; all-silent exact zeros")
+                  f"{worst:.2e}; all-silent exact zeros; stdp_dense_update "
+                  f"equal to its plain version; fused_step traces and flags "
+                  f"equal, flags [1, 0.., 2] on the NaN/-1e4 state")
 
     def check_wide_table(self):
         """One ell_gather whose table is wider than 131,072 lanes."""
@@ -521,6 +738,62 @@ class Smoke:
                   f" spikes, {float(ref.events):.0f} events, rate "
                   f"{float(ref.rate_hz):.3f} Hz, equal under ref/cuda/"
                   f"cuda_fused, v allclose 2e-4")
+
+    def check_small_plastic_run(self, steps=100):
+        """4x4x48 with STDP and the guard on, three impls from one state
+        and one drive: equal spikes and events, weights at 1e-6, equal
+        masks of zero and negative weights, no trip."""
+        torch = self.torch
+        cfg = self.dpsnn.reduced(
+            4, 4, 48, seed=3, stdp=True,
+            stdp_cfg=self.STDPConfig(a_plus=0.05, a_minus=0.055),
+            guard=self.GuardConfig(enabled=True))
+        params, state = self.sim.build(cfg, device=self.dev)
+        counts = torch.stack([
+            self.net.external_drive(cfg, t, cfg.n_columns, self.dev)[1]
+            for t in range(steps)])
+        res = {impl: self.sim.run(cfg, params, state, steps, impl=impl,
+                                  ext_counts=counts)
+               for impl in ("ref", "cuda", "cuda_fused")}
+        ref = res["ref"]
+        for impl, r in res.items():
+            self.check_weights(f"small plastic run {impl}", cfg, params,
+                               r.params)
+            if bool(r.state.guard.tripped):
+                raise AssertionError(f"small plastic run {impl}: guard "
+                                     f"tripped {r.state.guard}")
+            if impl == "ref":
+                continue
+            if (float(r.spikes), float(r.events)) != (float(ref.spikes),
+                                                      float(ref.events)):
+                raise AssertionError(f"small plastic run {impl}: spikes or "
+                                     f"events differ from ref")
+            for leaf in ("w_local", "rem_w"):
+                got, want = getattr(r.params, leaf), getattr(ref.params, leaf)
+                self.close(f"small plastic run {impl} {leaf}", got, want,
+                           **PLASTIC_TOL)
+                for mask in (lambda x: x == 0, lambda x: x < 0):
+                    self.equal(f"small plastic run {impl} {leaf} mask",
+                               mask(got), mask(want))
+        self.note(f"phase 2 small plastic guarded run 4x4x48, {steps} steps: "
+                  f"{float(ref.spikes):.0f} spikes, {float(ref.events):.0f} "
+                  f"events, equal under ref/cuda/cuda_fused, weights within "
+                  f"1e-6, zero/negative masks equal, no trip")
+
+    def check_weights(self, name, cfg, params0, params):
+        """Plastic weights keep STDP's invariants against the weights the
+        network was built with: at most w_max, absent synapses (zeros)
+        still absent, inhibitory (negative) weights unchanged."""
+        w_max = cfg.stdp_cfg.w_max_factor * cfg.conn.j_exc
+        for leaf in ("w_local", "rem_w"):
+            w0, w = getattr(params0, leaf), getattr(params, leaf)
+            if float(w.max()) > self.ref._f32(w_max):
+                raise AssertionError(f"{name} {leaf}: a weight above w_max")
+            if bool((w[w0 == 0] != 0).any()):
+                raise AssertionError(f"{name} {leaf}: an absent synapse grew")
+            neg = w0 < 0
+            if not self.torch.equal(w[neg], w0[neg]):
+                raise AssertionError(f"{name} {leaf}: a negative weight moved")
 
     def timed_run(self, cfg, params, state, impl, counter=None):
         """``MAIN_STEPS`` steps with the launch counts set to 0 just before
@@ -591,8 +864,7 @@ class Smoke:
         torch.cuda.reset_peak_memory_stats(self.dev)
         fused, ms, wall, launches = self.timed_run(cfg, params, state,
                                                    "cuda_fused", counter)
-        if launches != {"lif_step": 0, "synapse_matmul": 0, "ell_gather": 0,
-                        "fused_step": MAIN_STEPS}:
+        if launches != self.expected_launches(fused_step=MAIN_STEPS):
             raise AssertionError(f"cuda_fused launches {launches}")
         self.report["kernels"]["fused_step"]["launches"] = launches[
             "fused_step"]
@@ -667,9 +939,9 @@ class Smoke:
 
         staged, ms_st, wall_st, launches_st = self.timed_run(
             cfg, params, state, "cuda")
-        if launches_st != {"lif_step": MAIN_STEPS,
-                           "synapse_matmul": MAIN_STEPS,
-                           "ell_gather": MAIN_STEPS, "fused_step": 0}:
+        if launches_st != self.expected_launches(
+                lif_step=MAIN_STEPS, synapse_matmul=MAIN_STEPS,
+                ell_gather=MAIN_STEPS):
             raise AssertionError(f"cuda launches {launches_st}")
         for name in ("lif_step", "synapse_matmul", "ell_gather"):
             self.report["kernels"][name]["launches"] = launches_st[name]
@@ -684,6 +956,115 @@ class Smoke:
         log(f"  staged path (impl=cuda) same steps: rate {rate_st:.4f} Hz, "
             f"{ms_st:.4f} ms/step (device), wall {wall_st:.3f} s, launches "
             f"{launches_st}")
+
+
+    def plastic_path(self, pcfg, params0, pwarm):
+        """The plastic guarded path at full width: ``cuda_fused``, then
+        ``cuda`` and ``ref`` over the same steps from the same state and
+        drive, each with the launch counts set to 0 just before and read
+        just after."""
+        torch, M = self.torch, self.M
+        params, state = pwarm.params, pwarm.state
+        counter = torch.zeros(1, dtype=torch.int64, device=self.dev)
+        self.sync()
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        runs, out = {}, {}
+        for impl in ("cuda_fused", "cuda", "ref"):
+            res, ms, wall, launches = self.timed_run(
+                pcfg, params, state, impl,
+                counter if impl == "cuda_fused" else None)
+            per_step = {"cuda_fused": dict(fused_step=MAIN_STEPS),
+                        "cuda": dict(lif_step=MAIN_STEPS,
+                                     synapse_matmul=MAIN_STEPS,
+                                     ell_gather=MAIN_STEPS),
+                        "ref": {}}[impl]
+            if impl != "ref":
+                per_step["stdp_dense_update"] = MAIN_STEPS
+            if launches != self.expected_launches(**per_step):
+                raise AssertionError(f"plastic {impl} launches {launches}")
+            if impl == "cuda_fused":
+                self.report["kernels"]["stdp_dense_update"]["launches"] = \
+                    launches["stdp_dense_update"]
+                peak_gb = torch.cuda.max_memory_allocated(self.dev) / 1e9
+            g = res.state.guard
+            if bool(g.tripped):
+                raise AssertionError(f"plastic {impl}: guard tripped "
+                                     f"({int(g.trip_code)} at step "
+                                     f"{int(g.trip_step)})")
+            if not bool(torch.isfinite(res.state.lif.v).all()):
+                raise AssertionError(f"plastic {impl}: non-finite v")
+            self.check_weights(f"plastic {impl}", pcfg, params0, res.params)
+            dw = (res.params.w_local - params.w_local).abs()
+            rate = self.run_rate(pcfg, res, state)
+            events = float(res.events - state.event_count)
+            out[impl] = dict(
+                rate_hz=rate, events=events, ms_per_step=ms, wall_s=wall,
+                s_per_event=M.time_per_synaptic_event(ms * 1e-3 * MAIN_STEPS,
+                                                      events),
+                realtime_factor=M.realtime_factor(ms * 1e-3 * MAIN_STEPS,
+                                                  MAIN_STEPS,
+                                                  pcfg.neuron.dt_ms),
+                launches=launches,
+                mean_abs_dw=float(dw.sum() / (params.w_local != 0).sum()),
+                max_abs_dw=float(dw.max()))
+            del dw
+            runs[impl] = res
+            log(f"phase 4 plastic guarded {pcfg.name} impl={impl}, "
+                f"{MAIN_STEPS} steps after {WARMUP_STEPS}: rate {rate:.4f} Hz"
+                f", {ms:.4f} ms/step (device), wall {wall:.3f} s, "
+                f"{out[impl]['s_per_event']:.4e} s/event, realtime factor "
+                f"{out[impl]['realtime_factor']:.4f}, STDP weight drift: "
+                f"mean |dw| {out[impl]['mean_abs_dw']:.3e}, max "
+                f"{out[impl]['max_abs_dw']:.3e}; no trip; launches "
+                f"{launches}")
+            if impl == "cuda_fused":
+                self.profile(pcfg, res.params, res.state, impl, ms)
+        fused = out["cuda_fused"]
+        n_sblk = -(-pcfg.neurons_per_column // 128)
+        fused.update(
+            bytes_per_synapse=M.bytes_per_synapse(
+                pcfg, runs["cuda_fused"].params, runs["cuda_fused"].state),
+            silent_block_share=int(counter) / (pcfg.n_columns * n_sblk
+                                               * MAIN_STEPS),
+            peak_memory_gb=peak_gb)
+        for impl in ("cuda_fused", "cuda"):
+            r, p = out[impl]["rate_hz"], out["ref"]["rate_hz"]
+            if abs(r - p) > 0.05 * p:
+                raise AssertionError(f"plastic {impl} rate {r} Hz vs plain "
+                                     f"{p} Hz: beyond 5 %")
+            out[impl]["w_local_max_abs_diff_vs_ref"] = float(
+                (runs[impl].params.w_local
+                 - runs["ref"].params.w_local).abs().max())
+        self.report["plastic_path"] = out
+        log(f"  plastic cuda_fused: bytes/synapse "
+            f"{fused['bytes_per_synapse']:.4f}, peak memory "
+            f"{peak_gb:.2f} GB, silent 128-block share "
+            f"{fused['silent_block_share']:.4f}; rates within 5 % of ref; "
+            f"w_local max |diff| vs ref: cuda_fused "
+            f"{out['cuda_fused']['w_local_max_abs_diff_vs_ref']:.2e}, cuda "
+            f"{out['cuda']['w_local_max_abs_diff_vs_ref']:.2e}")
+
+    def guard_neutrality(self, pcfg, pwarm, steps=NEUTRAL_STEPS):
+        """``steps`` plastic steps under ``cuda_fused`` from one state and
+        drive, guard on against guard off: history, spike and event counts
+        and the weights to the bit."""
+        params, state = pwarm.params, pwarm.state
+        off_cfg = dataclasses.replace(pcfg, guard=self.GuardConfig())
+        on = self.sim.run(pcfg, params, state, steps, impl="cuda_fused")
+        off = self.sim.run(off_cfg, params, state._replace(guard=None), steps,
+                           impl="cuda_fused")
+        for name, a, b in (("hist", on.state.hist, off.state.hist),
+                           ("spikes", on.spikes, off.spikes),
+                           ("events", on.events, off.events),
+                           ("w_local", on.params.w_local, off.params.w_local),
+                           ("rem_w", on.params.rem_w, off.params.rem_w)):
+            self.equal(f"guard neutrality {name}", a, b)
+        if bool(on.state.guard.tripped) or off.state.guard is not None:
+            raise AssertionError("guard neutrality: tripped, or a guard "
+                                 "state without the guard")
+        self.note(f"  guard on vs off, {steps} plastic steps under "
+                  f"cuda_fused: hist, spikes ({float(on.spikes):.0f}), events "
+                  f"and weights equal to the bit; no trip")
 
 
 if __name__ == "__main__":

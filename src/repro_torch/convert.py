@@ -5,8 +5,9 @@ arrays (``numpy.asarray`` of each), become the port's containers on a
 given device with the same dtypes and shapes, so that both sides hold
 the same bytes (``metrics.bytes_per_synapse`` agrees). The inverse
 functions give the port's leaves back as numpy arrays under the same
-names. This module imports neither JAX nor the reference: the caller
-hands it arrays.
+names. The STDP traces (``x_pre``, ``x_post``) and the five
+``GuardState`` leaves come across when the state has them. This module
+imports neither JAX nor the reference: the caller hands it arrays.
 """
 from __future__ import annotations
 
@@ -15,10 +16,14 @@ import torch
 
 from repro_torch.core.network import NetworkParams, NetworkState
 from repro_torch.core.neuron import LIFState
+from repro_torch.core.plasticity import STDPState
+from repro_torch.runtime.integrity import GuardState
 
 PARAM_LEAVES = ("w_local", "rem_flat", "rem_w", "local_outdeg")
 STATE_LEAVES = ("v", "c", "refrac", "hist", "t", "spike_count",
                 "event_count")
+STDP_LEAVES = STDPState._fields
+GUARD_LEAVES = GuardState._fields
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -36,8 +41,11 @@ def params_from_numpy(*, w_local, rem_flat, rem_w, local_outdeg,
 
 
 def state_from_numpy(*, v, c, refrac, hist, t, spike_count, event_count,
+                     stdp: dict | None = None, guard: dict | None = None,
                      device="cuda") -> NetworkState:
-    """The step counter ``t`` stays on the host (see core/network.py)."""
+    """The step counter ``t`` stays on the host (see core/network.py).
+    ``stdp`` and ``guard`` map the leaves of ``STDP_LEAVES`` and
+    ``GUARD_LEAVES`` to arrays, when the state has them."""
     return NetworkState(
         lif=LIFState(v=_tensor(v, device), c=_tensor(c, device),
                      refrac=_tensor(refrac, device)),
@@ -45,6 +53,10 @@ def state_from_numpy(*, v, c, refrac, hist, t, spike_count, event_count,
         t=_tensor(t, "cpu"),
         spike_count=_tensor(spike_count, device),
         event_count=_tensor(event_count, device),
+        stdp=None if stdp is None else STDPState(
+            **{k: _tensor(stdp[k], device) for k in STDP_LEAVES}),
+        guard=None if guard is None else GuardState(
+            **{k: _tensor(guard[k], device) for k in GUARD_LEAVES}),
     )
 
 
@@ -53,7 +65,13 @@ def params_to_numpy(params: NetworkParams) -> dict:
 
 
 def state_to_numpy(state: NetworkState) -> dict:
+    """The leaves of ``STATE_LEAVES``, and ``stdp`` / ``guard`` dicts of
+    theirs when the state has them."""
     leaves = dict(v=state.lif.v, c=state.lif.c, refrac=state.lif.refrac,
                   hist=state.hist, t=state.t, spike_count=state.spike_count,
                   event_count=state.event_count)
-    return {name: leaves[name].cpu().numpy() for name in STATE_LEAVES}
+    out = {name: leaves[name].cpu().numpy() for name in STATE_LEAVES}
+    for key, sub in (("stdp", state.stdp), ("guard", state.guard)):
+        if sub is not None:
+            out[key] = {k: getattr(sub, k).cpu().numpy() for k in sub._fields}
+    return out

@@ -12,8 +12,13 @@ Per shard the network holds
 ``impl`` selects the delivery and neuron update: ``"ref"`` (plain
 PyTorch on whatever device holds the tensors), ``"cuda"`` (the three
 kernels ``synapse_matmul``, ``ell_gather`` and ``lif_step``) or
-``"cuda_fused"`` (one ``fused_step`` kernel per step). On CPU tensors
-the kernel wrappers run their plain versions.
+``"cuda_fused"`` (one ``fused_step`` kernel per step, with its STDP-trace
+epilogue under ``cfg.stdp`` and its guard-flag epilogue under
+``cfg.guard.enabled``). On CPU tensors the kernel wrappers run their
+plain versions. With ``cfg.stdp`` the state carries the STDP traces
+(the weights are updated in ``core/simulation.py``); with
+``cfg.guard.enabled`` it carries the integrity guard's verdict
+(``runtime/integrity.py``).
 
 The functions are pure, as in the reference: a step returns a new
 state and leaves its input as it was, so two runs can start from one
@@ -23,7 +28,7 @@ the host wait for the card every step.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
@@ -33,6 +38,7 @@ from repro_torch.core.connectivity import StencilSpec, build_stencil
 from repro_torch.core.neuron import LIFState, lif_init, lif_sfa_step
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import silent_block_count
+from repro_torch.runtime import integrity
 
 IMPLS = ("ref", "cuda", "cuda_fused")
 
@@ -50,6 +56,8 @@ class NetworkState(NamedTuple):
     t: torch.Tensor             # host int32 scalar step counter
     spike_count: torch.Tensor   # f32 scalar, total spikes emitted
     event_count: torch.Tensor   # f32 scalar, total synaptic events
+    stdp: Any = None            # STDPState traces under cfg.stdp
+    guard: Any = None           # GuardState under cfg.guard.enabled
 
 
 def resolve_device(device) -> torch.device:
@@ -68,14 +76,6 @@ def check_supported(cfg: DPSNNConfig, impl: str) -> None:
     than running without it."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r} (expected one of {IMPLS})")
-    if cfg.stdp:
-        raise NotImplementedError(
-            "cfg.stdp: STDP waits for the plasticity slice of the port "
-            "(ROADMAP queue 1 item 5, queue 2 item 5)")
-    if cfg.guard.enabled:
-        raise NotImplementedError(
-            "cfg.guard.enabled: the integrity guard waits for the "
-            "durability/integrity slice of the port (ROADMAP queue 1 item 7)")
     if (cfg.conn.exchange_mode != "dense_packed"
             or cfg.exchange.exchange_mode != "inherit"
             or cfg.exchange.pipelined):
@@ -113,6 +113,12 @@ def init_state(cfg: DPSNNConfig, col_ids, stencil: StencilSpec | None = None,
                          cfg.seed, conn.STREAM_INIT, cid, device))
             for cid in ids]
     lif = LIFState(*(torch.stack(leaf) for leaf in zip(*cols)))
+    stdp = guard = None
+    if cfg.stdp:
+        from repro_torch.core.plasticity import init_stdp  # imports network
+        stdp = init_stdp(len(ids), n, dtype, device)
+    if cfg.guard.enabled:
+        guard = integrity.init_guard(device)
     return NetworkState(
         lif=lif,
         hist=torch.zeros((stencil.max_delay + 1, len(ids), n), dtype=dtype,
@@ -120,6 +126,8 @@ def init_state(cfg: DPSNNConfig, col_ids, stencil: StencilSpec | None = None,
         t=torch.tensor(0, dtype=torch.int32),
         spike_count=torch.zeros((), dtype=torch.float32, device=device),
         event_count=torch.zeros((), dtype=torch.float32, device=device),
+        stdp=stdp,
+        guard=guard,
     )
 
 
@@ -247,9 +255,12 @@ def step_single(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
         ext = ext_counts.to(dtype) * cfg.conn.j_ext
 
     # 3. delivery + neuron update (one fused kernel, or three stages)
+    new_stdp = state.stdp
+    gflags = None
     if impl == "cuda_fused":
-        lif, spikes = fused_stage(cfg, params, state.lif, s_loc, s_flat, ext,
-                                  silent_blocks=silent_blocks)
+        lif, spikes, new_stdp, gflags = fused_stage(
+            cfg, params, state.lif, state.stdp, s_loc, s_flat, ext,
+            silent_blocks=silent_blocks)
     else:
         deliver_local, deliver_remote, lif_update = _stage_fns(impl)
         currents = deliver_local(s_loc, params.w_local,
@@ -258,6 +269,24 @@ def step_single(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
                                              params.rem_w)
         currents = currents + ext
         lif, spikes = lif_update(cfg.neuron, state.lif, currents)
+
+    # 3b. integrity guard: the chaos NaN lands on the fresh membrane state,
+    # so the verdict below sees it within the step; the kernel's flags
+    # pre-date it and are dropped whenever chaos is configured
+    new_guard = state.guard
+    if cfg.guard.enabled:
+        gcfg = cfg.guard
+        if gcfg.chaos_nan_at_step >= 0:
+            lif = lif._replace(v=integrity.inject_nan(gcfg, t, lif.v))
+            gflags = None
+        tr = new_stdp if cfg.stdp else None
+        code = integrity.step_verdict(
+            gcfg, v=lif.v, spikes=spikes,
+            x_pre=None if tr is None else tr.x_pre,
+            x_post=None if tr is None else tr.x_post,
+            kernel_flags=gflags)
+        new_guard = integrity.guard_update(gcfg, state.guard, step_code=code,
+                                           t=t)
 
     # 4. write new spikes into (a copy of) the ring buffer
     hist = state.hist.clone()
@@ -274,19 +303,35 @@ def step_single(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
         t=torch.tensor(t + 1, dtype=torch.int32),
         spike_count=state.spike_count + spikes.sum(),
         event_count=state.event_count + events,
+        # unfused: the traces advance in the caller (simulation.run);
+        # fused: the kernel advanced them, and the caller takes them
+        stdp=new_stdp,
+        guard=new_guard,
     )
 
 
 def fused_stage(cfg: DPSNNConfig, params: NetworkParams, lif0: LIFState,
-                s_loc: torch.Tensor, s_flat: torch.Tensor, ext: torch.Tensor,
-                *, silent_blocks: torch.Tensor | None = None):
-    """The column step as one ``fused_step`` kernel; returns
-    ``(lif', spikes)``."""
-    v, c, refrac, spikes = ops.fused_step(
+                stdp0, s_loc: torch.Tensor, s_flat: torch.Tensor,
+                ext: torch.Tensor, *,
+                silent_blocks: torch.Tensor | None = None):
+    """The column step as one ``fused_step`` kernel (``stdp0`` the
+    STDPState traces, or None with plasticity off). Returns ``(lif',
+    spikes, stdp', gflags)``: ``stdp'`` the traces the kernel advanced
+    under ``cfg.stdp`` (else ``stdp0``), ``gflags`` the kernel's
+    per-column guard flags under ``cfg.guard.enabled`` (else None)."""
+    scfg = cfg.stdp_cfg if cfg.stdp else None
+    gcfg = cfg.guard if cfg.guard.enabled else None
+    traces = (stdp0.x_pre, stdp0.x_post) if cfg.stdp else ()
+    out = ops.fused_step(
         cfg.neuron, lif0.v, lif0.c, lif0.refrac, s_loc,
-        params.w_local, s_flat, params.rem_flat, params.rem_w, ext,
-        silent_blocks=silent_blocks)
-    return LIFState(v=v, c=c, refrac=refrac), spikes
+        params.w_local, s_flat, params.rem_flat, params.rem_w, ext, *traces,
+        scfg=scfg, gcfg=gcfg, silent_blocks=silent_blocks)
+    v, c, refrac, spikes = out[:4]
+    stdp1 = stdp0
+    if cfg.stdp:
+        stdp1 = stdp0._replace(x_pre=out[4], x_post=out[5])
+    gflags = out[-1] if gcfg is not None else None
+    return LIFState(v=v, c=c, refrac=refrac), spikes, stdp1, gflags
 
 
 def make_step_fn(cfg: DPSNNConfig, *, impl: str = "ref"):

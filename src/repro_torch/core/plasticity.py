@@ -1,0 +1,133 @@
+"""STDP (spike-timing dependent plasticity), the port of
+``repro/core/plasticity.py``.
+
+Pair-based STDP with exponential pre/post traces on excitatory sources
+only; inhibitory weights are left untouched, weights are clipped to
+[0, w_max] and absent synapses (exact zeros) stay absent. The dense
+local update is the ``stdp_dense_update`` kernel (``impl`` 'cuda' and
+'cuda_fused') or its plain version (``impl='ref'``); the remote ELL
+update gathers pre-traces through a neighbour pre-trace table, in plain
+PyTorch under every ``impl`` (it is jnp in the reference, not Pallas).
+
+Every multiply-add is grouped as XLA groups the reference's jitted step
+on the CPU (``kernels/ref.py::_fma``), so the port's weights and traces
+equal the reference's to the bit.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs.base import DPSNNConfig, STDPConfig
+from repro_torch.core import network as net
+from repro_torch.core.connectivity import StencilSpec
+from repro_torch.core.network import NetworkParams
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
+
+
+class STDPState(NamedTuple):
+    x_pre: torch.Tensor    # (C, N) presynaptic traces
+    x_post: torch.Tensor   # (C, N) postsynaptic traces
+
+
+def init_stdp(n_columns: int, n: int, dtype=torch.float32,
+              device="cpu") -> STDPState:
+    def zeros():
+        return torch.zeros((n_columns, n), dtype=dtype, device=device)
+    return STDPState(x_pre=zeros(), x_post=zeros())
+
+
+def pre_trace_table(x_pre: torch.Tensor, stencil: StencilSpec,
+                    grid_hw: tuple[int, int]) -> torch.Tensor:
+    """(C, N) pre-trace frame -> (C, O*N) neighbour pre-trace table: the
+    frame shifted by each stencil offset through ``network.offset_slice``
+    (the shift convention of the neighbour-spike table), zero beyond the
+    sheet's edge, with a uniform one-step lag (callers pass the previous
+    step's traces)."""
+    gh, gw = grid_hw
+    c, n = x_pre.shape
+    if not stencil.offsets:
+        return x_pre.new_zeros((c, 0))
+    r = stencil.radius
+    g = torch.nn.functional.pad(x_pre.reshape(gh, gw, n), (0, 0, r, r, r, r))
+    per_offset = [net.offset_slice(g, dy, dx, r, gh, gw, n).reshape(c, n)
+                  for (dy, dx, _k, _delay, _p) in stencil.offsets]
+    return torch.stack(per_offset, dim=1).reshape(c, stencil.n_offsets * n)
+
+
+def advance_traces(cfg: DPSNNConfig, scfg: STDPConfig, st: STDPState,
+                   spikes: torch.Tensor) -> STDPState:
+    """The traces one step on: ``x' = x * exp(-dt/tau) + spikes``."""
+    k = kref.stdp_constants(scfg, cfg.neuron.dt_ms, st.x_pre.dtype)
+    return STDPState(x_pre=kref.stdp_trace_ref(st.x_pre, k["dp"], spikes),
+                     x_post=kref.stdp_trace_ref(st.x_post, k["dm"], spikes))
+
+
+def remote_update(scfg: STDPConfig, rem_w: torch.Tensor,
+                  rem_flat: torch.Tensor, table: torch.Tensor,
+                  spikes: torch.Tensor, x_post: torch.Tensor,
+                  w_max: float) -> torch.Tensor:
+    """The remote ELL rule of the reference (``plasticity.py:116-133``),
+    its ``* 0.5`` on the depression term kept as written:
+    ``dw = lr * (a_plus*pre*spk - a_minus*pre*x_post*0.5)`` with ``pre``
+    the pre-traces gathered through ``rem_flat``. Grouped as XLA rewrites
+    and fuses it: ``fma(lr, fma(pre, spk*a_plus, -(pre*(x_post*a_minus))
+    *0.5), rem_w)``, then the clip on positive weights. Finding the rows
+    of the neurons that spiked makes the host wait for the card once per
+    call."""
+    a_plus, a_minus, lr, w_max = map(
+        kref._f32, (scfg.a_plus, scfg.a_minus, scfg.lr, w_max))
+    c, n, k = rem_flat.shape
+    pre = torch.gather(table, 1, rem_flat.reshape(c, n * k).long()
+                       ).reshape(c * n, k)
+    dep = pre * (x_post * a_minus).reshape(c * n, 1) * 0.5
+    # a neuron that did not spike has spk*a_plus = 0, and there the FMA is
+    # -dep exactly; it is emulated on the rows of the neurons that spiked
+    y = -dep
+    spk = spikes.reshape(c * n)
+    rows = spk.nonzero().squeeze(1)
+    y[rows] = kref._fma(pre[rows], (spk[rows] * a_plus)[:, None], -dep[rows])
+    new = kref._fma_lr(y.reshape(c, n, k), lr, rem_w)
+    return torch.where(rem_w > 0, torch.clamp(new, 0.0, w_max), rem_w)
+
+
+def stdp_update(cfg: DPSNNConfig, scfg: STDPConfig, params: NetworkParams,
+                st: STDPState, spikes: torch.Tensor, is_inh: torch.Tensor,
+                pre_trace_table: torch.Tensor | None = None,
+                rem_flat: torch.Tensor | None = None,
+                impl: str = "ref",
+                new_traces: STDPState | None = None):
+    """One STDP step given this step's spikes (C, N).
+
+    ``pre_trace_table`` is the (C, O*N) neighbour pre-trace table for the
+    remote update (None: local update only). With ``new_traces`` (the
+    traces ``fused_step`` already advanced under ``impl='cuda_fused'``)
+    the decay and bump are not computed again. Returns ``(new_params,
+    new_stdp_state)``; the inputs are left as they were.
+    """
+    if new_traces is None:
+        new_traces = advance_traces(cfg, scfg, st, spikes)
+    x_pre, x_post = new_traces
+    exc_src = (~is_inh).to(spikes.dtype)            # (N,)
+    w_max = scfg.w_max_factor * cfg.conn.j_exc
+    x_pre_exc = x_pre * exc_src[None, :]
+    spk_exc = spikes * exc_src[None, :]
+    kw = dict(a_plus=scfg.a_plus, a_minus=scfg.a_minus, lr=scfg.lr,
+              w_max=w_max)
+    if impl in ("cuda", "cuda_fused"):
+        w_local = ops.stdp_dense_update(params.w_local, x_pre_exc, spk_exc,
+                                        spikes, x_post, **kw)
+    elif impl == "ref":
+        w_local = kref.stdp_dense_update_ref(params.w_local, x_pre_exc,
+                                             spk_exc, spikes, x_post, **kw)
+    else:
+        raise ValueError(f"unknown stdp impl {impl!r}")
+
+    rem_w = params.rem_w
+    if pre_trace_table is not None and rem_flat is not None:
+        rem_w = remote_update(scfg, params.rem_w, rem_flat, pre_trace_table,
+                              spikes, x_post, w_max)
+    return (params._replace(w_local=w_local, rem_w=rem_w),
+            STDPState(x_pre=x_pre, x_post=x_post))

@@ -11,7 +11,8 @@ import torch
 
 from repro_torch.configs.base import DPSNNConfig
 from repro_torch.core import network as net
-from repro_torch.core.connectivity import build_stencil
+from repro_torch.core import plasticity as plast
+from repro_torch.core.connectivity import build_stencil, neuron_types
 from repro_torch.core.network import NetworkParams, NetworkState
 
 
@@ -21,7 +22,7 @@ class SimResult(NamedTuple):
     events: torch.Tensor       # total synaptic events (paper metric)
     spikes: torch.Tensor       # total spikes
     rate_trace: torch.Tensor   # (T,) per-step population rate (Hz)
-    params: NetworkParams | None = None
+    params: NetworkParams | None = None   # final params (plastic under STDP)
 
 
 def build(cfg: DPSNNConfig, *, device="cuda"):
@@ -47,6 +48,12 @@ def run(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
         silent_blocks: torch.Tensor | None = None) -> SimResult:
     """Simulate ``n_steps`` of ``cfg.neuron.dt_ms`` each.
 
+    With ``cfg.stdp`` the weights are dynamical state: every step applies
+    the pair-based STDP update to the params it was given (local outer
+    products, and the remote ELL rule through the previous step's
+    pre-trace table), and ``SimResult.params`` holds the final params;
+    the caller's params are left as they were.
+
     ``ext_counts`` (n_steps, C, N), when given, are the Poisson drive
     counts of each step (the tests pass the reference's); else each step
     draws its own (``network.external_drive``). ``silent_blocks`` is
@@ -61,8 +68,14 @@ def run(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
         if ext_counts.shape[0] < n_steps:
             raise ValueError(f"ext_counts has {ext_counts.shape[0]} steps, "
                              f"the run takes {n_steps}")
-    per_neuron = _recip(n_neurons)
-    per_second = _recip(cfg.neuron.dt_ms * 1e-3)
+    # x / n_neurons / dt: XLA multiplies by the float32 product of the
+    # two float32 reciprocals
+    f32 = torch.float32
+    per_step = float(torch.tensor(_recip(n_neurons), dtype=f32)
+                     * torch.tensor(_recip(cfg.neuron.dt_ms * 1e-3),
+                                    dtype=f32))
+    is_inh = neuron_types(cfg, state.hist.device)
+    d_slots = state.hist.shape[0]
     rates = []
     final = state
     for i in range(n_steps):
@@ -71,8 +84,16 @@ def run(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
             cfg, params, s0, stencil=stencil, grid_hw=grid_hw, impl=impl,
             ext_counts=None if ext_counts is None else ext_counts[i],
             silent_blocks=silent_blocks)
-        rates.append((final.spike_count - s0.spike_count) * per_neuron
-                     * per_second)
+        if cfg.stdp:
+            spikes = final.hist[int(s0.t) % d_slots]
+            table = plast.pre_trace_table(s0.stdp.x_pre, stencil, grid_hw)
+            # under cuda_fused the kernel already advanced the traces
+            params, traces = plast.stdp_update(
+                cfg, cfg.stdp_cfg, params, s0.stdp, spikes, is_inh,
+                pre_trace_table=table, rem_flat=params.rem_flat, impl=impl,
+                new_traces=final.stdp if impl == "cuda_fused" else None)
+            final = final._replace(stdp=traces)
+        rates.append((final.spike_count - s0.spike_count) * per_step)
     sim_seconds = n_steps * cfg.neuron.dt_ms * 1e-3
     rate_trace = (torch.stack(rates) if rates else
                   torch.zeros((0,), device=state.hist.device))

@@ -1,5 +1,6 @@
 // Device code shared by the port's kernels (lif_step, synapse_matmul,
-// ell_gather, fused_step). Float32 throughout; int32 refractory counters.
+// ell_gather, fused_step, stdp_update). Float32 throughout; int32
+// refractory counters.
 //
 // Every multiply-add below is written with __fmaf_rn / __fmul_rn /
 // __fadd_rn so that nvcc does not choose the grouping: the LIF update
@@ -21,14 +22,19 @@ struct LifParams {
   int arp;
 };
 
+// What lif_update wrote to v_out and s_out, for the fused epilogues.
+struct LifOut {
+  float v, s;
+};
+
 // One dt of LIF+SFA for one neuron (core/neuron.py lif_sfa_step):
 //   drive = cur - g_c*c;  v1 = v_rest + (v - v_rest)*decay_v + drive*gain
 //   clamp to v_reset while refractory; spike on v1 >= v_thr;
 //   c' = c*decay_c + alpha_c*spike;  refrac' = arp on a spike, else max(r-1, 0)
-__device__ __forceinline__ void lif_update(const LifParams& p, float v,
-                                           float c, int refrac, float cur,
-                                           float* v_out, float* c_out,
-                                           int* r_out, float* s_out) {
+__device__ __forceinline__ LifOut lif_update(const LifParams& p, float v,
+                                             float c, int refrac, float cur,
+                                             float* v_out, float* c_out,
+                                             int* r_out, float* s_out) {
   const float drive = __fmaf_rn(-p.g_c, c, cur);
   float v1 = __fadd_rn(p.v_rest,
                        __fmaf_rn(__fsub_rn(v, p.v_rest), p.decay_v,
@@ -37,10 +43,12 @@ __device__ __forceinline__ void lif_update(const LifParams& p, float v,
   if (refractory) v1 = p.v_reset;
   const bool spike = (v1 >= p.v_thr) && !refractory;
   const float s = spike ? 1.0f : 0.0f;
-  *v_out = spike ? p.v_reset : v1;
+  const float v2 = spike ? p.v_reset : v1;
+  *v_out = v2;
   *c_out = __fmaf_rn(c, p.decay_c, __fmul_rn(p.alpha_c, s));
   *r_out = spike ? p.arp : max(refrac - 1, 0);
   *s_out = s;
+  return LifOut{v2, s};
 }
 
 // Shared memory of local_delivery: one 128-source block's spike values and

@@ -43,12 +43,18 @@ SIGNATURES = {
     # tbl, idx, w, out, C, N, T, K, stream
     "repro_ell_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # s_loc, w, tbl, idx, rem_w, ext, v, c, refrac -> v', c', refrac',
-    # spikes; C, N, T, K; constants; silent-block counter; stream
-    "repro_fused_step": [_P] * 13 + [_I] * 4 + _LIF + [_P, _P],
+    # spikes; C, N, T, K; constants; silent-block counter; x_pre, x_post
+    # -> x_pre', x_post' (or NULL); dp, dm; flags (or NULL); v_floor,
+    # v_ceil; stream
+    "repro_fused_step": ([_P] * 13 + [_I] * 4 + _LIF + [_P] + [_P] * 4
+                         + [_F] * 2 + [_P] + [_F] * 2 + [_P]),
+    # w, x_pre_exc, spk_exc, spikes, x_post -> w'; C, N; a_plus, a_minus,
+    # lr, w_max; stream
+    "repro_stdp_dense_update": [_P] * 6 + [_I] * 2 + [_F] * 4 + [_P],
 }
 
 LAUNCHES = {"lif_step": 0, "synapse_matmul": 0, "ell_gather": 0,
-            "fused_step": 0}
+            "fused_step": 0, "stdp_dense_update": 0}
 
 
 def reset_launches() -> None:

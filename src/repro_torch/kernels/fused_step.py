@@ -1,13 +1,15 @@
 """Fused column step on the card: ``csrc/fused_step.cu``.
 
-Replaces ``repro/kernels/fused_step.py::fused_step`` in its static,
-guard-off variant (the STDP-trace and guard-flag epilogues wait for the
-plasticity and integrity slices). Per target neuron: the block-skipped
-local product, + the ELL gather, + the external drive, then LIF+SFA,
-with nothing written to device memory between the stages. Bound by
-bytes: the weight rows the spikes need plus the ELL idx and weights
-plus the state. One CTA per (column, 128-target block); see the source
-for the design. Its plain version is ``ref.fused_step_ref``.
+Replaces ``repro/kernels/fused_step.py::fused_step`` with both of its
+epilogues: the STDP trace decay and bump (``scfg``) and the per-column
+guard flags (``gcfg``), each a template variant of the kernel, so the
+static variant runs the code it ran without them. Per target neuron:
+the block-skipped local product, + the ELL gather, + the external
+drive, then LIF+SFA, with nothing written to device memory between the
+stages. Bound by bytes: the weight rows the spikes need plus the ELL idx
+and weights plus the state (and traces). One CTA per (column, 128-target
+block); see the source for the design. Its plain version is
+``ref.fused_step_ref``.
 
 ``silent_blocks`` counts skipped (column, 128-source block) pairs, as in
 ``synapse_matmul``.
@@ -19,27 +21,35 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.lif_step import _c_lif
 from repro_torch.kernels.ref import (fused_step_ref, lif_constants,
-                                     silent_block_count)
+                                     silent_block_count, stdp_constants)
 from repro_torch.kernels.synapse_matmul import _counter_arg, _counter_ptr
 
 
 def fused_step(ncfg, v, c, refrac, s_loc, w_local, s_flat, rem_flat, rem_w,
-               ext, *, silent_blocks: torch.Tensor | None = None):
-    """One static step over all columns of a shard.
+               ext, x_pre=None, x_post=None, *, scfg=None, gcfg=None,
+               silent_blocks: torch.Tensor | None = None):
+    """One step over all columns of a shard.
 
     ``v, c, refrac, s_loc, ext`` (C, N); ``w_local`` (C, N, N) [src, tgt];
-    ``s_flat`` (C, T) neighbour-spike table; ``rem_flat, rem_w`` (C, N, K).
-    Returns ``(v', c', refrac', spikes)``.
+    ``s_flat`` (C, T) neighbour-spike table; ``rem_flat, rem_w`` (C, N, K);
+    ``x_pre, x_post`` (C, N) STDP traces, with ``scfg``. Returns
+    ``(v', c', refrac', spikes)``, with ``scfg`` followed by ``(x_pre',
+    x_post')`` and with ``gcfg`` by the (C,) int32 guard flags of ``v'``
+    (bit 0 non-finite, bit 1 outside ``[gcfg.v_floor, gcfg.v_ceil]``).
     """
     if v.device.type == "cpu":
         if silent_blocks is not None:
             silent_blocks += silent_block_count(s_loc)
         return fused_step_ref(ncfg, v, c, refrac, s_loc, w_local, s_flat,
-                              rem_flat, rem_w, ext)
+                              rem_flat, rem_w, ext, x_pre, x_post,
+                              scfg=scfg, gcfg=gcfg)
     nc, n = v.shape
     t = s_flat.shape[1]
     k = rem_flat.shape[-1]
     f32 = torch.float32
+    traces = {}
+    if scfg is not None:
+        traces = dict(x_pre=(x_pre, f32, (nc, n)), x_post=(x_post, f32, (nc, n)))
     _build.check_args("fused_step", v.device,
                       v=(v, f32, (nc, n)), c=(c, f32, (nc, n)),
                       refrac=(refrac, torch.int32, (nc, n)),
@@ -48,10 +58,23 @@ def fused_step(ncfg, v, c, refrac, s_loc, w_local, s_flat, rem_flat, rem_w,
                       s_flat=(s_flat, f32, (nc, t)),
                       rem_flat=(rem_flat, torch.int32, (nc, n, k)),
                       rem_w=(rem_w, f32, (nc, n, k)),
-                      ext=(ext, f32, (nc, n)),
+                      ext=(ext, f32, (nc, n)), **traces,
                       **_counter_arg(silent_blocks))
     v_out, c_out, s_out = (torch.empty_like(v) for _ in range(3))
     r_out = torch.empty_like(refrac)
+    out = (v_out, c_out, r_out, s_out)
+    stdp_args = (None, None, None, None, 0.0, 0.0)
+    if scfg is not None:
+        xp_out, xq_out = torch.empty_like(v), torch.empty_like(v)
+        decays = stdp_constants(scfg, ncfg.dt_ms, v.dtype)
+        stdp_args = (x_pre.data_ptr(), x_post.data_ptr(), xp_out.data_ptr(),
+                     xq_out.data_ptr(), decays["dp"], decays["dm"])
+        out += (xp_out, xq_out)
+    guard_args = (None, 0.0, 0.0)
+    if gcfg is not None:
+        flags = torch.zeros(nc, dtype=torch.int32, device=v.device)
+        guard_args = (flags.data_ptr(), gcfg.v_floor, gcfg.v_ceil)
+        out += (flags,)
     _build.launch("fused_step", "repro_fused_step", v.device,
                   s_loc.data_ptr(), w_local.data_ptr(), s_flat.data_ptr(),
                   rem_flat.data_ptr(), rem_w.data_ptr(), ext.data_ptr(),
@@ -59,5 +82,5 @@ def fused_step(ncfg, v, c, refrac, s_loc, w_local, s_flat, rem_flat, rem_w,
                   v_out.data_ptr(), c_out.data_ptr(), r_out.data_ptr(),
                   s_out.data_ptr(), nc, n, t, k,
                   *_c_lif(lif_constants(ncfg, v.dtype)),
-                  _counter_ptr(silent_blocks))
-    return v_out, c_out, r_out, s_out
+                  _counter_ptr(silent_blocks), *stdp_args, *guard_args)
+    return out

@@ -1,11 +1,14 @@
 """Plain PyTorch versions of every kernel in this package.
 
-``synapse_matmul_ref``, ``ell_gather_ref`` and ``lif_step_ref`` are the
-counterparts of the oracles of the same names in ``repro/kernels/ref.py``;
-``fused_step_ref`` composes them as the reference step does. Each is the
-version a kernel wrapper takes for a tensor on the CPU. On the card ``chip_smoke.py`` holds each CUDA kernel
-against it. Products that the reference accumulates in float32
-(``preferred_element_type=jnp.float32``) accumulate in float32 here.
+``synapse_matmul_ref``, ``ell_gather_ref``, ``lif_step_ref`` and
+``stdp_dense_update_ref`` are the counterparts of the oracles of the
+same names in ``repro/kernels/ref.py``; ``fused_step_ref`` composes them
+as the reference step does, with the STDP-trace and guard-flag
+epilogues of ``repro/kernels/fused_step.py``. Each is the version a
+kernel wrapper takes for a tensor on the CPU. On the card
+``chip_smoke.py`` holds each CUDA kernel against it. Products that the
+reference accumulates in float32 (``preferred_element_type=jnp.float32``)
+accumulate in float32 here.
 """
 from __future__ import annotations
 
@@ -59,9 +62,52 @@ def lif_constants(ncfg, dtype=torch.float32) -> dict:
 
 
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
-    """``a * b + c`` rounded once to ``a``'s dtype, like a fused
-    multiply-add: the float64 product of two float32 values is exact."""
-    return (a.double() * b + torch.as_tensor(c).double()).to(a.dtype)
+    """``a * b + c`` for float32 ``a``, ``b``, ``c``, rounded once to
+    float32 like a fused multiply-add (CUDA's ``__fmaf_rn``).
+
+    The float64 product of two float32 values is exact. Its float64 sum
+    with ``c`` is rounded to odd (TwoSum gives the sum's rounding error
+    exactly; an inexact sum keeps the neighbour whose last bit is 1), so
+    the one rounding to float32 that follows is the correct one: a plain
+    float64 sum would round twice and miss now and then.
+    """
+    f64 = torch.float64
+    p = a.double() * torch.as_tensor(b, dtype=f64, device=a.device)
+    c = torch.as_tensor(c, dtype=f64, device=a.device)
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    inf = torch.tensor(float("inf"), dtype=f64, device=a.device)
+    s = torch.where((err != 0) & even,
+                    torch.nextafter(s, torch.where(err > 0, inf, -inf)), s)
+    return s.to(a.dtype)
+
+
+def _fma_sparse(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """:func:`_fma` for spike-gated terms, where most of ``a``, ``b`` or
+    ``c`` are zero. Where one of the three is zero, ``a * b + c`` in
+    float32 rounds at most once and so already is the fused result; the
+    fused multiply-add is emulated only where all three are nonzero."""
+    out = a * b + c
+    a, b, c = torch.broadcast_tensors(
+        a, torch.as_tensor(b, dtype=a.dtype, device=a.device), c)
+    need = (a != 0) & (b != 0) & (c != 0)
+    if bool(need.any()):
+        out[need] = _fma(a[need], b[need], c[need])
+    return out
+
+
+def _fma_lr(y: torch.Tensor, lr: float, w: torch.Tensor) -> torch.Tensor:
+    """``fma(lr, y, w)``: ``w + y`` when ``lr`` is 1, which rounds once
+    as the fused multiply-add does."""
+    return w + y if lr == 1.0 else _fma(y, lr, w)
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32, as the reference's weak-typed Python
+    constants are."""
+    return float(torch.tensor(x, dtype=torch.float32))
 
 
 def lif_step_ref(v, c, refrac, current, *, decay_v, decay_c, gain,
@@ -88,14 +134,82 @@ def lif_step_ref(v, c, refrac, current, *, decay_v, decay_c, gain,
     return v2, c2, r2, spikes
 
 
+def stdp_constants(scfg, dt_ms: float, dtype=torch.float32) -> dict:
+    """The trace decays ``dp = exp(-dt/tau_plus)``, ``dm =
+    exp(-dt/tau_minus)``, as ``exp`` in the state dtype (the reference's
+    ``jnp.exp(...).astype(dtype)``; see :func:`lif_constants`)."""
+    def decay(tau):
+        return float(torch.exp(torch.tensor(-dt_ms / tau, dtype=dtype)))
+    return dict(dp=decay(scfg.tau_plus_ms), dm=decay(scfg.tau_minus_ms))
+
+
+def stdp_trace_ref(x: torch.Tensor, decay: float,
+                   spikes: torch.Tensor) -> torch.Tensor:
+    """Exponential trace decay and spike bump ``x * decay + spikes``,
+    grouped as XLA groups it in the reference's jitted step: one fused
+    multiply-add (the CUDA epilogue writes ``__fmaf_rn``)."""
+    return _fma(x, decay, spikes)
+
+
+# (C, N, N) elements per chunk of stdp_dense_update_ref: bounds its
+# temporaries to a few GB at any grid size
+_STDP_CHUNK = 1 << 26
+
+
+def stdp_dense_update_ref(w_local, x_pre_exc, spk_exc, spikes, x_post, *,
+                          a_plus, a_minus, lr, w_max):
+    """Dense local STDP update (mirrors core/plasticity.py local branch):
+    ``w' = where(w > 0, clip(w + lr*(a_plus*pot - a_minus*dep), 0, w_max),
+    w)`` with ``pot[c,s,t] = x_pre_exc[c,s]*spikes[c,t]`` and
+    ``dep[c,s,t] = spk_exc[c,s]*x_post[c,t]``.
+
+    Grouped as XLA groups the reference (jitted ``ref`` and the Pallas
+    kernel alike): ``w' = fma(lr, fma(a_plus, pot, -(a_minus*dep)), w)``
+    before the clip, for any ``lr``. Out of place, a chunk of columns at
+    a time."""
+    a_plus, a_minus, lr, w_max = map(_f32, (a_plus, a_minus, lr, w_max))
+    out = torch.empty_like(w_local)
+    n_cols, n = spikes.shape
+    step = max(1, _STDP_CHUNK // max(1, n * n))
+    for c0 in range(0, n_cols, step):
+        cs = slice(c0, c0 + step)
+        w = w_local[cs]
+        pot = x_pre_exc[cs, :, None] * spikes[cs, None, :]
+        dep = spk_exc[cs, :, None] * x_post[cs, None, :]
+        new = _fma_lr(_fma_sparse(pot, a_plus, -(a_minus * dep)), lr, w)
+        out[cs] = torch.where(w > 0, torch.clamp(new, 0.0, w_max), w)
+    return out
+
+
+def guard_flags_ref(v: torch.Tensor, v_floor: float,
+                    v_ceil: float) -> torch.Tensor:
+    """Per-column int32 guard flags of the fused step's epilogue: bit 0
+    where a column's ``v`` holds a non-finite value, bit 1 where one lies
+    outside ``[v_floor, v_ceil]``."""
+    nan = (~torch.isfinite(v)).any(dim=-1)
+    out = ((v < v_floor) | (v > v_ceil)).any(dim=-1)
+    return nan.to(torch.int32) | (out.to(torch.int32) << 1)
+
+
 def fused_step_ref(ncfg, v, c, refrac, s_loc, w_local, s_flat, rem_flat,
-                   rem_w, ext):
-    """The static column step: local product, + ELL gather, + external
-    drive, then LIF+SFA. Returns ``(v', c', refrac', spikes)``."""
+                   rem_w, ext, x_pre=None, x_post=None, *, scfg=None,
+                   gcfg=None):
+    """The column step: local product, + ELL gather, + external drive,
+    then LIF+SFA. Returns ``(v', c', refrac', spikes)``; with ``scfg``
+    the advanced traces ``(x_pre', x_post')`` follow, and with ``gcfg``
+    the (C,) guard flags of ``v'`` (:func:`guard_flags_ref`)."""
     cur = synapse_matmul_ref(s_loc, w_local)
     cur = cur + ell_gather_ref(s_flat, rem_flat, rem_w)
     cur = cur + ext
-    return lif_step_ref(v, c, refrac, cur, **lif_constants(ncfg, v.dtype))
+    out = lif_step_ref(v, c, refrac, cur, **lif_constants(ncfg, v.dtype))
+    spikes = out[3]
+    if scfg is not None:
+        k = stdp_constants(scfg, ncfg.dt_ms, v.dtype)
+        out += (stdp_trace_ref(x_pre, k["dp"], spikes),
+                stdp_trace_ref(x_post, k["dm"], spikes))
+    if gcfg is not None:
+        out += (guard_flags_ref(out[0], gcfg.v_floor, gcfg.v_ceil),)
+    return out
 
 
 def silent_block_count(spikes: torch.Tensor) -> torch.Tensor:

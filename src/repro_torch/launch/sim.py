@@ -2,13 +2,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.sim --grid 24x24 \
         --neurons 1240 --steps 200 [--impl cuda_fused|cuda|ref] \
-        [--device cuda|cpu] [--seed 42]
+        [--stdp] [--device cuda|cpu] [--seed 42]
 
 The network is built on the device and the kernels from the sources,
 both before the clock starts; ``WARMUP_STEPS`` steps run untimed, and
 the timed steps end in ``torch.cuda.synchronize()``. The rate and the
-events count the timed steps alone. ``--mesh`` and ``--stdp`` wait for
-their slices of the port.
+events count the timed steps alone. ``--stdp`` turns plasticity on and
+prints the weights' drift over the whole run; ``--mesh`` waits for the
+multi-rank slice of the port.
 """
 from __future__ import annotations
 
@@ -39,24 +40,27 @@ def main(argv=None):
     ap.add_argument("--neurons", type=int, default=64)
     ap.add_argument("--steps", type=int, default=500)
     ap.add_argument("--impl", default="cuda_fused", choices=net.IMPLS)
+    ap.add_argument("--stdp", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=42)
     args = ap.parse_args(argv)
 
     gh, gw = parse_grid(args.grid)
     cfg = DPSNNConfig(grid_h=gh, grid_w=gw, neurons_per_column=args.neurons,
-                      seed=args.seed)
+                      stdp=args.stdp, seed=args.seed)
     net.check_supported(cfg, args.impl)
     device = net.resolve_device(args.device)
     print(f"grid {gh}x{gw}, {cfg.n_neurons} neurons, "
           f"{cfg.recurrent_synapses/1e6:.1f}M recurrent synapses "
           f"({cfg.local_fanin}+{cfg.remote_fanin}/neuron), "
-          f"plasticity off, impl {args.impl} on {device}")
+          f"plasticity {'ON (STDP)' if cfg.stdp else 'off'}, impl "
+          f"{args.impl} on {device}")
 
     if device.type == "cuda" and args.impl != "ref":
         ops.library()
-    params, state = sim.build(cfg, device=device)
-    state = sim.run(cfg, params, state, WARMUP_STEPS, impl=args.impl).state
+    params0, state = sim.build(cfg, device=device)
+    warm = sim.run(cfg, params0, state, WARMUP_STEPS, impl=args.impl)
+    params, state = warm.params, warm.state
 
     def sync():
         if device.type == "cuda":
@@ -72,6 +76,11 @@ def main(argv=None):
     rate = spikes / (cfg.n_neurons * sim_s)
     events = float(res.events - state.event_count)
     print(f"bytes/synapse: {M.bytes_per_synapse(cfg, params, res.state):.2f}")
+    if cfg.stdp:
+        dw = (res.params.w_local - params0.w_local).abs()
+        print(f"STDP weight drift: mean |dw| "
+              f"{float(dw.sum() / (params0.w_local != 0).sum()):.3e}, "
+              f"max {float(dw.max()):.3e}")
     print(f"{args.steps} steps in {dt:.2f}s "
           f"(after {WARMUP_STEPS} warm-up steps) | rate {rate:.2f} Hz | "
           f"{events:.3e} synaptic events | "

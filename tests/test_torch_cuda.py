@@ -13,7 +13,7 @@ import sys
 import pytest
 import torch
 
-from repro_torch.configs.base import DPSNNConfig
+from repro_torch.configs.base import DPSNNConfig, GuardConfig, STDPConfig
 from repro_torch.core import simulation as sim
 from repro_torch.kernels import _build, ops
 
@@ -64,3 +64,24 @@ def test_small_run_impls_agree(cuda_device):
         torch.testing.assert_close(runs[impl].state.lif.v,
                                    runs["ref"].state.lif.v,
                                    rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_small_plastic_guarded_run_impls_agree(cuda_device):
+    """4x4x48, STDP and the guard on, 100 steps: equal spikes and events
+    under the three impls, weights at 1e-6, no trip."""
+    cfg = DPSNNConfig(grid_h=4, grid_w=4, neurons_per_column=48, seed=3,
+                      stdp=True, stdp_cfg=STDPConfig(a_plus=0.05,
+                                                     a_minus=0.055),
+                      guard=GuardConfig(enabled=True))
+    params, state = sim.build(cfg, device=cuda_device)
+    runs = {impl: sim.run(cfg, params, state, 100, impl=impl)
+            for impl in ("ref", "cuda", "cuda_fused")}
+    for impl in ("cuda", "cuda_fused"):
+        assert float(runs[impl].spikes) == float(runs["ref"].spikes) > 0
+        assert float(runs[impl].events) == float(runs["ref"].events)
+        torch.testing.assert_close(runs[impl].params.w_local,
+                                   runs["ref"].params.w_local,
+                                   rtol=1e-6, atol=1e-6)
+    for res in runs.values():
+        assert not bool(res.state.guard.tripped)

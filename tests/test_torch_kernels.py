@@ -188,6 +188,10 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     want = ref.fused_step_ref(NeuronConfig(), *args)
     for g, w_ in zip(ops.fused_step(NeuronConfig(), *args), want):
         torch.testing.assert_close(g, w_, rtol=0, atol=0)
+    vec = [_t(rng.random((2, 40)).astype(np.float32)) for _ in range(4)]
+    kw = dict(a_plus=0.01, a_minus=0.012, lr=1.0, w_max=0.84)
+    assert torch.equal(ops.stdp_dense_update(_t(w), *vec, **kw),
+                       ref.stdp_dense_update_ref(_t(w), *vec, **kw))
     assert sum(_build.LAUNCHES.values()) == 0
 
 
@@ -200,6 +204,10 @@ def test_non_cpu_tensors_never_fall_back():
     with pytest.raises(ValueError, match="CUDA"):
         ops.lif_step(NeuronConfig(), m, m,
                      torch.zeros(2, 40, dtype=torch.int32, device="meta"), m)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.stdp_dense_update(torch.zeros(2, 40, 40, device="meta"), m, m, m,
+                              m, a_plus=0.01, a_minus=0.012, lr=1.0,
+                              w_max=0.84)
 
 
 def test_missing_library_raises(monkeypatch, tmp_path):
@@ -217,7 +225,8 @@ def test_missing_library_raises(monkeypatch, tmp_path):
 def test_build_key_covers_every_source():
     names = {p.name for p in _build._sources()}
     assert {"kernels.cuh", "lif_step.cu", "synapse_matmul.cu",
-            "ell_gather.cu", "fused_step.cu", "errors.cu"} <= names
+            "ell_gather.cu", "fused_step.cu", "stdp_update.cu",
+            "errors.cu"} <= names
     assert len(_build.source_hash()) == 16
 
 

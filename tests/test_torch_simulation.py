@@ -19,7 +19,7 @@ from repro.core import metrics as JM
 from repro.core import network as jnet
 from repro.core import simulation as jsim
 from repro_torch import convert
-from repro_torch.configs.base import DPSNNConfig, GuardConfig
+from repro_torch.configs.base import DPSNNConfig
 from repro_torch.core import metrics as M
 from repro_torch.core import network as net
 from repro_torch.core import simulation as sim
@@ -32,7 +32,14 @@ def _jax_drive(cfg, n_steps, t0=0):
                      for t in range(t0, t0 + n_steps)])
 
 
+def _leaves(tree):
+    return (None if tree is None else
+            {k: np.asarray(getattr(tree, k)) for k in tree._fields})
+
+
 def _carry(jparams, jstate):
+    """The reference's params and state as the port's, on the CPU, with
+    the STDP traces and guard leaves when the state has them."""
     params = convert.params_from_numpy(
         **{k: np.asarray(getattr(jparams, k)) for k in convert.PARAM_LEAVES},
         device="cpu")
@@ -40,7 +47,9 @@ def _carry(jparams, jstate):
         v=np.asarray(jstate.lif.v), c=np.asarray(jstate.lif.c),
         refrac=np.asarray(jstate.lif.refrac), hist=np.asarray(jstate.hist),
         t=np.asarray(jstate.t), spike_count=np.asarray(jstate.spike_count),
-        event_count=np.asarray(jstate.event_count), device="cpu")
+        event_count=np.asarray(jstate.event_count),
+        stdp=_leaves(jstate.stdp), guard=_leaves(jstate.guard),
+        device="cpu")
     return params, state
 
 
@@ -172,8 +181,6 @@ def test_event_accounting_consistent():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(stdp=True), "STDP"),
-    (dict(guard=GuardConfig(enabled=True)), "guard"),
     (dict(weight_dtype="bfloat16"), "bf16"),
 ])
 def test_off_path_options_raise(change, match):
