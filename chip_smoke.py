@@ -9,18 +9,21 @@ then, on the card:
 1. holds every kernel against its plain PyTorch version at the main
    path's shapes (inputs from a real 24x24-grid state after 20 steps,
    static and plastic, and random ones), at ragged shapes, on all-silent
-   spikes and on a table wider than 131,072 lanes, and times each
-   (kernel, plain version, one library call where there is one, and the
-   bound); ``stdp_dense_update`` and the fused step's STDP-trace and
-   guard-flag epilogues are held to the bit;
+   spikes and on a table wider than the shared-memory budget of the
+   staged path (``ell_gather`` and all four ``fused_step`` instances on
+   their wide path), and times each (kernel, plain version, one library
+   call where there is one, and the bound); ``stdp_dense_update`` and
+   the fused step's STDP-trace and guard-flag epilogues are held to the
+   bit;
 2. runs a 4x4-column, 64-neuron network for 60 steps, and a plastic
    guarded 4x4x48 one for 100, under the three impls from one state and
    one drive: equal spikes and events;
 3. drives the main path, the paper's 24x24 grid of 1240-neuron columns
    (``impl="cuda_fused"``, one ``fused_step`` launch per step), and the
    staged path (``impl="cuda"``) over the same steps, with the launch
-   counts set to 0 just before each and read just after, and checks the
-   rate against the plain path;
+   counts set to 0 just before each and read just after (every
+   ``fused_step`` and ``ell_gather`` launch on the staged path, none on
+   the wide one), and checks the rate against the plain path;
 4. drives the plastic guarded path on the same grid (STDP and the
    integrity guard on) in the same way under ``cuda_fused``, ``cuda``
    and ``ref``, checks rates, weights and the guard, and shows that the
@@ -30,12 +33,16 @@ Every phase raises on failure and the script exits non-zero. Without a
 card, or without the rest of the repository beside it, it exits
 non-zero and prints no result. The last line of its output is
 ``{"ok": true, "device": {...}}``; the line before it the per-kernel
-JSON; a fuller report goes to ``build/chip_smoke_report.json``.
+JSON (for ``fused_step`` and ``ell_gather`` also the path they took at
+the main shapes, their grid and shared memory per CTA, and each
+instance's registers and spills from the build log); a fuller report
+goes to ``build/chip_smoke_report.json``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -92,8 +99,9 @@ class Smoke:
     def __init__(self, torch, device="cuda:0"):
         from repro_torch.configs import base, dpsnn
         from repro_torch.core import connectivity, metrics, network, simulation
-        from repro_torch.kernels import ops, ref
+        from repro_torch.kernels import _build, ops, plan, ref
         self.torch, self.dpsnn, self.M = torch, dpsnn, metrics
+        self.build, self.plan = _build, plan
         self.net, self.sim = network, simulation
         self.ops, self.ref = ops, ref
         self.STDPConfig, self.GuardConfig = base.STDPConfig, base.GuardConfig
@@ -210,9 +218,11 @@ class Smoke:
         lib = self.ops.library()
         log(f"phase 0: kernel library built in {lib.build_seconds:.1f} s "
             f"({lib.path.name})")
-        for line in lib.log.splitlines():
-            if "Used" in line or "spill" in line:
-                log("  ptxas:", line.split("info    :")[-1].strip())
+        self.report["instances"] = self.instances(lib.log)
+        for kernel, insts in self.report["instances"].items():
+            log(f"  ptxas {kernel}: " + ", ".join(
+                f"{label} {i['registers']} registers, {i['spill_bytes']} B "
+                f"spilled" for label, i in insts.items()))
 
         # 1. kernels against their plain versions
         cfg = self.dpsnn.GRID_24
@@ -267,6 +277,31 @@ class Smoke:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+
+    def instances(self, log):
+        """Registers and spill bytes of every instance of the two staged
+        ELL kernels, labelled by path and epilogues, from the build log."""
+        out = {"ell_gather": {}, "fused_step": {}}
+        for mangled, info in self.build.ptxas_report(log).items():
+            m = re.search(r"(ell_gather|fused_step)_kernelI((?:Lb[01]E)+)E",
+                          mangled)
+            if m is None:
+                continue
+            flags = [f == "1" for f in re.findall(r"Lb([01])E", m[2])]
+            label = ("staged" if flags[0] else "wide") + "".join(
+                f"+{e}" for e, on in zip(("stdp", "guard"), flags[1:]) if on)
+            out[m[1]][label] = info
+        return out
+
+    def plan_entry(self, name, c, n, t):
+        """The path, grid and shared memory ``name`` takes at these shapes,
+        and its instances' registers and spills."""
+        p = self.plan.plan(name, c, n, t, self.plan.sm_count(self.dev))
+        insts = self.report["instances"][name]
+        return dict(path=p.path, schedule=p.schedule, ctas=p.ctas,
+                    smem_bytes=p.smem_bytes,
+                    registers={k: i["registers"] for k, i in insts.items()},
+                    spill_bytes=sum(i["spill_bytes"] for i in insts.values()))
 
     def expected_launches(self, **counts):
         """Every kernel's launch count: ``counts``, and 0 for the rest."""
@@ -486,7 +521,33 @@ class Smoke:
                   f"{want_silent}/{n_blocks}; all-silent exact zeros")
         for name, err in kinds.items():
             self.report["kernels"][name] = {"max_abs_err": err}
+        self.local_balance(x["s_loc"], x["s_flat"].shape[1])
         self.time_kernels(cfg, params, x, cur, nnz)
+
+    def local_balance(self, s_loc, t_len):
+        """How unevenly the local product's work falls on fused_step's
+        items: spiking sources per column, and the weight rows (of one
+        item's targets) each CTA would read if every CTA took an equal,
+        contiguous share of the items instead of claiming them."""
+        c, n = s_loc.shape
+        per_col = (s_loc != 0).sum(1).double()
+        p = self.plan.plan("fused_step", c, n, t_len,
+                           self.plan.sm_count(self.dev))
+        per_item = per_col.repeat_interleave(p.items // c).cpu()
+        shares = self.torch.tensor([float(per_item[p.item_range(b)].sum())
+                                    for b in range(p.ctas)])
+        out = dict(spiking_per_column_mean=float(per_col.mean()),
+                   spiking_per_column_max=float(per_col.max()),
+                   equal_share_rows_mean=float(shares.mean()),
+                   equal_share_rows_max=float(shares.max()))
+        self.report["kernels"]["fused_step"].update(out)
+        self.note(f"  local product balance: spiking sources per column "
+                  f"mean {out['spiking_per_column_mean']:.2f}, max "
+                  f"{out['spiking_per_column_max']:.0f}; rows per CTA under "
+                  f"equal shares of {p.ctas}: mean "
+                  f"{out['equal_share_rows_mean']:.1f}, max "
+                  f"{out['equal_share_rows_max']:.0f} (fused_step claims "
+                  f"its items instead)")
 
     def time_kernels(self, cfg, params, x, cur, nnz):
         """Kernel, plain version, one library call where there is one, and
@@ -543,6 +604,8 @@ class Smoke:
                          bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops else
                          "operations", bytes=nbytes[name], flops=flops[name])
+            if name in self.report["instances"]:
+                entry.update(self.plan_entry(name, c, n, t))
             if name == "fused_step":
                 # the same step with silent local spikes: the ELL + LIF part
                 silent = torch.zeros_like(x["s_loc"])
@@ -554,7 +617,10 @@ class Smoke:
                 f"{entry['bound_ms']:.4f} ms by {entry['bound_by']}, "
                 f"{nbytes[name]/1e9:.4f} GB"
                 + (f"; with silent local spikes {entry['ms_local_silent']:.4f}"
-                   " ms" if "ms_local_silent" in entry else "") + ")")
+                   " ms" if "ms_local_silent" in entry else "")
+                + (f"; {entry['path']} path, {entry['ctas']} CTAs "
+                   f"({entry['schedule']} schedule), {entry['smem_bytes']} B "
+                   f"of shared memory each" if "path" in entry else "") + ")")
 
     def library_bmm(self, x, params):
         """One cuBLAS batched product computing synapse_matmul."""
@@ -658,7 +724,6 @@ class Smoke:
         column."""
         torch = self.torch
         ncfg = self.dpsnn.GRID_24.neuron
-        scfg, gcfg = self.STDPConfig(), self.GuardConfig(enabled=True)
         g = torch.Generator(device=self.dev).manual_seed(2)
         worst = 0.0
         for c, n, k, o in [(3, 70, 17, 20), (5, 130, 248, 20),
@@ -684,35 +749,71 @@ class Smoke:
                     w, x_pre * exc, spikes * exc, spikes, x_post),
                     dict(a_plus=0.05, a_minus=0.055, lr=lr, w_max=0.84))
 
-            v, refrac = v.clone(), refrac.clone()
-            v[0, 5], refrac[0, 5] = float("nan"), 0
-            v[c - 1, 7], refrac[c - 1, 7] = -1e4, 0
-            flags, _ = self.check_epilogues(
-                f"{c}x{n}", ncfg, (v, *args[1:2], refrac, *args[3:]),
-                x_pre, x_post, scfg, gcfg)
-            if flags != [1] + [0] * (c - 2) + [2]:
-                raise AssertionError(f"fused_step flags {flags} on the "
-                                     f"poisoned {c}x{n} state")
+            self.check_poisoned(f"{c}x{n}", ncfg, args, x_pre, x_post)
         self.note(f"phase 1 ragged (3x70, 5x130, 7x257): max abs err "
                   f"{worst:.2e}; all-silent exact zeros; stdp_dense_update "
                   f"equal to its plain version; fused_step traces and flags "
                   f"equal, flags [1, 0.., 2] on the NaN/-1e4 state")
 
+    def check_poisoned(self, name, ncfg, args, x_pre, x_post):
+        """fused_step's epilogues (check_epilogues) on ``args`` with one
+        NaN v and one v at -1e4, in non-refractory neurons of the first and
+        last column: flags [1, 0.., 2]."""
+        v, refrac = args[0].clone(), args[2].clone()
+        c = v.shape[0]
+        v[0, 5], refrac[0, 5] = float("nan"), 0
+        v[c - 1, 7], refrac[c - 1, 7] = -1e4, 0
+        flags, _ = self.check_epilogues(
+            name, ncfg, (v, args[1], refrac, *args[3:]), x_pre, x_post,
+            self.STDPConfig(), self.GuardConfig(enabled=True))
+        if flags != [1] + [0] * (c - 2) + [2]:
+            raise AssertionError(f"fused_step flags {flags} on the poisoned "
+                                 f"{name} state")
+
     def check_wide_table(self):
-        """One ell_gather whose table is wider than 131,072 lanes."""
-        torch = self.torch
+        """ell_gather and the four fused_step instances on a table wider
+        than 131,072 lanes and than the staged path's shared memory (T =
+        180,000, K = 497), against their plain versions: both kernels take
+        their wide path, and only it."""
+        torch, ops, ref = self.torch, self.ops, self.ref
         g = torch.Generator(device=self.dev).manual_seed(3)
         c, n, k, t = 4, 1240, 497, 180_000
-        s_flat = (torch.rand((c, t), generator=g, device=self.dev)
-                  < 0.05).float()
+
+        def rnd(*shape):
+            return torch.rand(shape, generator=g, device=self.dev)
+        s_flat = (rnd(c, t) < 0.05).float()
         idx = torch.randint(0, t, (c, n, k), generator=g, device=self.dev,
                             dtype=torch.int32)
         w = torch.randn((c, n, k), generator=g, device=self.dev)
-        err = self.close("ell_gather wide",
-                         self.ops.ell_gather(s_flat, idx, w),
-                         self.ref.ell_gather_ref(s_flat, idx, w),
+        ops.reset_launches()
+        err = self.close("ell_gather wide", ops.ell_gather(s_flat, idx, w),
+                         ref.ell_gather_ref(s_flat, idx, w),
                          scale=self.scale_remote(s_flat, idx, w))
-        self.note(f"phase 1 wide table (T = {t}): max abs err {err:.2e}")
+        ncfg = self.dpsnn.GRID_24.neuron
+        args = (rnd(c, n) * 21, rnd(c, n) * 3, (rnd(c, n) * 3).int(),
+                (rnd(c, n) < 0.1).float(), (rnd(c, n, n) - 0.5) * 2, s_flat,
+                idx, w, rnd(c, n) * 3)
+        err_f, flips = self.close_step(
+            "fused_step wide", ops.fused_step(ncfg, *args),
+            ref.fused_step_ref(ncfg, *args), scale=self.scale_step(
+                args[3], args[4], s_flat, idx, w, args[8]))
+        self.check_poisoned("wide", ncfg, args, rnd(c, n) * 3, rnd(c, n) * 3)
+        launches = dict(ops.LAUNCHES)
+        want = self.expected_launches(**{"ell_gather.wide": 1,
+                                         "fused_step.wide": 4})
+        if launches != want:
+            raise AssertionError(f"wide table launches {launches}, expected "
+                                 f"{want}")
+        for name, e in (("ell_gather", err), ("fused_step", err_f)):
+            entry = self.report["kernels"].setdefault(name,
+                                                      {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], e)
+        self.note(f"phase 1 wide table (T = {t}, K = {k}): max abs err "
+                  f"ell_gather {err:.2e}, fused_step {err_f:.2e} (spike flips "
+                  f"{flips}); fused_step traces and flags equal, flags "
+                  f"[1, 0.., 2] on the NaN/-1e4 state; launches on the wide "
+                  f"path only ({launches['ell_gather.wide']} ell_gather, "
+                  f"{launches['fused_step.wide']} fused_step)")
 
     def check_small_run(self):
         torch = self.torch
@@ -864,6 +965,7 @@ class Smoke:
         torch.cuda.reset_peak_memory_stats(self.dev)
         fused, ms, wall, launches = self.timed_run(cfg, params, state,
                                                    "cuda_fused", counter)
+        # every launch on the staged path: fused_step.wide stays at 0
         if launches != self.expected_launches(fused_step=MAIN_STEPS):
             raise AssertionError(f"cuda_fused launches {launches}")
         self.report["kernels"]["fused_step"]["launches"] = launches[
@@ -890,7 +992,8 @@ class Smoke:
             peak_memory_gb=peak_gb)
         self.report["main_path"] = main
         log(f"phase 3 main path {cfg.name} impl=cuda_fused, {MAIN_STEPS} "
-            f"steps after {WARMUP_STEPS}: rate {rate:.4f} Hz, events "
+            f"steps after {WARMUP_STEPS}, every fused_step launch on the "
+            f"staged path: rate {rate:.4f} Hz, events "
             f"{events:.6e}, {ms:.4f} ms/step (device), wall {wall:.3f} s, "
             f"{main['s_per_event']:.4e} s/event, realtime factor "
             f"{main['realtime_factor']:.4f}, bytes/synapse "
@@ -941,7 +1044,7 @@ class Smoke:
             cfg, params, state, "cuda")
         if launches_st != self.expected_launches(
                 lif_step=MAIN_STEPS, synapse_matmul=MAIN_STEPS,
-                ell_gather=MAIN_STEPS):
+                ell_gather=MAIN_STEPS):     # ell_gather.wide stays at 0
             raise AssertionError(f"cuda launches {launches_st}")
         for name in ("lif_step", "synapse_matmul", "ell_gather"):
             self.report["kernels"][name]["launches"] = launches_st[name]

@@ -6,43 +6,80 @@
 //
 // Bound on the card: bytes. The idx and weight rows are read once each
 // (8 bytes per synapse: 1.42 GB per step on a 24x24 grid of 1240-neuron
-// columns with 248 remote synapses per neuron); the table reads are
-// gathers that mostly hit L2 (one column's row is ~99 KB, the whole table
-// ~57 MB). One warp per (c, n) row: lanes stride over k so the idx and
-// weight reads coalesce, gather the table straight from device memory, and
-// finish with a warp-shuffle reduction. No table row is staged in shared
-// memory, so there is no row-length limit and no tiled variant: a table
-// wider than the TPU kernel's 131,072-lane block runs the same code.
+// columns with 248 remote synapses per neuron). The table gathers must
+// not cost more: gathered 4 bytes at a time from device memory, each one
+// takes a 32-byte L2 sector, four times the idx and weight bytes.
+//
+// So, like the TPU kernel that pins the row in VMEM, a CTA stages its
+// column's table row (99.2 KB on the paper's stencil) in shared memory
+// with cp.async and gathers from there. CTAs are persistent, two per SM
+// (kernels/plan.py chooses the grid from the shapes): each takes a
+// contiguous, equal share of the (column, 256-row block) items, which all
+// cost the same, and reloads the row only when its column changes: on a
+// 24x24 grid 3 or 4 rows per CTA instead of one per item. One warp per
+// output row reads its idx and weights as coalesced 16-byte vectors, two
+// rows in flight per warp (repro::ell_rows).
+//
+// A table too wide for two rows per SM (radius-6 exponential stencils,
+// ~720 KB a row) takes the wide instance: the same loop with the table
+// read from device memory through L2, one item per CTA.
 #include "kernels.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
-
-__global__ void ell_gather_kernel(const float* __restrict__ tbl,
-                                  const int* __restrict__ idx,
-                                  const float* __restrict__ w,
-                                  float* __restrict__ out, long long rows,
-                                  int n, int t_len, int k) {
-  const long long row =
-      (long long)blockIdx.x * WARPS + threadIdx.x / 32;  // (c, n) flattened
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // the whole warp leaves together
-  const long long col = row / n;
-  const float acc = repro::ell_row(tbl + col * t_len, t_len, idx + row * k,
-                                   w + row * k, k, lane);
-  if (lane == 0) out[row] = acc;
+template <bool STAGED>
+__global__ void __launch_bounds__(repro::TB, 2)
+    ell_gather_kernel(const float* __restrict__ tbl,
+                      const int* __restrict__ idx,
+                      const float* __restrict__ w, float* __restrict__ out,
+                      int n_cols, int n, int n_tblk, int t_len, int k,
+                      bool vec) {
+  extern __shared__ float4 smem4[];
+  float* tbl_sh = reinterpret_cast<float*>(smem4);
+  // a contiguous, equal share of the items (kernels/plan.py
+  // Plan.item_range): every item costs the same here
+  const long long items = (long long)n_cols * n_tblk;
+  const long long i0 = blockIdx.x * items / gridDim.x;
+  const long long i1 = (blockIdx.x + 1) * items / gridDim.x;
+  int col_prev = -1;
+  for (long long it = i0; it < i1; ++it) {
+    const int col = (int)(it / n_tblk);
+    const int r0 = (int)(it % n_tblk) * repro::TB;
+    const float* tbl_c = tbl + (size_t)col * t_len;
+    if constexpr (STAGED) {
+      if (col != col_prev) {
+        __syncthreads();  // every warp is done with the previous row
+        repro::stage_async(tbl_sh, tbl_c, t_len);
+        repro::cp_async_wait<0>();
+        __syncthreads();
+        col_prev = col;
+      }
+    }
+    const size_t row0 = (size_t)col * n + r0;
+    repro::ell_rows(
+        repro::TableRow<STAGED>{STAGED ? tbl_sh : tbl_c, t_len},
+        idx + row0 * k, w + row0 * k, min(repro::TB, n - r0), k, vec,
+        [&](int r, float sum) { out[row0 + r] = sum; });
+  }
 }
 
 }  // namespace
 
+// staged, ctas, smem_bytes: kernels/plan.py's choice for these shapes.
 extern "C" int repro_ell_gather(const float* tbl, const int* idx,
                                 const float* w, float* out, int c, int n,
-                                int t_len, int k, cudaStream_t stream) {
-  const long long rows = (long long)c * n;
-  if (rows <= 0) return 0;
-  const long long blocks = (rows + WARPS - 1) / WARPS;
-  ell_gather_kernel<<<(unsigned)blocks, WARPS * 32, 0, stream>>>(
-      tbl, idx, w, out, rows, n, t_len, k);
+                                int t_len, int k, int staged, int ctas,
+                                int smem_bytes, cudaStream_t stream) {
+  if (c <= 0 || n <= 0) return 0;
+  if (ctas <= 0 || smem_bytes < repro::ell_gather_smem(staged, t_len)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n_tblk = (n + repro::TB - 1) / repro::TB;
+  const auto kernel =
+      staged ? &ell_gather_kernel<true> : &ell_gather_kernel<false>;
+  const cudaError_t err = repro::set_smem(kernel, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)ctas, repro::TB, smem_bytes, stream>>>(
+      tbl, idx, w, out, c, n, n_tblk, t_len, k, repro::ell_vec(idx, w, k));
   return (int)cudaGetLastError();
 }

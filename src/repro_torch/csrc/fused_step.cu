@@ -8,24 +8,41 @@
 //
 // Bound on the card: bytes, the sum of the parts: the weight rows the
 // spikes need (3.54 GB per step on a 24x24 grid if none were skipped), the
-// ELL idx+weights (1.42 GB), the state in and out. One CTA per (column,
-// 128-target block); thread i of a CTA owns target t0 + i. It accumulates
-// the local product in a register (synapse_matmul's skip: silent
-// 128-source blocks and silent sources are never read), then the CTA's
-// four warps take its 128 ELL rows one warp per row (coalesced idx/weight
-// reads, table gathered through L2) into shared memory, and each thread
-// finishes its neuron. Nothing of the ELL layout is held resident: the TPU
-// kernel's 4 MB VMEM column tiling does not carry over.
+// ELL idx+weights (1.42 GB), the state in and out. The ELL half is the
+// design of ell_gather.cu: persistent CTAs, two per SM, over the (column,
+// 256-target block) items, with the column's table row staged in shared
+// memory by cp.async and reloaded only when the column changes, and the
+// idx and weights streamed as 16-byte vectors, two rows in flight per
+// warp. Gathered from device memory, the table would cost a 32-byte L2
+// sector per 4-byte gather.
 //
-// Launch order: the target blocks of one column are neighbours in the 1-D
-// grid, so the CTAs in flight at any time cover a few hundred columns and
-// their table rows (~99 KB each on the paper's stencil) stay in L2. With
-// the column index fastest, every column's row is in flight at once, the
-// 57 MB table no longer fits the 50 MB L2, and each 4-byte gather costs a
-// 32-byte sector from device memory.
+// Unlike ell_gather's, these items do not cost the same: spikes cluster,
+// and a column's local product reads one weight row per spiking source
+// (chip_smoke.py reports how many, per column and per CTA under equal
+// shares: on a 24x24 grid the busiest columns have dozens of times the
+// mean). CTAs therefore claim chunks of items in order from a counter
+// (guided self-scheduling: about remaining / (2 * CTAs) items a claim,
+// down to one), so a CTA that meets a busy column claims fewer, and
+// consecutive items of a column still mostly share a CTA and its row.
+//
+// On a column change the CTA also stages the column's spikes (one commit
+// group ahead of the table row) and compacts the sources that spiked into
+// a list in shared memory, in ascending order, counting the 128-source
+// blocks that are silent once per column (the item with target block 0).
+// An item's local product reads only the weight rows of the listed
+// sources, coalesced along targets: the first PREFETCH rows are requested
+// before the ELL stream and summed after it, the rest eight in flight.
+// It is the same sum, in the same order, as synapse_matmul's; a silent
+// block's rows are never read.
+//
+// Thread i of a CTA owns target t0 + i of the item: its state, drive and
+// traces are loaded first, so that they arrive under the ELL stream.
+//
+// Every item's sums are taken in a fixed order whichever CTA takes it, so
+// a rerun gives the same bits.
 //
 // Epilogues, as template instances so that the static variant's code is
-// what it was without them:
+// what it is without them:
 // - STDP: x_pre' = fma(x_pre, dp, s), x_post' = fma(x_post, dm, s), the
 //   trace decay and bump of core/plasticity.py in XLA's grouping (two
 //   more (C, N) reads and writes);
@@ -33,9 +50,15 @@
 //   where one lies outside [v_floor, v_ceil] (no --use_fast_math, so
 //   isfinite holds), by a warp ballot and one atomicOr per warp into
 //   flags[col], which the caller zeroes.
+// A table too wide for two CTAs per SM takes the wide instances
+// (STAGED = false): the same loop, the table read through L2, one item per
+// CTA.
 #include "kernels.cuh"
 
 namespace {
+
+// Weight rows of the local product requested before the ELL stream.
+constexpr int PREFETCH = 8;
 
 struct StdpEpilogue {
   const float* x_pre;
@@ -50,70 +73,206 @@ struct GuardEpilogue {
   float v_floor, v_ceil;
 };
 
-template <bool STDP, bool GUARD>
-__global__ void fused_step_kernel(
+// Compacts the sources s < n with spk[s] != 0 into list[0, total) in
+// ascending order (ballot, per-warp counts, TB sources a pass); with
+// count_silent, adds the silent 128-source blocks to *silent. Returns
+// total; the list is visible to the whole CTA on return.
+__device__ __forceinline__ int list_spiking(const float* spk, int n,
+                                            int* list, int* warp_count,
+                                            bool count_silent, int* silent) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int total = 0;
+  for (int s0 = 0; s0 < n; s0 += repro::TB) {
+    const int s = s0 + threadIdx.x;
+    const bool active = s < n && spk[s] != 0.0f;
+    const unsigned mask = __ballot_sync(0xffffffffu, active);
+    if (lane == 0) warp_count[warp] = __popc(mask);
+    __syncthreads();
+    int base = 0, pass = 0;
+#pragma unroll
+    for (int i = 0; i < repro::TB_WARPS; ++i) {
+      const int c = warp_count[i];
+      base += i < warp ? c : 0;
+      pass += c;
+    }
+    if (active) list[total + base + __popc(mask & ((1u << lane) - 1u))] = s;
+    if (count_silent && threadIdx.x == 0) {
+      constexpr int W = repro::BLK / 32;  // warps per 128-source block
+      for (int b = 0; b < repro::TB / repro::BLK && s0 + b * repro::BLK < n;
+           ++b) {
+        int c = 0;
+#pragma unroll
+        for (int i = 0; i < W; ++i) c += warp_count[b * W + i];
+        *silent += c == 0;
+      }
+    }
+    total += pass;
+    __syncthreads();  // the list is written; warp_count may be rewritten
+  }
+  return total;
+}
+
+template <bool STAGED, bool STDP, bool GUARD>
+__global__ void __launch_bounds__(repro::TB, 2) fused_step_kernel(
     const float* __restrict__ s_loc, const float* __restrict__ w,
     const float* __restrict__ tbl, const int* __restrict__ idx,
     const float* __restrict__ rem_w, const float* __restrict__ ext,
     const float* __restrict__ v, const float* __restrict__ c,
     const int* __restrict__ refrac, float* __restrict__ v_out,
     float* __restrict__ c_out, int* __restrict__ r_out,
-    float* __restrict__ s_out, int n, int n_tblk, int t_len, int k,
-    repro::LifParams p, unsigned long long* silent_count, StdpEpilogue st,
-    GuardEpilogue gd) {
-  __shared__ repro::LocalShared sh;
-  __shared__ float rem_sh[repro::BLK];
-  const int col = blockIdx.x / n_tblk;
-  const int tblk = blockIdx.x % n_tblk;
-  const int t0 = tblk * repro::BLK;
-  const int t = t0 + threadIdx.x;
+    float* __restrict__ s_out, int n_cols, int n, int n_tblk, int t_len,
+    int k, bool vec, repro::LifParams p, unsigned long long* silent_count,
+    StdpEpilogue st, GuardEpilogue gd, int* next_item) {
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  float* tbl_sh = reinterpret_cast<float*>(smem);
+  smem += repro::ell_gather_smem(STAGED, t_len);
+  float* spk_sh = reinterpret_cast<float*>(smem);
+  smem += repro::round16(4 * n);
+  int* list_sh = reinterpret_cast<int*>(smem);
+  smem += repro::round16(4 * n);
+  float* rem_sh = reinterpret_cast<float*>(smem);
+  int* warp_count = reinterpret_cast<int*>(rem_sh + 2 * repro::TB);
+  int* claim = warp_count + repro::TB_WARPS;
 
-  int silent = 0;
-  const float local = repro::local_delivery(
-      s_loc + (size_t)col * n, w + (size_t)col * n * n, n, t, sh, &silent);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const float* tbl_c = tbl + (size_t)col * t_len;
-  for (int r = warp; r < repro::BLK && t0 + r < n; r += repro::BLK / 32) {
-    const size_t row = (size_t)col * n + t0 + r;
-    const float sum =
-        repro::ell_row(tbl_c, t_len, idx + row * k, rem_w + row * k, k, lane);
-    if (lane == 0) rem_sh[r] = sum;
-  }
-  __syncthreads();
-
-  bool bad_nan = false, bad_rng = false;
-  if (t < n) {
-    const size_t i = (size_t)col * n + t;
-    const float cur = __fadd_rn(__fadd_rn(local, rem_sh[threadIdx.x]), ext[i]);
-    const repro::LifOut o =
-        repro::lif_update(p, v[i], c[i], refrac[i], cur, v_out + i,
-                          c_out + i, r_out + i, s_out + i);
-    if constexpr (STDP) {
-      st.x_pre_out[i] = __fmaf_rn(st.x_pre[i], st.dp, o.s);
-      st.x_post_out[i] = __fmaf_rn(st.x_post[i], st.dm, o.s);
+  const int lane = threadIdx.x & 31;
+  const int items = n_cols * n_tblk;
+  int col_prev = -1, n_spiking = 0, silent = 0, n_done = 0;
+  for (;;) {
+    if (threadIdx.x == 0) {
+      const int seen = *reinterpret_cast<volatile int*>(next_item);
+      const int size = max(1, (items - seen) / (2 * (int)gridDim.x));
+      const int start = atomicAdd(next_item, size);
+      claim[0] = start;
+      claim[1] = min(start + size, items);
     }
-    if constexpr (GUARD) {
-      bad_nan = !isfinite(o.v);
-      bad_rng = o.v < gd.v_floor || o.v > gd.v_ceil;
+    __syncthreads();
+    const int c0 = claim[0], c1 = claim[1];
+    if (c0 >= items) break;
+    // claim is rewritten only after the chunk's own barriers
+    for (int it = c0; it < c1; ++it) {
+      const int col = it / n_tblk;
+      const int tblk = it % n_tblk;
+      const int t0 = tblk * repro::TB;
+      const int t = t0 + threadIdx.x;
+      const bool valid = t < n;
+      const size_t i = (size_t)col * n + t;
+      float v_i = 0.0f, c_i = 0.0f, ext_i = 0.0f;
+      float xp_i = 0.0f, xq_i = 0.0f;
+      int r_i = 0;
+      if (valid) {
+        v_i = v[i];
+        c_i = c[i];
+        r_i = refrac[i];
+        ext_i = ext[i];
+        if constexpr (STDP) {
+          xp_i = st.x_pre[i];
+          xq_i = st.x_post[i];
+        }
+      }
+      const float* tbl_c = tbl + (size_t)col * t_len;
+      const bool col_changed = col != col_prev;
+      if (col_changed) {
+        __syncthreads();  // every thread is done with the previous column
+        repro::stage_async(spk_sh, s_loc + (size_t)col * n, n);
+        if constexpr (STAGED) {
+          repro::stage_async(tbl_sh, tbl_c, t_len);
+          repro::cp_async_wait<1>();  // the spikes; the row may still fly
+        } else {
+          repro::cp_async_wait<0>();
+        }
+        __syncthreads();
+        n_spiking = list_spiking(spk_sh, n, list_sh, warp_count, tblk == 0,
+                                 &silent);
+        col_prev = col;
+      }
+
+      // the first PREFETCH weight rows of the local product are requested
+      // now and consumed after the ELL stream, which hides their latency
+      const float* wp = w + (size_t)col * n * n + t;
+      float pre[PREFETCH];
+#pragma unroll
+      for (int j = 0; j < PREFETCH; ++j) {
+        pre[j] = valid && j < n_spiking ? wp[(size_t)list_sh[j] * n] : 0.0f;
+      }
+
+      if (STAGED && col_changed) {
+        repro::cp_async_wait<0>();  // the table row
+        __syncthreads();
+      }
+      // the sums of consecutive items alternate buffers, so an item's ELL
+      // rows need not wait for the last item's epilogue
+      float* rem = rem_sh + (n_done++ & 1) * repro::TB;
+      const size_t row0 = (size_t)col * n + t0;
+      repro::ell_rows(
+          repro::TableRow<STAGED>{STAGED ? tbl_sh : tbl_c, t_len},
+          idx + row0 * k, rem_w + row0 * k, min(repro::TB, n - t0), k, vec,
+          [&](int r, float sum) { rem[r] = sum; });
+      __syncthreads();
+
+      // local product over the listed sources, ascending
+      float local = 0.0f;
+      if (valid) {
+#pragma unroll
+        for (int j = 0; j < PREFETCH; ++j) {
+          if (j < n_spiking) {
+            local = __fmaf_rn(spk_sh[list_sh[j]], pre[j], local);
+          }
+        }
+#pragma unroll 8
+        for (int j = PREFETCH; j < n_spiking; ++j) {
+          const int s = list_sh[j];
+          local = __fmaf_rn(spk_sh[s], wp[(size_t)s * n], local);
+        }
+      }
+
+      bool bad_nan = false, bad_rng = false;
+      if (valid) {
+        const float cur =
+            __fadd_rn(__fadd_rn(local, rem[threadIdx.x]), ext_i);
+        const repro::LifOut o =
+            repro::lif_update(p, v_i, c_i, r_i, cur, v_out + i, c_out + i,
+                              r_out + i, s_out + i);
+        if constexpr (STDP) {
+          st.x_pre_out[i] = __fmaf_rn(xp_i, st.dp, o.s);
+          st.x_post_out[i] = __fmaf_rn(xq_i, st.dm, o.s);
+        }
+        if constexpr (GUARD) {
+          bad_nan = !isfinite(o.v);
+          bad_rng = o.v < gd.v_floor || o.v > gd.v_ceil;
+        }
+      }
+      if constexpr (GUARD) {
+        const int bits = (__ballot_sync(0xffffffffu, bad_nan) ? 1 : 0) |
+                         (__ballot_sync(0xffffffffu, bad_rng) ? 2 : 0);
+        if (lane == 0 && bits != 0) atomicOr(gd.flags + col, bits);
+      }
     }
   }
-  if constexpr (GUARD) {
-    const int bits = (__ballot_sync(0xffffffffu, bad_nan) ? 1 : 0) |
-                     (__ballot_sync(0xffffffffu, bad_rng) ? 2 : 0);
-    if (lane == 0 && bits != 0) atomicOr(gd.flags + col, bits);
-  }
-  // every target block of a column sees the same source blocks: count once
-  if (silent_count != nullptr && tblk == 0 && threadIdx.x == 0 &&
-      silent > 0) {
+  // each column's source blocks were counted once, by the CTA that took
+  // its target block 0 (claims are increasing, so it met the column there)
+  if (silent_count != nullptr && threadIdx.x == 0 && silent > 0) {
     atomicAdd(silent_count, (unsigned long long)silent);
   }
+}
+
+template <bool STAGED>
+using FusedKernel = decltype(&fused_step_kernel<STAGED, false, false>);
+
+template <bool STAGED>
+FusedKernel<STAGED> fused_instance(bool stdp, bool guard) {
+  return stdp ? (guard ? &fused_step_kernel<STAGED, true, true>
+                       : &fused_step_kernel<STAGED, true, false>)
+              : (guard ? &fused_step_kernel<STAGED, false, true>
+                       : &fused_step_kernel<STAGED, false, false>);
 }
 
 }  // namespace
 
 // x_pre == NULL selects the variant without the STDP epilogue, flags ==
-// NULL the one without the guard epilogue.
+// NULL the one without the guard epilogue; staged, ctas, smem_bytes are
+// kernels/plan.py's choice for these shapes; next_item is the claim
+// counter, one int the caller zeroes.
 extern "C" int repro_fused_step(
     const float* s_loc, const float* w, const float* tbl, const int* idx,
     const float* rem_w, const float* ext, const float* v, const float* c,
@@ -123,21 +282,25 @@ extern "C" int repro_fused_step(
     float v_thr, int arp, unsigned long long* silent_count,
     const float* x_pre, const float* x_post, float* x_pre_out,
     float* x_post_out, float dp, float dm, int* flags, float v_floor,
-    float v_ceil, cudaStream_t stream) {
+    float v_ceil, int staged, int ctas, int smem_bytes, int* next_item,
+    cudaStream_t stream) {
   if (n_cols <= 0 || n <= 0) return 0;
-  const int n_tblk = (n + repro::BLK - 1) / repro::BLK;
+  if (ctas <= 0 || next_item == nullptr ||
+      smem_bytes < repro::fused_step_smem(staged, t_len, n)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n_tblk = (n + repro::TB - 1) / repro::TB;
   const bool stdp = x_pre != nullptr, guard = flags != nullptr;
-  const auto kernel =
-      stdp ? (guard ? &fused_step_kernel<true, true>
-                    : &fused_step_kernel<true, false>)
-           : (guard ? &fused_step_kernel<false, true>
-                    : &fused_step_kernel<false, false>);
-  kernel<<<(unsigned)n_cols * n_tblk, repro::BLK, 0, stream>>>(
+  const auto kernel = staged ? fused_instance<true>(stdp, guard)
+                             : fused_instance<false>(stdp, guard);
+  const cudaError_t err = repro::set_smem(kernel, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)ctas, repro::TB, smem_bytes, stream>>>(
       s_loc, w, tbl, idx, rem_w, ext, v, c, refrac, v_out, c_out, r_out,
-      s_out, n, n_tblk, t_len, k,
+      s_out, n_cols, n, n_tblk, t_len, k, repro::ell_vec(idx, rem_w, k),
       repro::lif_params(decay_v, decay_c, gain, g_c, alpha_c, v_rest,
                         v_reset, v_thr, arp),
       silent_count, StdpEpilogue{x_pre, x_post, x_pre_out, x_post_out, dp, dm},
-      GuardEpilogue{flags, v_floor, v_ceil});
+      GuardEpilogue{flags, v_floor, v_ceil}, next_item);
   return (int)cudaGetLastError();
 }

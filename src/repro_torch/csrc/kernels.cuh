@@ -117,25 +117,193 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// One ELL row by one warp: sum_k tbl_c[idx_row[k]] * w_row[k]. Lanes stride
-// over k, so the idx and weight reads coalesce; the table is gathered from
-// device memory through L2. An index outside [0, t_len) gives NaN (as the
-// reference's out-of-bounds gather fills) instead of reading out of
-// bounds. Every lane returns the sum.
-__device__ __forceinline__ float ell_row(const float* __restrict__ tbl_c,
-                                         int t_len,
-                                         const int* __restrict__ idx_row,
-                                         const float* __restrict__ w_row,
-                                         int k, int lane) {
-  float acc = 0.0f;
-#pragma unroll 4
-  for (int j = lane; j < k; j += 32) {
-    const int i = idx_row[j];
-    const float g = (unsigned)i < (unsigned)t_len ? __ldg(tbl_c + i)
-                                                  : __int_as_float(0x7fc00000);
-    acc = __fmaf_rn(g, w_row[j], acc);
+// The persistent ELL kernels (ell_gather, fused_step): threads of a CTA,
+// which is also the width of their (column, target block) work items.
+// kernels/plan.py (TARGET_BLOCK) mirrors it.
+constexpr int TB = 256;
+constexpr int TB_WARPS = TB / 32;
+
+__host__ __device__ constexpr int round16(int bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+// Dynamic shared memory of one CTA; kernels/plan.py::smem_bytes mirrors it.
+// ell_gather: the column's table row when staged. fused_step: that, then
+// the column's spikes and the list of its spiking sources (n each), the
+// ELL sums of two items (2 TB), per-warp counts and the claimed chunk.
+__host__ __device__ constexpr int ell_gather_smem(bool staged, int t_len) {
+  return staged ? round16(4 * t_len) : 0;
+}
+__host__ __device__ constexpr int fused_step_smem(bool staged, int t_len,
+                                                  int n) {
+  return ell_gather_smem(staged, t_len) + 2 * round16(4 * n) + 8 * TB +
+         4 * TB_WARPS + 8;
+}
+
+// Starts copying `count` floats from device memory to shared memory `dst`
+// (16-byte aligned) with cp.async, as one commit group: 16-byte copies
+// while `src` is 16-byte aligned, 4-byte copies for the tail or all of an
+// unaligned row. The whole CTA calls it; cp_async_wait<N> + __syncthreads
+// make the copy visible.
+__device__ __forceinline__ void stage_async(float* dst,
+                                            const float* __restrict__ src,
+                                            int count) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  int head = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int groups = count >> 2;
+    for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       d + 16u * g),
+                   "l"(src + 4 * g)
+                   : "memory");
+    }
+    head = groups << 2;
   }
-  return warp_sum(acc);
+  for (int i = head + threadIdx.x; i < count; i += blockDim.x) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d + 4u * i),
+                 "l"(src + i)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's commit groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The table a CTA gathers from: its column's row staged in shared memory
+// (STAGED), or the row in device memory read through L2 (tables wider
+// than the shared-memory budget). An index outside [0, t_len) gives NaN
+// (as the reference's out-of-bounds gather fills) instead of reading out
+// of bounds.
+template <bool STAGED>
+struct TableRow {
+  const float* p;
+  int t_len;
+  __device__ __forceinline__ float operator()(int i) const {
+    if ((unsigned)i >= (unsigned)t_len) return __int_as_float(0x7fc00000);
+    if constexpr (STAGED) {
+      return p[i];
+    } else {
+      return __ldg(p + i);
+    }
+  }
+};
+
+// ELL rows of one item: sink(r, sum_k tbl[idx[r, k]] * w[r, k]) for r in
+// [0, rows), rows of K entries from (idx, w) on. One warp per row, the
+// CTA's warps taking rows r = warp, warp + TB_WARPS, ...; every lane of
+// the warp holds the sum, lane 0 sinks it. The idx and weights are read
+// once, so they stream past L1 and are marked evict-first (__ldcs).
+//
+// vec (K a multiple of 4 and both rows 16-byte aligned): lanes read 16
+// bytes of idx and 16 of weights at a time, coalesced, and each warp keeps
+// two rows of up to 64 int4 each in flight (128 bytes per lane) before it
+// gathers: K = 248 is 62 int4 per row, one pass. Otherwise lanes stride
+// over k with 4-byte reads. Each lane sums its own entries in order, then
+// the warp reduces by shuffles: a fixed order, so a rerun gives the same
+// bits.
+template <bool STAGED, class Sink>
+__device__ __forceinline__ void ell_rows(TableRow<STAGED> tbl,
+                                         const int* __restrict__ idx,
+                                         const float* __restrict__ w,
+                                         int rows, int k, bool vec,
+                                         Sink sink) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (vec) {
+    constexpr int R = 2, H = 2;  // rows in flight, int4 per lane per row
+    const int kq = k >> 2;
+    const int4* idx4 = reinterpret_cast<const int4*>(idx);
+    const float4* w4 = reinterpret_cast<const float4*>(w);
+    for (int r0 = warp; r0 < rows; r0 += R * TB_WARPS) {
+      float acc[R];
+#pragma unroll
+      for (int u = 0; u < R; ++u) acc[u] = 0.0f;
+      for (int g0 = 0; g0 < kq; g0 += 32 * H) {
+        int4 iv[R][H];
+        float4 wv[R][H];
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+#pragma unroll
+          for (int h = 0; h < H; ++h) {
+            const int r = r0 + u * TB_WARPS, g = g0 + h * 32 + lane;
+            iv[u][h] = make_int4(0, 0, 0, 0);
+            wv[u][h] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (r < rows && g < kq) {
+              const size_t off = (size_t)r * kq + g;
+              iv[u][h] = __ldcs(idx4 + off);
+              wv[u][h] = __ldcs(w4 + off);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+#pragma unroll
+          for (int h = 0; h < H; ++h) {
+            const int r = r0 + u * TB_WARPS, g = g0 + h * 32 + lane;
+            if (r < rows && g < kq) {
+              float a = acc[u];
+              a = __fmaf_rn(tbl(iv[u][h].x), wv[u][h].x, a);
+              a = __fmaf_rn(tbl(iv[u][h].y), wv[u][h].y, a);
+              a = __fmaf_rn(tbl(iv[u][h].z), wv[u][h].z, a);
+              a = __fmaf_rn(tbl(iv[u][h].w), wv[u][h].w, a);
+              acc[u] = a;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        const int r = r0 + u * TB_WARPS;
+        const float sum = warp_sum(acc[u]);
+        if (lane == 0 && r < rows) sink(r, sum);
+      }
+    }
+  } else {
+    for (int r = warp; r < rows; r += TB_WARPS) {
+      const int* ir = idx + (size_t)r * k;
+      const float* wr = w + (size_t)r * k;
+      float acc = 0.0f;
+#pragma unroll 4
+      for (int j = lane; j < k; j += 32) {
+        acc = __fmaf_rn(tbl(__ldcs(ir + j)), __ldcs(wr + j), acc);
+      }
+      const float sum = warp_sum(acc);
+      if (lane == 0) sink(r, sum);
+    }
+  }
+}
+
+// Whether (idx, w) can be read as 16-byte vectors: K a multiple of 4 and
+// both arrays 16-byte aligned (then so is every row).
+inline bool ell_vec(const int* idx, const float* w, int k) {
+  return k % 4 == 0 && reinterpret_cast<uintptr_t>(idx) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(w) % 16 == 0;
+}
+
+// Sets the dynamic shared memory of a kernel instance and checks it
+// against the device's per-block limit: a row that does not fit is an
+// error, never a silent fallback.
+template <class Kernel>
+inline cudaError_t set_smem(Kernel kernel, int smem_bytes) {
+  int dev = 0, max_optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return err;
+  if (smem_bytes < 0 || smem_bytes > max_optin) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
 }
 
 inline LifParams lif_params(float decay_v, float decay_c, float gain,

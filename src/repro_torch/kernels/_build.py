@@ -12,12 +12,18 @@ Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
 ``LAUNCHES`` counts the launches of each kernel: a wrapper adds one
 where it launches its kernel and nowhere else.
+
+    python -m repro_torch.kernels._build [BUILD_LOG]
+
+prints the registers and spills of every kernel instance, from the given
+``build.log`` or from the library it builds or loads.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -40,21 +46,23 @@ SIGNATURES = {
     "repro_lif_step": [_P] * 8 + [_L] + _LIF + [_P],
     # spikes, w, out, C, N, silent-block counter (or NULL), stream
     "repro_synapse_matmul": [_P, _P, _P, _I, _I, _P, _P],
-    # tbl, idx, w, out, C, N, T, K, stream
-    "repro_ell_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # tbl, idx, w, out, C, N, T, K, staged, CTAs, shared bytes, stream
+    "repro_ell_gather": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     # s_loc, w, tbl, idx, rem_w, ext, v, c, refrac -> v', c', refrac',
     # spikes; C, N, T, K; constants; silent-block counter; x_pre, x_post
     # -> x_pre', x_post' (or NULL); dp, dm; flags (or NULL); v_floor,
-    # v_ceil; stream
+    # v_ceil; staged, CTAs, shared bytes; claim counter; stream
     "repro_fused_step": ([_P] * 13 + [_I] * 4 + _LIF + [_P] + [_P] * 4
-                         + [_F] * 2 + [_P] + [_F] * 2 + [_P]),
+                         + [_F] * 2 + [_P] + [_F] * 2 + [_I] * 3 + [_P] * 2),
     # w, x_pre_exc, spk_exc, spikes, x_post -> w'; C, N; a_plus, a_minus,
     # lr, w_max; stream
     "repro_stdp_dense_update": [_P] * 6 + [_I] * 2 + [_F] * 4 + [_P],
 }
 
+# ell_gather and fused_step count their wide path (kernels/plan.py) apart
 LAUNCHES = {"lif_step": 0, "synapse_matmul": 0, "ell_gather": 0,
-            "fused_step": 0, "stdp_dense_update": 0}
+            "ell_gather.wide": 0, "fused_step": 0, "fused_step.wide": 0,
+            "stdp_dense_update": 0}
 
 
 def reset_launches() -> None:
@@ -165,6 +173,26 @@ def library() -> KernelLibrary:
     return _LIBRARY
 
 
+def ptxas_report(log: str) -> dict[str, dict]:
+    """Registers and spill bytes (stores + loads) of each kernel instance,
+    by mangled name, from nvcc's ``-Xptxas -v`` output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                out[name]["spill_bytes"] = int(m[1]) + int(m[2])
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[name]["registers"] = int(m[1])
+    return out
+
+
 def check_args(kernel: str, device: torch.device, **args) -> None:
     """Raise unless every ``name=(tensor, dtype, shape)`` has that dtype
     and shape, is contiguous and lies on ``device``, a CUDA device."""
@@ -196,3 +224,16 @@ def launch(kernel: str, c_name: str, device: torch.device, *args) -> None:
         msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
     LAUNCHES[kernel] += 1
+
+
+def main(argv: list[str]) -> int:
+    log = Path(argv[0]).read_text() if argv else library().log
+    for name, info in ptxas_report(log).items():
+        print(f"{info.get('registers', '?'):>4} registers "
+              f"{info.get('spill_bytes', '?'):>4} spill bytes  {name}")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(main(sys.argv[1:]))

@@ -3,16 +3,18 @@
 Replaces ``repro/kernels/ell_gather.py::ell_gather`` (both its
 single-block and its table-tiled Pallas kernel):
 ``out[c, n] = sum_k tbl[c, idx[c, n, k]] * w[c, n, k]`` in float32.
-Bound by bytes: the idx and weight rows, 8 bytes per synapse. One warp
-per (c, n) row, lanes striding over k, the table gathered from device
-memory through L2, so a table of any width runs the same code. Its plain
-version is ``ref.ell_gather_ref``.
+Bound by bytes: the idx and weight rows, 8 bytes per synapse. Persistent
+CTAs stage their column's table row in shared memory and gather from
+there; a table too wide for that takes the wide path, read through L2
+(``plan.py`` chooses from the shapes; its launches count as
+``ell_gather.wide``). Its plain version is ``ref.ell_gather_ref``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.plan import plan, sm_count
 from repro_torch.kernels.ref import ell_gather_ref
 
 
@@ -28,7 +30,10 @@ def ell_gather(s_flat: torch.Tensor, idx: torch.Tensor,
                       idx=(idx, torch.int32, (c, n, k)),
                       w=(w, torch.float32, (c, n, k)))
     out = torch.empty((c, n), dtype=torch.float32, device=s_flat.device)
-    _build.launch("ell_gather", "repro_ell_gather", s_flat.device,
+    p = plan("ell_gather", c, n, t, sm_count(s_flat.device))
+    _build.launch("ell_gather" if p.staged else "ell_gather.wide",
+                  "repro_ell_gather", s_flat.device,
                   s_flat.data_ptr(), idx.data_ptr(), w.data_ptr(),
-                  out.data_ptr(), c, n, t, k)
+                  out.data_ptr(), c, n, t, k, int(p.staged), p.ctas,
+                  p.smem_bytes)
     return out

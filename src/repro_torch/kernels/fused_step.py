@@ -7,9 +7,12 @@ static variant runs the code it ran without them. Per target neuron:
 the block-skipped local product, + the ELL gather, + the external
 drive, then LIF+SFA, with nothing written to device memory between the
 stages. Bound by bytes: the weight rows the spikes need plus the ELL idx
-and weights plus the state (and traces). One CTA per (column, 128-target
-block); see the source for the design. Its plain version is
-``ref.fused_step_ref``.
+and weights plus the state (and traces). Persistent CTAs claim (column,
+256-target block) items from a counter and stage the column's table row
+in shared memory, as ``ell_gather`` does, with the same wide path for
+tables too wide for it (``plan.py``; launches counted as
+``fused_step.wide``); see the source for the design. Its plain version
+is ``ref.fused_step_ref``.
 
 ``silent_blocks`` counts skipped (column, 128-source block) pairs, as in
 ``synapse_matmul``.
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.lif_step import _c_lif
+from repro_torch.kernels.plan import plan, sm_count
 from repro_torch.kernels.ref import (fused_step_ref, lif_constants,
                                      silent_block_count, stdp_constants)
 from repro_torch.kernels.synapse_matmul import _counter_arg, _counter_ptr
@@ -75,12 +79,16 @@ def fused_step(ncfg, v, c, refrac, s_loc, w_local, s_flat, rem_flat, rem_w,
         flags = torch.zeros(nc, dtype=torch.int32, device=v.device)
         guard_args = (flags.data_ptr(), gcfg.v_floor, gcfg.v_ceil)
         out += (flags,)
-    _build.launch("fused_step", "repro_fused_step", v.device,
+    p = plan("fused_step", nc, n, t, sm_count(v.device))
+    next_item = torch.zeros(1, dtype=torch.int32, device=v.device)
+    _build.launch("fused_step" if p.staged else "fused_step.wide",
+                  "repro_fused_step", v.device,
                   s_loc.data_ptr(), w_local.data_ptr(), s_flat.data_ptr(),
                   rem_flat.data_ptr(), rem_w.data_ptr(), ext.data_ptr(),
                   v.data_ptr(), c.data_ptr(), refrac.data_ptr(),
                   v_out.data_ptr(), c_out.data_ptr(), r_out.data_ptr(),
                   s_out.data_ptr(), nc, n, t, k,
                   *_c_lif(lif_constants(ncfg, v.dtype)),
-                  _counter_ptr(silent_blocks), *stdp_args, *guard_args)
+                  _counter_ptr(silent_blocks), *stdp_args, *guard_args,
+                  int(p.staged), p.ctas, p.smem_bytes, next_item.data_ptr())
     return out

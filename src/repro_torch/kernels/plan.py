@@ -1,0 +1,116 @@
+"""Shape plan of the persistent ELL kernels, ``ell_gather`` and
+``fused_step``: which path they take, their grid and their shared memory.
+
+Both kernels work in (column, target block) items of ``TARGET_BLOCK``
+targets (ELL rows), one thread per target. On the **staged** path a CTA
+copies its column's neighbour-table row into shared memory and gathers
+from there; CTAs are persistent, ``CTAS_PER_SM`` per SM, and reload the
+row only when the column changes. A table row too wide for that budget
+takes the **wide** path: the table is read from device memory through
+L2, one CTA per item.
+
+How the items are shared out (``schedule``): ``ell_gather``'s items all
+cost the same, so each CTA takes a contiguous, equal share
+(:meth:`Plan.item_range`). ``fused_step``'s do not (an item's local
+product reads one weight row per spiking source of its column, and
+spikes cluster), so its CTAs claim chunks in order from a counter,
+about ``remaining / (2 * ctas)`` items a claim and at least one
+(:meth:`Plan.claims` replays the claims one after another).
+
+The path is chosen here, from the shapes alone, never on failure; both
+wrappers call :func:`plan` and pass its choice down to the C entry point,
+which returns an error if asked to stage more than the card's block can
+hold. ``csrc/kernels.cuh`` mirrors ``TARGET_BLOCK`` and the shared-memory
+layout (``ell_gather_smem``, ``fused_step_smem``).
+"""
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import torch
+
+TARGET_BLOCK = 256           # threads per CTA, targets per item (repro::TB)
+WARPS = TARGET_BLOCK // 32
+# Hopper (H100): shared memory per SM, the part the system keeps per CTA,
+# and the most one CTA may opt in to
+SMEM_PER_SM = 233_472
+SMEM_RESERVED_PER_CTA = 1_024
+SMEM_PER_CTA_MAX = 232_448
+CTAS_PER_SM = 2
+#: the most a staged CTA may take so that CTAS_PER_SM fit on an SM
+STAGED_BUDGET = SMEM_PER_SM // CTAS_PER_SM - SMEM_RESERVED_PER_CTA
+KERNELS = ("ell_gather", "fused_step")
+
+
+class Plan(NamedTuple):
+    kernel: str
+    path: str             # "staged" or "wide"
+    schedule: str         # "static" shares or "claims" from a counter
+    ctas: int
+    items: int            # (column, target block) items
+    smem_bytes: int       # dynamic shared memory per CTA
+
+    @property
+    def staged(self) -> bool:
+        return self.path == "staged"
+
+    def item_range(self, cta: int) -> range:
+        """The items of CTA ``cta`` under the static schedule, as
+        ``ell_gather_kernel`` splits them."""
+        return range(cta * self.items // self.ctas,
+                     (cta + 1) * self.items // self.ctas)
+
+    def claims(self) -> list[range]:
+        """The chunks of the claim schedule, claimed one after another
+        (``fused_step_kernel``'s claims, each from the counter it saw)."""
+        out, start = [], 0
+        while start < self.items:
+            size = max(1, (self.items - start) // (2 * self.ctas))
+            out.append(range(start, min(start + size, self.items)))
+            start += size
+        return out
+
+
+def _round16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def smem_bytes(kernel: str, staged: bool, n: int, t_len: int) -> int:
+    """Dynamic shared memory of one CTA: the table row when staged; for
+    ``fused_step`` also the column's spikes and spiking-source list (n
+    each), the ELL sums of two items, per-warp counts and the claimed
+    chunk."""
+    table = _round16(4 * t_len) if staged else 0
+    if kernel == "ell_gather":
+        return table
+    return table + 2 * _round16(4 * n) + 8 * TARGET_BLOCK + 4 * WARPS + 8
+
+
+def plan(kernel: str, n_cols: int, n: int, t_len: int,
+         sm_count: int) -> Plan:
+    """The path, grid and shared memory of ``kernel`` for ``n_cols``
+    columns of ``n`` targets gathering from ``t_len``-wide table rows, on
+    a card with ``sm_count`` SMs."""
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r} (expected {KERNELS})")
+    items = n_cols * -(-n // TARGET_BLOCK)
+    smem = smem_bytes(kernel, True, n, t_len)
+    if smem <= STAGED_BUDGET:
+        path, ctas = "staged", min(items, CTAS_PER_SM * sm_count)
+    else:
+        smem = smem_bytes(kernel, False, n, t_len)
+        if smem > SMEM_PER_CTA_MAX:
+            raise ValueError(
+                f"{kernel}: {n} neurons per column need {smem} B of shared "
+                f"memory per CTA, more than the {SMEM_PER_CTA_MAX} B a CTA "
+                f"may have")
+        path, ctas = "wide", items
+    schedule = "static" if kernel == "ell_gather" else "claims"
+    return Plan(kernel, path, schedule, ctas, items, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device (cudaDevAttrMultiProcessorCount)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -42,6 +42,36 @@ def test_kernels_match_plain(cuda_device):
 
 
 @pytest.mark.cuda
+def test_wide_table_matches_plain(cuda_device):
+    """ell_gather and the four fused_step instances on a table wider than
+    the staged path's shared memory (T = 180,000), against their plain
+    versions, each launch on the wide path: the checks of
+    ``chip_smoke.Smoke.check_wide_table``, which raises on a miss."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    chip_smoke.Smoke(torch, str(cuda_device)).check_wide_table()
+
+
+@pytest.mark.cuda
+def test_staging_a_row_too_wide_is_an_error(cuda_device):
+    """Asked to stage a 180,000-lane row (720 KB, more than a CTA's shared
+    memory), the C entry point refuses: an error, never a fallback."""
+    from repro_torch.kernels import plan
+    c, n, k, t = 1, 256, 4, 180_000
+    tbl = torch.zeros(c, t, device=cuda_device)
+    idx = torch.zeros(c, n, k, dtype=torch.int32, device=cuda_device)
+    w = torch.zeros(c, n, k, device=cuda_device)
+    out = torch.empty(c, n, device=cuda_device)
+    _build.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.launch("ell_gather", "repro_ell_gather", cuda_device,
+                      tbl.data_ptr(), idx.data_ptr(), w.data_ptr(),
+                      out.data_ptr(), c, n, t, k, 1, 1,
+                      plan.smem_bytes("ell_gather", True, n, t))
+    assert _build.LAUNCHES["ell_gather"] == 0
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_bad_inputs(cuda_device):
     s = torch.zeros(2, 40, device=cuda_device)
     with pytest.raises(TypeError, match="bfloat16"):

@@ -1,0 +1,120 @@
+"""The shape plan of the port's persistent ELL kernels (``ell_gather``,
+``fused_step``): which path the shapes take, the grid and the shared
+memory, and that the CTAs' item shares cover every (column, target
+block) item exactly once. No card, no JAX: the plan is computed from the
+shapes and an SM count (132 on an H100 SXM)."""
+import pytest
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import plan as P
+
+H100_SMS = 132
+KERNELS = ("ell_gather", "fused_step")
+# GRID_24: 1240 neurons per column, 20 stencil offsets, K = 248
+N, T24 = 1240, 20 * 1240
+
+
+def _shares(p):
+    """The item ranges of the plan's schedule, in item order."""
+    if p.schedule == "static":
+        return [p.item_range(cta) for cta in range(p.ctas)]
+    return p.claims()
+
+
+def _covered_once(p):
+    seen = [i for r in _shares(p) for i in r]
+    return seen == list(range(p.items))
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_grid24_is_staged_at_two_ctas_per_sm(kernel):
+    p = P.plan(kernel, 576, N, T24, H100_SMS)
+    assert p.path == "staged" and p.staged
+    assert p.ctas == 2 * H100_SMS
+    assert p.items == 576 * 5
+    assert p.smem_bytes >= 4 * T24                  # the whole row
+    assert p.smem_bytes <= P.SMEM_PER_CTA_MAX       # 227 KB
+    assert 2 * (p.smem_bytes + P.SMEM_RESERVED_PER_CTA) <= P.SMEM_PER_SM
+    # ell_gather's items cost the same: equal shares of 10 or 11; the
+    # fused step's first claims are one column (5 items)
+    assert max(len(r) for r in _shares(p)) == {"ell_gather": 11,
+                                               "fused_step": 5}[kernel]
+    assert p.schedule == {"ell_gather": "static",
+                          "fused_step": "claims"}[kernel]
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_wide_table_takes_the_wide_path(kernel):
+    p = P.plan(kernel, 4, N, 180_000, H100_SMS)
+    assert p.path == "wide" and not p.staged
+    assert p.ctas == p.items == 4 * 5
+    assert [len(r) for r in _shares(p)] == [1] * p.items
+    assert p.smem_bytes == P.smem_bytes(kernel, False, N, 180_000)
+    assert p.smem_bytes < 4 * 180_000               # no row in it
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_largest_staged_row_and_the_next_straddle_the_budget(kernel):
+    lo, hi = 1, 1 << 20                  # staged at lo, wide at hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if P.plan(kernel, 576, N, mid, H100_SMS).staged:
+            lo = mid
+        else:
+            hi = mid
+    assert P.smem_bytes(kernel, True, N, lo) <= P.STAGED_BUDGET
+    assert P.smem_bytes(kernel, True, N, lo + 1) > P.STAGED_BUDGET
+    assert P.plan(kernel, 576, N, lo + 1, H100_SMS).path == "wide"
+    assert T24 < lo < 180_000
+    # the radius-6 exponential stencil (~145 offsets) is wide
+    assert not P.plan(kernel, 576, N, 145 * N, H100_SMS).staged
+
+
+@pytest.mark.parametrize("c,n,k,o", [(3, 70, 17, 20), (5, 130, 248, 20),
+                                     (7, 257, 31, 9)])
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_ragged_shapes(kernel, c, n, k, o):
+    p = P.plan(kernel, c, n, o * n, H100_SMS)
+    assert p.staged
+    assert p.items == c * -(-n // P.TARGET_BLOCK)
+    assert p.ctas == p.items
+    assert _covered_once(p)
+    assert [len(r) for r in _shares(p)] == [1] * p.items
+
+
+@pytest.mark.parametrize("n_cols", [1, 7, 576])
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_items_covered_exactly_once(kernel, n_cols):
+    p = P.plan(kernel, n_cols, N, T24, H100_SMS)
+    assert _covered_once(p)
+    sizes = [len(r) for r in _shares(p)]
+    assert min(sizes) >= 1
+    if p.schedule == "static":          # equal shares
+        assert len(sizes) == p.ctas and max(sizes) - min(sizes) <= 1
+    else:                               # claims shrink to single items
+        assert sizes == sorted(sizes, reverse=True) and sizes[-1] == 1
+
+
+def test_plan_refuses_what_no_path_runs():
+    with pytest.raises(ValueError, match="unknown kernel"):
+        P.plan("lif_step", 4, N, T24, H100_SMS)
+    with pytest.raises(ValueError, match="neurons per column"):
+        P.plan("fused_step", 4, 40_000, 180_000 * 40, H100_SMS)
+    # ell_gather keeps nothing per neuron in shared memory
+    assert P.plan("ell_gather", 4, 40_000, 180_000 * 40, H100_SMS).ctas
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_Z1aILb1EEvv' for "
+        "'sm_90a'",
+        "ptxas info    : Function properties for _Z1aILb1EEvv",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 72 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 32 registers, used 0 barriers",
+    ])
+    assert _build.ptxas_report(log) == {
+        "_Z1aILb1EEvv": {"registers": 72, "spill_bytes": 12},
+        "_Z1bv": {"registers": 32, "spill_bytes": 0}}
