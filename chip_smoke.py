@@ -14,7 +14,10 @@ then, on the card:
    their wide path), and times each (kernel, plain version, one library
    call where there is one, and the bound); ``stdp_dense_update`` and
    the fused step's STDP-trace and guard-flag epilogues are held to the
-   bit;
+   bit, and so is ``synapse_matmul``, against the float32 fused
+   multiply-add chain over each column's spiking sources in ascending
+   order (real, random and ragged inputs, and the real state with one
+   column in which every source spikes);
 2. runs a 4x4-column, 64-neuron network for 60 steps, and a plastic
    guarded 4x4x48 one for 100, under the three impls from one state and
    one drive: equal spikes and events;
@@ -33,10 +36,10 @@ Every phase raises on failure and the script exits non-zero. Without a
 card, or without the rest of the repository beside it, it exits
 non-zero and prints no result. The last line of its output is
 ``{"ok": true, "device": {...}}``; the line before it the per-kernel
-JSON (for ``fused_step`` and ``ell_gather`` also the path they took at
-the main shapes, their grid and shared memory per CTA, and each
-instance's registers and spills from the build log); a fuller report
-goes to ``build/chip_smoke_report.json``.
+JSON (for ``synapse_matmul``, ``fused_step`` and ``ell_gather`` also the
+path they took at the main shapes, their grid and shared memory per CTA,
+and each instance's registers and spills from the build log); a fuller
+report goes to ``build/chip_smoke_report.json``.
 """
 from __future__ import annotations
 
@@ -279,10 +282,14 @@ class Smoke:
         return 0
 
     def instances(self, log):
-        """Registers and spill bytes of every instance of the two staged
-        ELL kernels, labelled by path and epilogues, from the build log."""
-        out = {"ell_gather": {}, "fused_step": {}}
+        """Registers and spill bytes of every instance of the kernels that
+        ``kernels/plan.py`` plans, labelled by path and epilogues, from the
+        build log."""
+        out = {"synapse_matmul": {}, "ell_gather": {}, "fused_step": {}}
         for mangled, info in self.build.ptxas_report(log).items():
+            if re.search(r"synapse_matmul_kernel", mangled):
+                out["synapse_matmul"]["staged"] = info
+                continue
             m = re.search(r"(ell_gather|fused_step)_kernelI((?:Lb[01]E)+)E",
                           mangled)
             if m is None:
@@ -470,6 +477,8 @@ class Smoke:
         kinds["synapse_matmul"] = self.close(
             "synapse_matmul real", got, want,
             scale=self.scale_local(x["s_loc"], params.w_local))
+        self.equal("synapse_matmul real chain", got,
+                   ref.synapse_matmul_chain_ref(x["s_loc"], params.w_local))
         w64 = torch.einsum("cs,cst->ct", x["s_loc"].double(),
                            params.w_local.double())
         self.note(f"  synapse_matmul against float64: kernel "
@@ -516,13 +525,57 @@ class Smoke:
         nnz = int((x["s_loc"] != 0).sum())
         self.note(f"phase 1 real state (step {WARMUP_STEPS}): max abs err "
                   + ", ".join(f"{k} {v:.2e}" for k, v in kinds.items())
-                  + f"; spike flips lif {flips_lif} fused {flips}; "
+                  + f"; synapse_matmul equal to the fused multiply-add "
+                  f"chain; spike flips lif {flips_lif} fused {flips}; "
                   f"{nnz} spiking sources, silent 128-blocks "
                   f"{want_silent}/{n_blocks}; all-silent exact zeros")
         for name, err in kinds.items():
             self.report["kernels"][name] = {"max_abs_err": err}
+        self.check_worst_column(x["s_loc"], params.w_local)
         self.local_balance(x["s_loc"], x["s_flat"].shape[1])
         self.time_kernels(cfg, params, x, cur, nnz)
+
+    def check_worst_column(self, s_loc, w):
+        """synapse_matmul on the real spikes with every source of the last
+        column spiking (a chain as long as the column): to the bit against
+        the fused multiply-add chain, the silent-block count against the
+        plain count, and its time; then its times on parts of the real
+        spikes (none, the light columns, the heavy ones, all), beside the
+        timing floor."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        s = s_loc.clone()
+        s[-1] = 1.0
+        counter = torch.zeros(1, dtype=torch.int64, device=self.dev)
+        self.equal("synapse_matmul worst column chain",
+                   ops.synapse_matmul(s, w, silent_blocks=counter),
+                   ref.synapse_matmul_chain_ref(s, w))
+        if int(counter) != int(ref.silent_block_count(s)):
+            raise AssertionError("synapse_matmul worst column: silent-block "
+                                 "count differs")
+        entry = self.report["kernels"]["synapse_matmul"]
+        entry["ms_worst_column"] = self.time_ms(
+            lambda: ops.synapse_matmul(s, w))
+        self.note(f"  synapse_matmul with every source of column "
+                  f"{s.shape[0] - 1} spiking: equal to the fused "
+                  f"multiply-add chain, silent-block count equal")
+        # where its time goes: the same kernel on parts of the real input,
+        # beside the timing's own floor (one launch that writes one float)
+        per_col = (s_loc != 0).sum(1)
+        parts = {"all-silent": torch.zeros_like(s_loc),
+                 "columns of <= 32 spiking sources": torch.where(
+                     (per_col <= 32)[:, None], s_loc, 0.0),
+                 "columns of > 32": torch.where(
+                     (per_col > 32)[:, None], s_loc, 0.0),
+                 "every source spiking": torch.ones_like(s_loc)}
+        tiny = torch.zeros(1, device=self.dev)
+        entry["ms_floor"] = self.time_ms(tiny.zero_)
+        entry["ms_parts"] = {k: self.time_ms(lambda v=v: ops.synapse_matmul(
+            v, w)) for k, v in parts.items()}
+        self.note("  synapse_matmul on parts of the real input: "
+                  + ", ".join(f"{k} {v:.4f} ms"
+                              for k, v in entry["ms_parts"].items())
+                  + f"; timing floor (a one-float fill) "
+                  f"{entry['ms_floor']:.4f} ms")
 
     def local_balance(self, s_loc, t_len):
         """How unevenly the local product's work falls on fused_step's
@@ -541,13 +594,25 @@ class Smoke:
                    equal_share_rows_mean=float(shares.mean()),
                    equal_share_rows_max=float(shares.max()))
         self.report["kernels"]["fused_step"].update(out)
+        # synapse_matmul: one CTA per item, each item reads every listed
+        # row of its column (of its own targets)
+        q = self.plan.plan("synapse_matmul", c, n, t_len,
+                           self.plan.sm_count(self.dev))
+        rows = per_col.repeat_interleave(q.items // c)
+        sm = dict(items=q.items, ctas=q.ctas,
+                  rows_per_item_mean=float(rows.mean()),
+                  rows_per_item_max=float(rows.max()))
+        self.report["kernels"]["synapse_matmul"].update(sm)
         self.note(f"  local product balance: spiking sources per column "
                   f"mean {out['spiking_per_column_mean']:.2f}, max "
                   f"{out['spiking_per_column_max']:.0f}; rows per CTA under "
                   f"equal shares of {p.ctas}: mean "
                   f"{out['equal_share_rows_mean']:.1f}, max "
                   f"{out['equal_share_rows_max']:.0f} (fused_step claims "
-                  f"its items instead)")
+                  f"its items instead); synapse_matmul: {q.items} items on "
+                  f"{q.ctas} CTAs, rows per item and per CTA mean "
+                  f"{sm['rows_per_item_mean']:.2f}, max "
+                  f"{sm['rows_per_item_max']:.0f}")
 
     def time_kernels(self, cfg, params, x, cur, nnz):
         """Kernel, plain version, one library call where there is one, and
@@ -620,7 +685,12 @@ class Smoke:
                    " ms" if "ms_local_silent" in entry else "")
                 + (f"; {entry['path']} path, {entry['ctas']} CTAs "
                    f"({entry['schedule']} schedule), {entry['smem_bytes']} B "
-                   f"of shared memory each" if "path" in entry else "") + ")")
+                   f"of shared memory each, registers {entry['registers']}, "
+                   f"{entry['spill_bytes']} B spilled" if "path" in entry
+                   else "")
+                + (f"; a column with every source spiking "
+                   f"{entry['ms_worst_column']:.4f} ms"
+                   if "ms_worst_column" in entry else "") + ")")
 
     def library_bmm(self, x, params):
         """One cuBLAS batched product computing synapse_matmul."""
@@ -672,6 +742,9 @@ class Smoke:
                 f"lif_step {name}", ops.lif_step(ncfg, v, cc, refrac, ext),
                 ref.lif_step_ref(v, cc, refrac, ext,
                                  **ref.lif_constants(ncfg)))[0]}
+        self.equal(f"synapse_matmul {name} chain",
+                   ops.synapse_matmul(s_loc, w),
+                   ref.synapse_matmul_chain_ref(s_loc, w))
         args = (v, cc, refrac, s_loc, w, s_flat, idx, rw, ext)
         errs["fused_step"], flips = self.close_step(
             f"fused_step {name}", ops.fused_step(ncfg, *args),
@@ -713,6 +786,7 @@ class Smoke:
                                        w_max=0.84))
         self.note(f"phase 1 random at the main shapes: max abs err "
                   f"{max(errs.values()):.2e}, fused spike flips {flips}; "
+                  f"synapse_matmul equal to the fused multiply-add chain; "
                   f"all-silent exact zeros; stdp_dense_update equal to its "
                   f"plain version at lr 1 and 0.7, and all-silent")
 
@@ -751,8 +825,10 @@ class Smoke:
 
             self.check_poisoned(f"{c}x{n}", ncfg, args, x_pre, x_post)
         self.note(f"phase 1 ragged (3x70, 5x130, 7x257): max abs err "
-                  f"{worst:.2e}; all-silent exact zeros; stdp_dense_update "
-                  f"equal to its plain version; fused_step traces and flags "
+                  f"{worst:.2e}; synapse_matmul equal to the fused "
+                  f"multiply-add chain; all-silent exact zeros; "
+                  f"stdp_dense_update equal to its plain version; fused_step "
+                  f"traces and flags "
                   f"equal, flags [1, 0.., 2] on the NaN/-1e4 state")
 
     def check_poisoned(self, name, ncfg, args, x_pre, x_post):

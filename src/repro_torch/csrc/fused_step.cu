@@ -73,45 +73,6 @@ struct GuardEpilogue {
   float v_floor, v_ceil;
 };
 
-// Compacts the sources s < n with spk[s] != 0 into list[0, total) in
-// ascending order (ballot, per-warp counts, TB sources a pass); with
-// count_silent, adds the silent 128-source blocks to *silent. Returns
-// total; the list is visible to the whole CTA on return.
-__device__ __forceinline__ int list_spiking(const float* spk, int n,
-                                            int* list, int* warp_count,
-                                            bool count_silent, int* silent) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int total = 0;
-  for (int s0 = 0; s0 < n; s0 += repro::TB) {
-    const int s = s0 + threadIdx.x;
-    const bool active = s < n && spk[s] != 0.0f;
-    const unsigned mask = __ballot_sync(0xffffffffu, active);
-    if (lane == 0) warp_count[warp] = __popc(mask);
-    __syncthreads();
-    int base = 0, pass = 0;
-#pragma unroll
-    for (int i = 0; i < repro::TB_WARPS; ++i) {
-      const int c = warp_count[i];
-      base += i < warp ? c : 0;
-      pass += c;
-    }
-    if (active) list[total + base + __popc(mask & ((1u << lane) - 1u))] = s;
-    if (count_silent && threadIdx.x == 0) {
-      constexpr int W = repro::BLK / 32;  // warps per 128-source block
-      for (int b = 0; b < repro::TB / repro::BLK && s0 + b * repro::BLK < n;
-           ++b) {
-        int c = 0;
-#pragma unroll
-        for (int i = 0; i < W; ++i) c += warp_count[b * W + i];
-        *silent += c == 0;
-      }
-    }
-    total += pass;
-    __syncthreads();  // the list is written; warp_count may be rewritten
-  }
-  return total;
-}
-
 template <bool STAGED, bool STDP, bool GUARD>
 __global__ void __launch_bounds__(repro::TB, 2) fused_step_kernel(
     const float* __restrict__ s_loc, const float* __restrict__ w,
@@ -182,8 +143,8 @@ __global__ void __launch_bounds__(repro::TB, 2) fused_step_kernel(
           repro::cp_async_wait<0>();
         }
         __syncthreads();
-        n_spiking = list_spiking(spk_sh, n, list_sh, warp_count, tblk == 0,
-                                 &silent);
+        n_spiking = repro::list_spiking(spk_sh, n, list_sh, warp_count,
+                                        tblk == 0, &silent);
         col_prev = col;
       }
 

@@ -51,74 +51,13 @@ __device__ __forceinline__ LifOut lif_update(const LifParams& p, float v,
   return LifOut{v2, s};
 }
 
-// Shared memory of local_delivery: one 128-source block's spike values and
-// source offsets, compacted to the sources that spiked, and per-warp counts.
-struct LocalShared {
-  float s[BLK];
-  int j[BLK];
-  int warp_count[BLK / 32];
-};
-
-// Local delivery for target t of one column, run by a whole CTA of BLK
-// threads (thread i owns target t0 + i):
-//   sum_s spikes_c[s] * w_c[s, t]   (w_c is [src, tgt], row-major, n x n)
-// For each 128-source block the CTA compacts the sources that spiked into
-// shared memory (ballot + per-warp counts, ascending order kept). A silent
-// block is skipped before any of its weight rows is read (counted in
-// *silent); in an active block only the rows of sources that spiked are
-// read, each as coalesced 128-float segments (neighbouring threads read
-// neighbouring t), and the loop over the compacted list is unrolled so
-// that several row loads are in flight at once. Sums in float32, sources
-// in ascending order.
-__device__ __forceinline__ float local_delivery(
-    const float* __restrict__ spikes_c, const float* __restrict__ w_c, int n,
-    int t, LocalShared& sh, int* silent) {
-  float acc = 0.0f;
-  const bool valid_t = t < n;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int s0 = 0; s0 < n; s0 += BLK) {
-    const int s = s0 + threadIdx.x;
-    const float sv = s < n ? spikes_c[s] : 0.0f;
-    const bool active = sv != 0.0f;
-    const unsigned mask = __ballot_sync(0xffffffffu, active);
-    __syncthreads();  // every thread is done reading the previous list
-    if (lane == 0) sh.warp_count[warp] = __popc(mask);
-    __syncthreads();
-    int base = 0, total = 0;
-#pragma unroll
-    for (int i = 0; i < BLK / 32; ++i) {
-      const int c = sh.warp_count[i];
-      base += i < warp ? c : 0;
-      total += c;
-    }
-    if (active) {
-      const int pos = base + __popc(mask & ((1u << lane) - 1u));
-      sh.s[pos] = sv;
-      sh.j[pos] = threadIdx.x;
-    }
-    __syncthreads();
-    if (total == 0) {
-      ++*silent;
-      continue;
-    }
-    if (valid_t) {
-      const float* wp = w_c + (size_t)s0 * n + t;
-#pragma unroll 8
-      for (int i = 0; i < total; ++i) {
-        acc = __fmaf_rn(sh.s[i], wp[(size_t)sh.j[i] * n], acc);
-      }
-    }
-  }
-  return acc;
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
-// The persistent ELL kernels (ell_gather, fused_step): threads of a CTA,
-// which is also the width of their (column, target block) work items.
+// Threads of a CTA of ell_gather, fused_step and synapse_matmul, which is
+// also the width of their (column, target block) work items.
 // kernels/plan.py (TARGET_BLOCK) mirrors it.
 constexpr int TB = 256;
 constexpr int TB_WARPS = TB / 32;
@@ -127,10 +66,60 @@ __host__ __device__ constexpr int round16(int bytes) {
   return (bytes + 15) / 16 * 16;
 }
 
+// Compacts the sources s < n with spk[s] != 0 into list[0, total) in
+// ascending order (ballot, per-warp counts, TB sources a pass); with
+// count_silent, adds the silent 128-source blocks to *silent. The whole
+// CTA of TB threads calls it. Returns total; the list is visible to the
+// whole CTA on return. fused_step and synapse_matmul build their local
+// product on it, so both sum a target's terms in this order.
+__device__ __forceinline__ int list_spiking(const float* spk, int n,
+                                            int* list, int* warp_count,
+                                            bool count_silent, int* silent) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int total = 0;
+  for (int s0 = 0; s0 < n; s0 += TB) {
+    const int s = s0 + threadIdx.x;
+    const bool active = s < n && spk[s] != 0.0f;
+    const unsigned mask = __ballot_sync(0xffffffffu, active);
+    if (lane == 0) warp_count[warp] = __popc(mask);
+    __syncthreads();
+    int base = 0, pass = 0;
+#pragma unroll
+    for (int i = 0; i < TB_WARPS; ++i) {
+      const int c = warp_count[i];
+      base += i < warp ? c : 0;
+      pass += c;
+    }
+    if (active) list[total + base + __popc(mask & ((1u << lane) - 1u))] = s;
+    if (count_silent && threadIdx.x == 0) {
+      constexpr int W = BLK / 32;  // warps per 128-source block
+      for (int b = 0; b < TB / BLK && s0 + b * BLK < n; ++b) {
+        int c = 0;
+#pragma unroll
+        for (int i = 0; i < W; ++i) c += warp_count[b * W + i];
+        *silent += c == 0;
+      }
+    }
+    total += pass;
+    __syncthreads();  // the list is written; warp_count may be rewritten
+  }
+  return total;
+}
+
+// synapse_matmul's ring: SM_STAGES stages of SM_ROWS weight-row segments
+// of TB floats, (SM_STAGES - 1) * SM_ROWS rows in flight while a stage is
+// summed. kernels/plan.py (RING_ROWS, RING_STAGES) mirrors it.
+constexpr int SM_ROWS = 16;
+constexpr int SM_STAGES = 4;
+constexpr int SM_RING = SM_STAGES * SM_ROWS * TB * 4;
+
 // Dynamic shared memory of one CTA; kernels/plan.py::smem_bytes mirrors it.
 // ell_gather: the column's table row when staged. fused_step: that, then
 // the column's spikes and the list of its spiking sources (n each), the
 // ELL sums of two items (2 TB), per-warp counts and the claimed chunk.
+// synapse_matmul: the ring (the column's spikes are staged at its start,
+// so it is at least n floats), the list of spiking sources and their
+// spike values (n each), per-warp counts.
 __host__ __device__ constexpr int ell_gather_smem(bool staged, int t_len) {
   return staged ? round16(4 * t_len) : 0;
 }
@@ -138,6 +127,12 @@ __host__ __device__ constexpr int fused_step_smem(bool staged, int t_len,
                                                   int n) {
   return ell_gather_smem(staged, t_len) + 2 * round16(4 * n) + 8 * TB +
          4 * TB_WARPS + 8;
+}
+__host__ __device__ constexpr int synapse_matmul_ring(int n) {
+  return SM_RING > round16(4 * n) ? SM_RING : round16(4 * n);
+}
+__host__ __device__ constexpr int synapse_matmul_smem(int n) {
+  return synapse_matmul_ring(n) + 2 * round16(4 * n) + 4 * TB_WARPS;
 }
 
 // Starts copying `count` floats from device memory to shared memory `dst`

@@ -44,8 +44,9 @@ _LIF = [_F] * 8 + [_I]          # decay_v .. v_threshold, arp_steps
 SIGNATURES = {
     # v, c, refrac, cur -> v', c', refrac', spikes; n; constants; stream
     "repro_lif_step": [_P] * 8 + [_L] + _LIF + [_P],
-    # spikes, w, out, C, N, silent-block counter (or NULL), stream
-    "repro_synapse_matmul": [_P, _P, _P, _I, _I, _P, _P],
+    # spikes, w, out, C, N, silent-block counter (or NULL), shared bytes,
+    # stream
+    "repro_synapse_matmul": [_P, _P, _P, _I, _I, _P, _I, _P],
     # tbl, idx, w, out, C, N, T, K, staged, CTAs, shared bytes, stream
     "repro_ell_gather": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     # s_loc, w, tbl, idx, rem_w, ext, v, c, refrac -> v', c', refrac',

@@ -1,27 +1,37 @@
-"""Shape plan of the persistent ELL kernels, ``ell_gather`` and
-``fused_step``: which path they take, their grid and their shared memory.
+"""Shape plan of the kernels that keep per-column data in shared memory:
+``ell_gather``, ``fused_step`` and ``synapse_matmul``. Which path they
+take, their grid and their shared memory.
 
-Both kernels work in (column, target block) items of ``TARGET_BLOCK``
-targets (ELL rows), one thread per target. On the **staged** path a CTA
-copies its column's neighbour-table row into shared memory and gathers
-from there; CTAs are persistent, ``CTAS_PER_SM`` per SM, and reload the
-row only when the column changes. A table row too wide for that budget
-takes the **wide** path: the table is read from device memory through
-L2, one CTA per item.
+All three work in (column, target block) items of ``TARGET_BLOCK``
+targets, one thread per target.
+
+The ELL kernels: on the **staged** path a CTA copies its column's
+neighbour-table row into shared memory and gathers from there; CTAs are
+persistent, ``CTAS_PER_SM`` per SM, and reload the row only when the
+column changes. A table row too wide for that budget takes the **wide**
+path: the table is read from device memory through L2, one CTA per item.
+
+``synapse_matmul`` (always **staged**) streams the weight rows of its
+column's spiking sources through a ring of ``RING_STAGES`` stages of
+``RING_ROWS`` rows in shared memory, one CTA per item; a column too long
+for its list of spiking sources to fit beside the ring is refused.
 
 How the items are shared out (``schedule``): ``ell_gather``'s items all
 cost the same, so each CTA takes a contiguous, equal share
-(:meth:`Plan.item_range`). ``fused_step``'s do not (an item's local
-product reads one weight row per spiking source of its column, and
-spikes cluster), so its CTAs claim chunks in order from a counter,
-about ``remaining / (2 * ctas)`` items a claim and at least one
-(:meth:`Plan.claims` replays the claims one after another).
+(:meth:`Plan.item_range`); ``synapse_matmul``'s CTAs take one item each,
+the same static schedule with as many CTAs as items. ``fused_step``'s
+items do not cost the same (an item's local product reads one weight row
+per spiking source of its column, and spikes cluster), so its CTAs claim
+chunks in order from a counter, about ``remaining / (2 * ctas)`` items a
+claim and at least one (:meth:`Plan.claims` replays the claims one after
+another).
 
-The path is chosen here, from the shapes alone, never on failure; both
+The path is chosen here, from the shapes alone, never on failure; the
 wrappers call :func:`plan` and pass its choice down to the C entry point,
-which returns an error if asked to stage more than the card's block can
-hold. ``csrc/kernels.cuh`` mirrors ``TARGET_BLOCK`` and the shared-memory
-layout (``ell_gather_smem``, ``fused_step_smem``).
+which returns an error if asked for more shared memory than the card's
+block can hold. ``csrc/kernels.cuh`` mirrors ``TARGET_BLOCK``, the ring
+and the shared-memory layouts (``ell_gather_smem``, ``fused_step_smem``,
+``synapse_matmul_smem``).
 """
 from __future__ import annotations
 
@@ -40,7 +50,11 @@ SMEM_PER_CTA_MAX = 232_448
 CTAS_PER_SM = 2
 #: the most a staged CTA may take so that CTAS_PER_SM fit on an SM
 STAGED_BUDGET = SMEM_PER_SM // CTAS_PER_SM - SMEM_RESERVED_PER_CTA
-KERNELS = ("ell_gather", "fused_step")
+#: synapse_matmul's ring (repro::SM_ROWS, repro::SM_STAGES): rows a stage,
+#: stages; (RING_STAGES - 1) * RING_ROWS rows in flight
+RING_ROWS = 16
+RING_STAGES = 4
+KERNELS = ("ell_gather", "fused_step", "synapse_matmul")
 
 
 class Plan(NamedTuple):
@@ -80,7 +94,14 @@ def smem_bytes(kernel: str, staged: bool, n: int, t_len: int) -> int:
     """Dynamic shared memory of one CTA: the table row when staged; for
     ``fused_step`` also the column's spikes and spiking-source list (n
     each), the ELL sums of two items, per-warp counts and the claimed
-    chunk."""
+    chunk; for ``synapse_matmul`` (``staged`` and ``t_len`` unused) the
+    ring, at least as large as the column's spikes staged in it, the
+    spiking-source list and its spike values (n each) and per-warp
+    counts."""
+    if kernel == "synapse_matmul":
+        ring = max(RING_STAGES * RING_ROWS * TARGET_BLOCK * 4,
+                   _round16(4 * n))
+        return ring + 2 * _round16(4 * n) + 4 * WARPS
     table = _round16(4 * t_len) if staged else 0
     if kernel == "ell_gather":
         return table
@@ -90,12 +111,19 @@ def smem_bytes(kernel: str, staged: bool, n: int, t_len: int) -> int:
 def plan(kernel: str, n_cols: int, n: int, t_len: int,
          sm_count: int) -> Plan:
     """The path, grid and shared memory of ``kernel`` for ``n_cols``
-    columns of ``n`` targets gathering from ``t_len``-wide table rows, on
-    a card with ``sm_count`` SMs."""
+    columns of ``n`` targets gathering from ``t_len``-wide table rows
+    (unused by ``synapse_matmul``), on a card with ``sm_count`` SMs."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r} (expected {KERNELS})")
     items = n_cols * -(-n // TARGET_BLOCK)
     smem = smem_bytes(kernel, True, n, t_len)
+    if kernel == "synapse_matmul":
+        if smem > SMEM_PER_CTA_MAX:
+            raise ValueError(
+                f"{kernel}: {n} neurons per column need {smem} B of shared "
+                f"memory per CTA beside the ring, more than the "
+                f"{SMEM_PER_CTA_MAX} B a CTA may have")
+        return Plan(kernel, "staged", "static", items, items, smem)
     if smem <= STAGED_BUDGET:
         path, ctas = "staged", min(items, CTAS_PER_SM * sm_count)
     else:

@@ -6,7 +6,9 @@ same names in ``repro/kernels/ref.py``; ``fused_step_ref`` composes them
 as the reference step does, with the STDP-trace and guard-flag
 epilogues of ``repro/kernels/fused_step.py``. Each is the version a
 kernel wrapper takes for a tensor on the CPU. On the card
-``chip_smoke.py`` holds each CUDA kernel against it. Products that the
+``chip_smoke.py`` holds each CUDA kernel against it, and
+``synapse_matmul`` also against ``synapse_matmul_chain_ref``, the same
+product summed in the CUDA kernel's order and rounding. Products that the
 reference accumulates in float32 (``preferred_element_type=jnp.float32``)
 accumulate in float32 here.
 """
@@ -22,6 +24,30 @@ def synapse_matmul_ref(spikes: torch.Tensor, w_local: torch.Tensor
     """Local synaptic delivery: (C,N) x (C,N,N)[src,tgt] -> (C,N)."""
     out = torch.einsum("cs,cst->ct", spikes.float(), w_local.float())
     return out.to(spikes.dtype)
+
+
+def synapse_matmul_chain_ref(spikes: torch.Tensor, w_local: torch.Tensor
+                             ) -> torch.Tensor:
+    """``synapse_matmul_ref`` summed as the CUDA kernel sums it: for each
+    target, one chain ``acc = fma(spikes[c, s], w[c, s, t], acc)`` from 0
+    over the column's spiking sources in ascending order, each step
+    rounded once to float32 (``__fmaf_rn``). The kernel's result, to the
+    bit; float32 only."""
+    c, n = spikes.shape
+    active = spikes != 0
+    counts = active.sum(dim=1)
+    acc = torch.zeros(c, w_local.shape[-1], dtype=torch.float32,
+                      device=spikes.device)
+    if c == 0 or int(counts.max()) == 0:
+        return acc
+    # each column's spiking sources first, in ascending order
+    order = torch.sort((~active).to(torch.int8), dim=1, stable=True).indices
+    for k in range(int(counts.max())):
+        live = (counts > k).nonzero().squeeze(1)
+        src = order[live, k]
+        acc[live] = _fma(spikes[live, src].unsqueeze(1), w_local[live, src],
+                         acc[live])
+    return acc
 
 
 def ell_gather_ref(s_flat: torch.Tensor, idx: torch.Tensor,

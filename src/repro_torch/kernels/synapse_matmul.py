@@ -4,10 +4,14 @@
 Replaces ``repro/kernels/synapse_matmul.py::synapse_matmul``:
 ``out[c, t] = sum_s spikes[c, s] * w[c, s, t]`` with float32
 accumulation. Bound by bytes: a batched vector-matrix product whose
-weights are read once. One CTA per (column, 128-target block), one
-thread per target; a 128-source block whose spikes are all zero is
-skipped before its weight tile is read, and in an active block only the
-rows of spiking sources are read. Its plain version is ``ref.synapse_matmul_ref``.
+weights are read once. One CTA per (column, 256-target block), one
+thread per target (``plan.py``): the CTA lists its column's spiking
+sources once, in ascending order, and streams only their weight rows
+through a ring in shared memory, so a silent 128-source block's rows are
+never read. Each target's sum is one fused multiply-add chain over the
+listed sources in ascending order, bitwise ``ref.synapse_matmul_chain_ref``
+(and ``fused_step``'s local product); its plain version is
+``ref.synapse_matmul_ref``.
 
 ``silent_blocks``, when given, is a one-element int64 tensor on the
 same device to which the call adds the number of (column, 128-source
@@ -18,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.plan import plan, sm_count
 from repro_torch.kernels.ref import silent_block_count, synapse_matmul_ref
 
 
@@ -35,9 +40,10 @@ def synapse_matmul(spikes: torch.Tensor, w_local: torch.Tensor, *,
                       w_local=(w_local, f32, (c, n, n)),
                       **_counter_arg(silent_blocks))
     out = torch.empty_like(spikes)
+    p = plan("synapse_matmul", c, n, 0, sm_count(spikes.device))
     _build.launch("synapse_matmul", "repro_synapse_matmul", spikes.device,
                   spikes.data_ptr(), w_local.data_ptr(), out.data_ptr(), c, n,
-                  _counter_ptr(silent_blocks))
+                  _counter_ptr(silent_blocks), p.smem_bytes)
     return out
 
 

@@ -72,6 +72,34 @@ def test_staging_a_row_too_wide_is_an_error(cuda_device):
 
 
 @pytest.mark.cuda
+def test_synapse_matmul_matches_the_fma_chain(cuda_device):
+    """synapse_matmul to the bit against the fused multiply-add chain over
+    each column's spiking sources in ascending order, with its silent-block
+    count, on ragged shapes (4-byte copies) and on 1240-neuron columns
+    (16-byte copies) with one column in which every source spikes; and
+    shared memory short of the kernel's need refused by the C entry
+    point."""
+    from repro_torch.kernels import plan, ref
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    for c, n in [(3, 70), (7, 257), (3, 1240)]:
+        s = (torch.rand(c, n, generator=g, device=cuda_device) < 0.1).float()
+        s[-1] = 1.0
+        w = torch.randn(c, n, n, generator=g, device=cuda_device)
+        counter = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+        got = ops.synapse_matmul(s, w, silent_blocks=counter)
+        assert torch.equal(got, ref.synapse_matmul_chain_ref(s, w))
+        assert int(counter) == int(ref.silent_block_count(s))
+    p = plan.plan("synapse_matmul", c, n, 0, plan.sm_count(cuda_device))
+    out = torch.empty_like(s)
+    _build.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.launch("synapse_matmul", "repro_synapse_matmul", cuda_device,
+                      s.data_ptr(), w.data_ptr(), out.data_ptr(), c, n, None,
+                      p.smem_bytes - 16)
+    assert _build.LAUNCHES["synapse_matmul"] == 0
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_bad_inputs(cuda_device):
     s = torch.zeros(2, 40, device=cuda_device)
     with pytest.raises(TypeError, match="bfloat16"):

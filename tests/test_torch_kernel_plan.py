@@ -1,15 +1,17 @@
-"""The shape plan of the port's persistent ELL kernels (``ell_gather``,
-``fused_step``): which path the shapes take, the grid and the shared
-memory, and that the CTAs' item shares cover every (column, target
-block) item exactly once. No card, no JAX: the plan is computed from the
-shapes and an SM count (132 on an H100 SXM)."""
+"""The shape plan of the port's kernels that keep per-column data in
+shared memory (``ell_gather``, ``fused_step``, ``synapse_matmul``):
+which path the shapes take, the grid and the shared memory, and that
+the CTAs' item shares cover every (column, target block) item exactly
+once. No card, no JAX: the plan is computed from the shapes and an SM
+count (132 on an H100 SXM)."""
 import pytest
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import plan as P
 
 H100_SMS = 132
-KERNELS = ("ell_gather", "fused_step")
+KERNELS = ("ell_gather", "fused_step")         # the persistent ELL kernels
+ALL = KERNELS + ("synapse_matmul",)
 # GRID_24: 1240 neurons per column, 20 stencil offsets, K = 248
 N, T24 = 1240, 20 * 1240
 
@@ -72,7 +74,7 @@ def test_largest_staged_row_and_the_next_straddle_the_budget(kernel):
 
 @pytest.mark.parametrize("c,n,k,o", [(3, 70, 17, 20), (5, 130, 248, 20),
                                      (7, 257, 31, 9)])
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", ALL)
 def test_ragged_shapes(kernel, c, n, k, o):
     p = P.plan(kernel, c, n, o * n, H100_SMS)
     assert p.staged
@@ -83,7 +85,7 @@ def test_ragged_shapes(kernel, c, n, k, o):
 
 
 @pytest.mark.parametrize("n_cols", [1, 7, 576])
-@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kernel", ALL)
 def test_items_covered_exactly_once(kernel, n_cols):
     p = P.plan(kernel, n_cols, N, T24, H100_SMS)
     assert _covered_once(p)
@@ -93,6 +95,40 @@ def test_items_covered_exactly_once(kernel, n_cols):
         assert len(sizes) == p.ctas and max(sizes) - min(sizes) <= 1
     else:                               # claims shrink to single items
         assert sizes == sorted(sizes, reverse=True) and sizes[-1] == 1
+
+
+def test_grid24_synapse_matmul_one_cta_per_item():
+    """One CTA per (column, 256-target block) item, the weight-row ring
+    beside the column's spiking-source list and spike values: 32 rows or
+    more in flight, and three CTAs to an SM."""
+    p = P.plan("synapse_matmul", 576, N, T24, H100_SMS)
+    assert p.path == "staged" and p.schedule == "static"
+    assert p.ctas == p.items == 576 * 5
+    assert [len(r) for r in _shares(p)] == [1] * p.items
+    ring = P.RING_STAGES * P.RING_ROWS * P.TARGET_BLOCK * 4
+    assert (P.RING_STAGES - 1) * P.RING_ROWS >= 32
+    assert p.smem_bytes == ring + 2 * 4 * N + 4 * P.WARPS
+    assert 3 * (p.smem_bytes + P.SMEM_RESERVED_PER_CTA) <= P.SMEM_PER_SM
+    # the table width is no part of its plan
+    assert P.plan("synapse_matmul", 576, N, 180_000, H100_SMS) == p
+
+
+def test_synapse_matmul_ring_that_does_not_fit_is_refused():
+    """The longest column whose list fits beside the ring is planned, the
+    next is refused: no slower path stands behind the ring."""
+    lo, hi = 1, 1 << 20                  # planned at lo, refused at hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        try:
+            P.plan("synapse_matmul", 4, mid, 0, H100_SMS)
+            lo = mid
+        except ValueError:
+            hi = mid
+    assert P.smem_bytes("synapse_matmul", True, lo, 0) <= P.SMEM_PER_CTA_MAX
+    assert P.smem_bytes("synapse_matmul", True, hi, 0) > P.SMEM_PER_CTA_MAX
+    with pytest.raises(ValueError, match="neurons per column"):
+        P.plan("synapse_matmul", 4, hi, 0, H100_SMS)
+    assert N < lo < 40_000
 
 
 def test_plan_refuses_what_no_path_runs():

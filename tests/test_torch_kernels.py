@@ -8,6 +8,7 @@ On the CPU every wrapper takes its plain version; a tensor elsewhere
 must reach the kernel or raise. tests/test_torch_cuda.py holds the
 kernels against their plain versions on the card."""
 import math
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -56,6 +57,53 @@ def test_synapse_matmul_matches_reference(c, n):
     np.testing.assert_allclose(
         got, np.asarray(jops.synapse_matmul(jnp.asarray(s), jnp.asarray(w))),
         **TOL)
+
+
+@pytest.mark.parametrize("c,n", [(1, 32), (3, 70), (5, 200), (2, 257)])
+def test_synapse_matmul_chain_ref_matches_reference(c, n):
+    """The product in the CUDA kernel's order and rounding (one fused
+    multiply-add chain per target over the spiking sources, ascending)
+    against the JAX reference, with one column where every source
+    spikes."""
+    rng = np.random.default_rng(c * 7 + n)
+    s, w = _spikes(rng, (c, n)), _normal(rng, (c, n, n))
+    s[0] = 1.0
+    got = ref.synapse_matmul_chain_ref(_t(s), _t(w)).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(jref.synapse_matmul_ref(jnp.asarray(s),
+                                                jnp.asarray(w))), **TOL)
+    zeros = ref.synapse_matmul_chain_ref(torch.zeros(c, n), _t(w))
+    assert float(zeros.abs().max()) == 0.0
+
+
+def _round_f32(x: Fraction) -> np.float32:
+    """The float32 nearest to ``x``, ties to even."""
+    f = np.float32(float(x))
+    cands = (np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf)))
+    return min(cands, key=lambda v: (abs(Fraction(float(v)) - x),
+                                     int(np.array(v).view(np.int32)) & 1))
+
+
+def test_synapse_matmul_chain_ref_rounds_each_step_once():
+    """Each step of the chain is a * b + acc rounded once to float32, as
+    __fmaf_rn rounds it: against exact rational arithmetic, with spike
+    values other than 1."""
+    rng = np.random.default_rng(11)
+    c, n = 2, 24
+    s = _spikes(rng, (c, n), p=0.5) * _normal(rng, (c, n))
+    w = _normal(rng, (c, n, n))
+    want = np.zeros((c, n), np.float32)
+    for ci in range(c):
+        for t in range(n):
+            acc = np.float32(0.0)
+            for j in np.flatnonzero(s[ci]):
+                acc = _round_f32(Fraction(float(s[ci, j]))
+                                 * Fraction(float(w[ci, j, t]))
+                                 + Fraction(float(acc)))
+            want[ci, t] = acc
+    got = ref.synapse_matmul_chain_ref(_t(s), _t(w)).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_synapse_matmul_all_silent_exact_zeros():
