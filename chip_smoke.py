@@ -17,16 +17,27 @@ then, on the card:
    bit, and so is ``synapse_matmul``, against the float32 fused
    multiply-add chain over each column's spiking sources in ascending
    order (real, random and ragged inputs, and the real state with one
-   column in which every source spikes);
+   column in which every source spikes); ``keyed_drive``, the port's
+   kernel with no Pallas counterpart (the reference's Poisson drive,
+   keyed per step and global column id), is held to the bit against its
+   plain version at the main shapes (steps 0, 1, 20 and 2**31 - 1), at
+   ragged shapes and on a 2-D tile of the grid, and to known answers:
+   the Random123 threefry2x32 vector and the JAX reference's own drive
+   counts and ELL indices (``THREEFRY_KAT``, ``DRIVE_KAT``,
+   ``RANDINT_KAT``);
 2. runs a 4x4-column, 64-neuron network for 60 steps, and a plastic
    guarded 4x4x48 one for 100, under the three impls from one state and
-   one drive: equal spikes and events;
+   one drive: equal spikes and events; the network the card builds from
+   the seed equals the one the CPU builds (mask and indices to the bit),
+   and a run that draws its own drive equals the one fed the same counts;
 3. drives the main path, the paper's 24x24 grid of 1240-neuron columns
-   (``impl="cuda_fused"``, one ``fused_step`` launch per step), and the
+   built from the seed as the reference builds it (``impl="cuda_fused"``,
+   one ``fused_step`` and one ``keyed_drive`` launch per step), and the
    staged path (``impl="cuda"``) over the same steps, with the launch
    counts set to 0 just before each and read just after (every
    ``fused_step`` and ``ell_gather`` launch on the staged path, none on
-   the wide one), and checks the rate against the plain path;
+   the wide one), and checks the rate against the plain path, which
+   draws its drive with ``keyed_drive`` too;
 4. drives the plastic guarded path on the same grid (STDP and the
    integrity guard on) in the same way under ``cuda_fused``, ``cuda``
    and ``ref``, checks rates, weights and the guard, and shows that the
@@ -59,6 +70,14 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
+# H100 SXM int32 rate outside the tensor cores: 64 INT32 lanes per SM and
+# clock, half the 128 FP32 lanes whose FMAs (counted twice) make the
+# float32 peak, so a quarter of it
+PEAK_INT32_OPS = PEAK_F32_FLOPS / 4
+# integer operations of one threefry2x32 (2 + 20 rounds of add, rotate,
+# xor + 5 key injections of 3 adds + the key schedule) and its draw
+OPS_PER_THREEFRY = 80
+
 TPU_KERNELS = {
     "lif_step": "src/repro/kernels/lif_step.py:45",
     "synapse_matmul": "src/repro/kernels/synapse_matmul.py:55",
@@ -66,12 +85,27 @@ TPU_KERNELS = {
     "fused_step": "src/repro/kernels/fused_step.py:185",
     "stdp_dense_update": "src/repro/kernels/stdp_update.py:76",
 }
-SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in TPU_KERNELS}
+# the port's kernels with no Pallas counterpart: the plain-jnp function
+# of the reference each replaces
+PORT_KERNELS = {"keyed_drive": "src/repro/core/network.py:181"}
+SOURCES = {name: f"src/repro_torch/csrc/{name}.cu"
+           for name in (*TPU_KERNELS, *PORT_KERNELS)}
 SOURCES["stdp_dense_update"] = "src/repro_torch/csrc/stdp_update.cu"
 # rtol = atol = 1e-5; the relative part of a sum's error is taken against
 # the sum of its absolute terms (Smoke.close)
 TOL = dict(rtol=1e-5, atol=1e-5)
 MAX_FLIP_SHARE = 1e-5     # 0.001 % of neurons: threshold flips
+# known answers the card is held to: the Random123 threefry2x32 vector
+# (key, counter, output), and the JAX reference's own draws at GRID_24
+# (seed 42), pinned to jax.random by tests/test_torch_prng.py: the drive
+# counts of neurons 0..23 of column 100 at step 3, and the ELL indices
+# idx[0, 0..15] of column 7's remote synapses
+THREEFRY_KAT = ((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE))
+DRIVE_KAT = dict(seed=42, t=3, col=100, counts=[
+    3, 3, 2, 0, 2, 5, 0, 2, 1, 1, 0, 1, 3, 1, 1, 2, 4, 2, 2, 1, 1, 5, 2, 0])
+RANDINT_KAT = dict(seed=42, col=7, row=0, idx=[
+    496, 1001, 483, 697, 832, 232, 430, 674, 890, 62, 928, 243, 686, 1136,
+    245, 820])
 MAIN_STEPS = 200
 WARMUP_STEPS = 20
 NEUTRAL_STEPS = 50        # guard on against off, plastic, bitwise
@@ -101,11 +135,13 @@ def main() -> int:
 class Smoke:
     def __init__(self, torch, device="cuda:0"):
         from repro_torch.configs import base, dpsnn
-        from repro_torch.core import connectivity, metrics, network, simulation
+        from repro_torch.core import (connectivity, metrics, network, prng,
+                                      simulation)
         from repro_torch.kernels import _build, ops, plan, ref
         self.torch, self.dpsnn, self.M = torch, dpsnn, metrics
         self.build, self.plan = _build, plan
-        self.net, self.sim = network, simulation
+        self.net, self.sim, self.conn, self.prng = (network, simulation,
+                                                    connectivity, prng)
         self.ops, self.ref = ops, ref
         self.STDPConfig, self.GuardConfig = base.STDPConfig, base.GuardConfig
         self.neuron_types = connectivity.neuron_types
@@ -232,12 +268,15 @@ class Smoke:
         t0 = time.perf_counter()
         params, state0 = self.sim.build(cfg, device=self.dev)
         self.sync()
+        self.report["build_seconds"] = time.perf_counter() - t0
         log(f"phase 1: built {cfg.name} ({cfg.n_columns} columns x "
             f"{cfg.neurons_per_column} neurons, "
             f"{cfg.total_equivalent_synapses/1e9:.3f}G equivalent synapses) "
-            f"on the card in {time.perf_counter()-t0:.1f} s")
+            f"from seed {cfg.seed} with the reference's keys, on the card "
+            f"in {self.report['build_seconds']:.4f} s")
         state = self.sim.run(cfg, params, state0, WARMUP_STEPS,
                              impl="cuda_fused").state
+        self.check_keyed_drive(cfg, int(state.t))
         real = self.step_inputs(cfg, params, state)
         self.check_kernels_real(cfg, params, real)
         # the plastic guarded path's inputs: 20 plastic steps on the same
@@ -266,10 +305,10 @@ class Smoke:
         self.guard_neutrality(pcfg, pwarm)
 
         kernels = [dict(name=name, route="cuda", source=SOURCES[name],
-                        replaces=TPU_KERNELS[name],
-                        tpu_kernel=TPU_KERNELS[name],
+                        replaces={**TPU_KERNELS, **PORT_KERNELS}[name],
+                        tpu_kernel=TPU_KERNELS.get(name),
                         **self.report["kernels"][name])
-                   for name in TPU_KERNELS]
+                   for name in (*TPU_KERNELS, *PORT_KERNELS)]
         log(f"total {time.perf_counter()-t_start:.1f} s")
         out = ROOT / "build"
         out.mkdir(exist_ok=True)
@@ -453,13 +492,102 @@ class Smoke:
             f"{fused['plain_ms_stdp_guard']:.4f} ms, bound "
             f"{fused['bound_ms_stdp_guard']:.4f} ms)")
 
+    def col_ids(self, cfg):
+        return self.net.column_ids(cfg, self.dev)
+
+    def drive_rate(self, cfg):
+        """The drive's Poisson rate per neuron and step."""
+        return cfg.c_ext * cfg.nu_ext_hz * cfg.neuron.dt_ms * 1e-3
+
+    def check_keyed_drive(self, cfg, t_now):
+        """keyed_drive against its plain version, counts and currents to
+        the bit: the whole grid at steps 0, 1, 20, 2**31 - 1 and
+        ``t_now``, ragged shapes, and a 6x6 tile of the grid (a shard's
+        non-contiguous ids, whose counts equal the whole grid's rows);
+        the known answers; then its times at ``t_now``."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        lam, j_ext = self.drive_rate(cfg), cfg.conn.j_ext
+
+        def pair(name, seed, t, ids, n):
+            cur, got = ops.keyed_drive(seed, t, ids, n, lam, j_ext)
+            want = ref.keyed_poisson_ref(seed, t, ids, n, lam)
+            self.equal(f"keyed_drive {name} counts", got, want)
+            self.equal(f"keyed_drive {name} currents", cur, want * j_ext)
+            return got
+        ids, n = self.col_ids(cfg), cfg.neurons_per_column
+        for t in (0, 1, 20, 2**31 - 1):
+            pair(f"{cfg.name} t={t}", cfg.seed, t, ids, n)
+        for c, nr in ((3, 70), (5, 130), (7, 257)):
+            pair(f"{c}x{nr}", cfg.seed, 5,
+                 torch.arange(11, 11 + c, dtype=torch.int32,
+                              device=self.dev), nr)
+        rows = torch.arange(6, 12, device=self.dev)
+        cols = torch.arange(12, 18, device=self.dev)
+        tile = (rows[:, None] * cfg.grid_w + cols[None, :]).reshape(-1).int()
+        counts = pair(f"{cfg.name} t={t_now}", cfg.seed, t_now, ids, n)
+        self.equal("keyed_drive tile rows",
+                   pair("tile", cfg.seed, t_now, tile, n),
+                   counts[tile.long()])
+        # known answers: the Random123 vector, the reference's own draws
+        (k1, k2), (x1, x2), want = THREEFRY_KAT
+        z = torch.zeros((), dtype=torch.int64, device=self.dev)
+        got = tuple(int(w) for w in self.prng.threefry2x32(z + k1, z + k2,
+                                                          z + x1, z + x2))
+        if got != want:
+            raise AssertionError(f"threefry2x32 {got} != Random123 {want}")
+        kat = DRIVE_KAT
+        one = torch.tensor([kat["col"]], dtype=torch.int32, device=self.dev)
+        got = ops.keyed_drive(kat["seed"], kat["t"], one, n, lam, j_ext)[1]
+        if got[0, :len(kat["counts"])].tolist() != kat["counts"]:
+            raise AssertionError("keyed_drive differs from the reference's "
+                                 "drive counts (DRIVE_KAT)")
+        kat = RANDINT_KAT
+        idx, _ = self.conn.generate_remote_column(
+            dataclasses.replace(cfg, seed=kat["seed"]),
+            self.conn.build_stencil(cfg), kat["col"], self.dev)
+        if idx[kat["row"], :len(kat["idx"])].tolist() != kat["idx"]:
+            raise AssertionError("remote randint indices differ from the "
+                                 "reference's (RANDINT_KAT)")
+        # times at the main path's shapes and this state's step; the bound
+        # counts the draws this step needs (count + 1 per neuron) and each
+        # column's key and split chain as far as its slowest neuron
+        c = ids.shape[0]
+        draws = float((counts + 1).sum())
+        chain = float((2 + 2 * (counts.max(dim=1).values + 1)).sum())
+        n_ops = OPS_PER_THREEFRY * (draws + chain)
+        nbytes = 2 * c * n * 4 + c * 4
+        ms = self.time_ms(lambda: ops.keyed_drive(cfg.seed, t_now, ids, n,
+                                                  lam, j_ext))
+        plain_ms = self.time_ms(lambda: ref.keyed_poisson_ref(
+            cfg.seed, t_now, ids, n, lam), iters=3)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = n_ops / PEAK_INT32_OPS * 1e3
+        entry = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                     library_ms=None, bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     bytes=nbytes, int_ops=n_ops, draws=draws,
+                     max_count=float(counts.max()),
+                     mean_count=float(counts.mean()))
+        self.report["kernels"]["keyed_drive"] = entry
+        self.note(f"phase 1 keyed_drive: counts and currents equal to the "
+                  f"plain version at {cfg.name} (t = 0, 1, 20, 2**31 - 1, "
+                  f"{t_now}), ragged 3x70/5x130/7x257, and a 6x6 tile equal "
+                  f"to the grid's rows; threefry2x32 equal to the Random123 "
+                  f"vector; the reference's drive counts (DRIVE_KAT) and "
+                  f"remote indices (RANDINT_KAT) equal")
+        log(f"  keyed_drive: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
+            f"-, bound {entry['bound_ms']:.4f} ms by {entry['bound_by']}, "
+            f"{n_ops/1e6:.1f} M integer operations, {nbytes/1e6:.3f} MB; "
+            f"{draws:.0f} draws, mean count {entry['mean_count']:.4f}, max "
+            f"{entry['max_count']:.0f})")
+
     def step_inputs(self, cfg, params, state):
         """The inputs the main path's kernels see at the state's step."""
         net = self.net
         stencil = net.build_stencil(cfg)
         t = int(state.t)
         d = state.hist.shape[0]
-        ext, _ = net.external_drive(cfg, t, cfg.n_columns, self.dev)
+        ext, _ = net.external_drive(cfg, t, self.col_ids(cfg))
         s_loc = state.hist[(t - cfg.conn.min_delay_steps) % d]
         s_flat = net.neighbour_table_single(state.hist, t, stencil,
                                             (cfg.grid_h, cfg.grid_w))
@@ -892,15 +1020,34 @@ class Smoke:
                   f"{launches['fused_step.wide']} fused_step)")
 
     def check_small_run(self):
+        """4x4x64, 60 steps, three impls from one state and one drive:
+        equal spikes and events, v at 2e-4. The network the card builds
+        against the CPU's (mask, indices, state to the bit, weights at
+        1e-6: erf_inv's log1p rounds per device), and the fused run that
+        draws its own drive against the one fed the same counts."""
         torch = self.torch
         cfg = self.dpsnn.reduced(grid_h=4, grid_w=4, neurons=64, seed=0)
         params, state = self.sim.build(cfg, device=self.dev)
-        counts = torch.stack([
-            self.net.external_drive(cfg, t, cfg.n_columns, self.dev)[1]
-            for t in range(60)])
+        cpu_params, cpu_state = self.sim.build(cfg, device="cpu")
+        for leaf in ("rem_flat", "local_outdeg"):
+            self.equal(f"card build {leaf}", getattr(params, leaf).cpu(),
+                       getattr(cpu_params, leaf))
+        self.equal("card build mask", params.w_local.cpu() != 0,
+                   cpu_params.w_local != 0)
+        self.equal("card build v", state.lif.v.cpu(), cpu_state.lif.v)
+        for leaf in ("w_local", "rem_w"):
+            self.close(f"card build {leaf}", getattr(params, leaf).cpu(),
+                       getattr(cpu_params, leaf), rtol=1e-6, atol=0.0)
+        ids = self.col_ids(cfg)
+        counts = torch.stack([self.net.external_drive(cfg, t, ids)[1]
+                              for t in range(60)])
         res = {impl: self.sim.run(cfg, params, state, 60, impl=impl,
                                   ext_counts=counts)
                for impl in ("ref", "cuda", "cuda_fused")}
+        own = self.sim.run(cfg, params, state, 60, impl="cuda_fused")
+        self.equal("own drive hist", own.state.hist,
+                   res["cuda_fused"].state.hist)
+        self.equal("own drive events", own.events, res["cuda_fused"].events)
         ref = res["ref"]
         for impl in ("cuda", "cuda_fused"):
             r = res[impl]
@@ -914,7 +1061,9 @@ class Smoke:
         self.note(f"phase 2 small run 4x4x64, 60 steps: {float(ref.spikes):.0f}"
                   f" spikes, {float(ref.events):.0f} events, rate "
                   f"{float(ref.rate_hz):.3f} Hz, equal under ref/cuda/"
-                  f"cuda_fused, v allclose 2e-4")
+                  f"cuda_fused, v allclose 2e-4; the card's build equal to "
+                  f"the CPU's (weights at 1e-6); its own drive equal to the "
+                  f"injected one")
 
     def check_small_plastic_run(self, steps=100):
         """4x4x48 with STDP and the guard on, three impls from one state
@@ -926,9 +1075,9 @@ class Smoke:
             stdp_cfg=self.STDPConfig(a_plus=0.05, a_minus=0.055),
             guard=self.GuardConfig(enabled=True))
         params, state = self.sim.build(cfg, device=self.dev)
-        counts = torch.stack([
-            self.net.external_drive(cfg, t, cfg.n_columns, self.dev)[1]
-            for t in range(steps)])
+        ids = self.col_ids(cfg)
+        counts = torch.stack([self.net.external_drive(cfg, t, ids)[1]
+                              for t in range(steps)])
         res = {impl: self.sim.run(cfg, params, state, steps, impl=impl,
                                   ext_counts=counts)
                for impl in ("ref", "cuda", "cuda_fused")}
@@ -1042,10 +1191,11 @@ class Smoke:
         fused, ms, wall, launches = self.timed_run(cfg, params, state,
                                                    "cuda_fused", counter)
         # every launch on the staged path: fused_step.wide stays at 0
-        if launches != self.expected_launches(fused_step=MAIN_STEPS):
+        if launches != self.expected_launches(fused_step=MAIN_STEPS,
+                                              keyed_drive=MAIN_STEPS):
             raise AssertionError(f"cuda_fused launches {launches}")
-        self.report["kernels"]["fused_step"]["launches"] = launches[
-            "fused_step"]
+        for name in ("fused_step", "keyed_drive"):
+            self.report["kernels"][name]["launches"] = launches[name]
         v = fused.state.lif.v
         if not bool(torch.isfinite(v).all()):
             raise AssertionError("main path: non-finite v")
@@ -1081,8 +1231,8 @@ class Smoke:
 
         plain, ms_ref, wall_ref, launches_ref = self.timed_run(
             cfg, params, state, "ref")
-        if any(launches_ref.values()):
-            raise AssertionError(f"ref path launched kernels {launches_ref}")
+        if launches_ref != self.expected_launches(keyed_drive=MAIN_STEPS):
+            raise AssertionError(f"ref path launches {launches_ref}")
         rate_ref = self.run_rate(cfg, plain, state)
         if abs(rate - rate_ref) > 0.05 * rate_ref:
             raise AssertionError(f"main path rate {rate} Hz vs plain "
@@ -1091,7 +1241,7 @@ class Smoke:
                                          ms_per_step=ms_ref, wall_s=wall_ref)
         log(f"  plain path (impl=ref) same steps and drive: rate "
             f"{rate_ref:.4f} Hz, {ms_ref:.4f} ms/step (device), wall "
-            f"{wall_ref:.3f} s")
+            f"{wall_ref:.3f} s, launches {launches_ref}")
 
         # one step from the same state, kernel against plain
         one_k = self.sim.run(cfg, params, fused.state, 1, impl="cuda_fused")
@@ -1120,7 +1270,8 @@ class Smoke:
             cfg, params, state, "cuda")
         if launches_st != self.expected_launches(
                 lif_step=MAIN_STEPS, synapse_matmul=MAIN_STEPS,
-                ell_gather=MAIN_STEPS):     # ell_gather.wide stays at 0
+                ell_gather=MAIN_STEPS,      # ell_gather.wide stays at 0
+                keyed_drive=MAIN_STEPS):
             raise AssertionError(f"cuda launches {launches_st}")
         for name in ("lif_step", "synapse_matmul", "ell_gather"):
             self.report["kernels"][name]["launches"] = launches_st[name]
@@ -1159,6 +1310,7 @@ class Smoke:
                         "ref": {}}[impl]
             if impl != "ref":
                 per_step["stdp_dense_update"] = MAIN_STEPS
+            per_step["keyed_drive"] = MAIN_STEPS
             if launches != self.expected_launches(**per_step):
                 raise AssertionError(f"plastic {impl} launches {launches}")
             if impl == "cuda_fused":

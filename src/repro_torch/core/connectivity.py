@@ -7,14 +7,15 @@
   offset's ``K_o = round(p_o * N)`` sources concatenated along one slot
   axis of length ``K_tot``.
 
-Generation is **deterministic per (seed, stream, global column id)**:
-each column draws from its own ``torch.Generator``, seeded from those
-three numbers, so a column's synapses do not depend on which other
-columns are generated with it. The streams are the reference's
-(``PRNGKey(seed)``, ``+ 0x9E3779B9``, ``+ 0x51F``, ``+ 0xE57``), but the
-numbers are PyTorch's, not JAX's threefry, and differ between the CPU
-and the CUDA generator: the tests carry the JAX network across with
-``convert.py`` where they need the same one.
+Generation is **deterministic per global column id**, with the
+reference's own keys and draws (``core/prng.py``): the local synapses
+of column c from ``fold_in(PRNGKey(seed), c)``, the remote ones from
+``fold_in(PRNGKey(seed) + uint32(0x9E3779B9), c)`` (the constant added
+to both words of the key). The Bernoulli mask and the ELL indices equal
+the reference's to the bit; the weights' truncated-normal jitter is
+within a few ulp of it (``tests/test_torch_prng.py``). Every function
+that takes a column id also takes a 1-D tensor of ids and then returns
+one column per id, stacked in front.
 """
 from __future__ import annotations
 
@@ -25,11 +26,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import DPSNNConfig
+from repro_torch.core import prng
 
-STREAM_LOCAL = 0
-STREAM_REMOTE = 0x9E3779B9
-STREAM_INIT = 0x51F
-STREAM_DRIVE = 0xE57
+# added to both words of PRNGKey(seed) for the remote synapses' keys
+REMOTE_STREAM = 0x9E3779B9
+# elements per chunk of columns in generate_columns: bounds each int64
+# temporary of the draws to 128 MiB at any grid size
+_BUILD_CHUNK = 1 << 24
 
 
 class StencilSpec(NamedTuple):
@@ -73,22 +76,6 @@ def build_stencil(cfg: DPSNNConfig) -> StencilSpec:
     )
 
 
-def keyed_generator(seed: int, stream: int, index: int,
-                    device) -> torch.Generator:
-    """A generator on ``device`` seeded from (seed, stream, index) alone,
-    through a splitmix64 mix of the three."""
-    x = 0
-    for part in (seed, stream, index):
-        x = (x ^ (int(part) & 0xFFFFFFFFFFFFFFFF)) + 0x9E3779B97F4A7C15
-        x &= 0xFFFFFFFFFFFFFFFF
-        x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-        x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-        x ^= x >> 31
-    gen = torch.Generator(device=device)
-    gen.manual_seed(x & 0x7FFFFFFFFFFFFFFF)
-    return gen
-
-
 def neuron_types(cfg: DPSNNConfig, device="cpu") -> torch.Tensor:
     """(N,) bool: True where the neuron is inhibitory (last 20 %)."""
     n = cfg.neurons_per_column
@@ -96,68 +83,69 @@ def neuron_types(cfg: DPSNNConfig, device="cpu") -> torch.Tensor:
     return torch.arange(n, device=device) >= n_exc
 
 
-def _truncated_normal(gen: torch.Generator, shape, lower: float,
-                      upper: float, device) -> torch.Tensor:
-    """Standard normal truncated to [lower, upper], by inverting the CDF
-    of a uniform draw between the bounds' CDF values (as jax.random)."""
-    a = math.erf(lower / math.sqrt(2.0))
-    b = math.erf(upper / math.sqrt(2.0))
-    u = torch.rand(shape, generator=gen, device=device) * (b - a) + a
-    x = math.sqrt(2.0) * torch.erfinv(u)
-    return torch.clamp(x, lower, upper)
-
-
-def _signed_magnitude(cfg: DPSNNConfig, gen, shape, is_inh_src, device):
+def _signed_magnitude(cfg: DPSNNConfig, key, shape, is_inh_src):
     """Synaptic efficacy by source type with multiplicative jitter."""
     cv = cfg.conn.weight_cv
-    jitter = 1.0 + cv * _truncated_normal(gen, shape, -2.0, 2.0, device)
+    jitter = 1.0 + cv * prng.truncated_normal(key, -2.0, 2.0, shape)
     mag = torch.where(is_inh_src, -cfg.conn.g_balance * cfg.conn.j_exc,
                       cfg.conn.j_exc)
     return (mag * jitter).to(getattr(torch, cfg.weight_dtype))
 
 
-def generate_local_column(cfg: DPSNNConfig, col_id: int,
+def _column_keys(base: torch.Tensor, col_id) -> torch.Tensor:
+    """``fold_in(base, col_id)`` for an int or a 1-D tensor of ids."""
+    if isinstance(col_id, torch.Tensor):
+        col_id = col_id.to(device=base.device, dtype=torch.int64)
+    return prng.fold_in(base, col_id)
+
+
+def generate_local_column(cfg: DPSNNConfig, col_id,
                           device="cpu") -> torch.Tensor:
     """Dense (N, N) [src, tgt] intra-column weights for one global column."""
     n = cfg.neurons_per_column
-    gen = keyed_generator(cfg.seed, STREAM_LOCAL, col_id, device)
-    mask = torch.rand((n, n), generator=gen, device=device) < cfg.conn.p_local
+    key = _column_keys(prng.prng_key(cfg.seed, device), col_id)
+    keys = prng.split(key)
+    mask = prng.bernoulli(keys[..., 0, :], cfg.conn.p_local, (n, n))
     mask &= ~torch.eye(n, dtype=torch.bool, device=device)   # no autapses
     is_inh_src = neuron_types(cfg, device)[:, None]   # sign follows source
-    w = _signed_magnitude(cfg, gen, (n, n), is_inh_src, device)
+    w = _signed_magnitude(cfg, keys[..., 1, :], (n, n), is_inh_src)
     return torch.where(mask, w, torch.zeros((), dtype=w.dtype, device=device))
 
 
 def generate_remote_column(cfg: DPSNNConfig, stencil: StencilSpec,
-                           col_id: int, device="cpu"):
+                           col_id, device="cpu"):
     """ELL remote synapses for one target column: ``(idx, w)`` of shape
     (N, K_tot); ``idx[n, k]`` is the source neuron (within the source
     column of slot k's offset) of target n's k-th remote synapse."""
     n = cfg.neurons_per_column
-    kt = stencil.k_total
-    gen = keyed_generator(cfg.seed, STREAM_REMOTE, col_id, device)
-    idx = torch.randint(0, n, (n, kt), generator=gen, device=device,
-                        dtype=torch.int32)
+    base = (prng.prng_key(cfg.seed, device) + REMOTE_STREAM) & prng.MASK
+    keys = prng.split(_column_keys(base, col_id))
+    idx = prng.randint(keys[..., 0, :], (n, stencil.k_total), 0, n)
     is_inh_src = neuron_types(cfg, device)[idx.long()]
-    w = _signed_magnitude(cfg, gen, (n, kt), is_inh_src, device)
+    w = _signed_magnitude(cfg, keys[..., 1, :], (n, stencil.k_total),
+                          is_inh_src)
     return idx, w
 
 
 def generate_columns(cfg: DPSNNConfig, col_ids, device="cpu"):
-    """Generation for a batch of global column ids, one column at a time
-    into preallocated outputs. Returns ``(w_local (C,N,N), rem_idx
+    """Generation for a batch of global column ids, a chunk of columns at
+    a time into preallocated outputs. Returns ``(w_local (C,N,N), rem_idx
     (C,N,K), rem_w (C,N,K))``."""
     stencil = build_stencil(cfg)
-    ids = [int(c) for c in col_ids]
+    ids = torch.as_tensor(col_ids, dtype=torch.int64).reshape(-1)
     n, kt = cfg.neurons_per_column, stencil.k_total
     wdt = getattr(torch, cfg.weight_dtype)
-    w_local = torch.empty((len(ids), n, n), dtype=wdt, device=device)
-    rem_idx = torch.empty((len(ids), n, kt), dtype=torch.int32, device=device)
-    rem_w = torch.empty((len(ids), n, kt), dtype=wdt, device=device)
-    for i, cid in enumerate(ids):
-        w_local[i] = generate_local_column(cfg, cid, device)
-        rem_idx[i], rem_w[i] = generate_remote_column(cfg, stencil, cid,
-                                                      device)
+    c = ids.shape[0]
+    w_local = torch.empty((c, n, n), dtype=wdt, device=device)
+    rem_idx = torch.empty((c, n, kt), dtype=torch.int32, device=device)
+    rem_w = torch.empty((c, n, kt), dtype=wdt, device=device)
+    step = max(1, _BUILD_CHUNK // (n * max(n, kt)))
+    for c0 in range(0, c, step):
+        chunk = ids[c0:c0 + step]
+        cs = slice(c0, c0 + chunk.shape[0])
+        w_local[cs] = generate_local_column(cfg, chunk, device)
+        rem_idx[cs], rem_w[cs] = generate_remote_column(cfg, stencil, chunk,
+                                                        device)
     return w_local, rem_idx, rem_w
 
 

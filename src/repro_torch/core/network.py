@@ -15,7 +15,10 @@ kernels ``synapse_matmul``, ``ell_gather`` and ``lif_step``) or
 ``"cuda_fused"`` (one ``fused_step`` kernel per step, with its STDP-trace
 epilogue under ``cfg.stdp`` and its guard-flag epilogue under
 ``cfg.guard.enabled``). On CPU tensors the kernel wrappers run their
-plain versions. With ``cfg.stdp`` the state carries the STDP traces
+plain versions. Every impl draws the Poisson drive keyed per (seed,
+step, global column id) as the reference does: the ``keyed_drive``
+kernel on the card, its plain version on the CPU. With ``cfg.stdp`` the
+state carries the STDP traces
 (the weights are updated in ``core/simulation.py``); with
 ``cfg.guard.enabled`` it carries the integrity guard's verdict
 (``runtime/integrity.py``).
@@ -34,6 +37,7 @@ import torch
 
 from repro_torch.configs.base import DPSNNConfig
 from repro_torch.core import connectivity as conn
+from repro_torch.core import prng
 from repro_torch.core.connectivity import StencilSpec, build_stencil
 from repro_torch.core.neuron import LIFState, lif_init, lif_sfa_step
 from repro_torch.kernels import ops
@@ -101,18 +105,26 @@ def build_params(cfg: DPSNNConfig, col_ids, device="cpu") -> NetworkParams:
     )
 
 
+# added to the seed for the initial potentials' keys
+INIT_STREAM = 0x51F
+
+
+def column_ids(cfg: DPSNNConfig, device="cpu") -> torch.Tensor:
+    """The (C,) int32 global ids of a single shard's columns."""
+    return torch.arange(cfg.n_columns, dtype=torch.int32, device=device)
+
+
 def init_state(cfg: DPSNNConfig, col_ids, stencil: StencilSpec | None = None,
                device="cpu") -> NetworkState:
-    """Initial state, deterministic per global column id."""
+    """Initial state, deterministic per global column id: the potentials
+    of column c from ``fold_in(PRNGKey(seed + 0x51F), c)``."""
     stencil = stencil or build_stencil(cfg)
     n = cfg.neurons_per_column
-    ids = [int(c) for c in col_ids]
+    ids = torch.as_tensor(col_ids, dtype=torch.int64).reshape(-1)
     dtype = getattr(torch, cfg.dtype)
-    cols = [lif_init(cfg.neuron, (n,), dtype, device=device,
-                     generator=conn.keyed_generator(
-                         cfg.seed, conn.STREAM_INIT, cid, device))
-            for cid in ids]
-    lif = LIFState(*(torch.stack(leaf) for leaf in zip(*cols)))
+    keys = prng.fold_in(prng.prng_key(cfg.seed + INIT_STREAM, device),
+                        ids.to(device))
+    lif = lif_init(cfg.neuron, (n,), dtype, keys)
     stdp = guard = None
     if cfg.stdp:
         from repro_torch.core.plasticity import init_stdp  # imports network
@@ -211,35 +223,35 @@ def neighbour_table_single(hist: torch.Tensor, t: int, stencil: StencilSpec,
 # Step
 # ---------------------------------------------------------------------------
 
-def external_drive(cfg: DPSNNConfig, t: int, n_columns: int, device):
+def external_drive(cfg: DPSNNConfig, t: int, col_ids: torch.Tensor):
     """Poisson thalamo-cortical input: C_ext synapses at nu_ext each.
 
-    Drawn from a generator keyed by (seed, step) on ``device``, so a run
-    that starts at step t draws the same counts whatever ran before.
-    Returns ``(currents, counts)``, both (C, N) in the state dtype.
+    Keyed per (seed, step, global column id) as the reference keys it, so
+    the counts do not depend on what ran before or on which columns are
+    drawn together. ``col_ids`` is a (C,) int32 tensor on the device to
+    draw on: the ``keyed_drive`` kernel on the card, its plain version on
+    the CPU. Returns ``(currents, counts)``, both (C, N) float32.
     """
     lam = cfg.c_ext * cfg.nu_ext_hz * cfg.neuron.dt_ms * 1e-3
-    n = cfg.neurons_per_column
-    dtype = getattr(torch, cfg.dtype)
-    gen = conn.keyed_generator(cfg.seed, conn.STREAM_DRIVE, t, device)
-    rates = torch.full((n_columns, n), lam, dtype=dtype, device=device)
-    counts = torch.poisson(rates, generator=gen)
-    return counts * cfg.conn.j_ext, counts
+    return ops.keyed_drive(cfg.seed, t, col_ids, cfg.neurons_per_column,
+                           lam, cfg.conn.j_ext)
 
 
 def step_single(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
                 *, stencil: StencilSpec, grid_hw: tuple[int, int],
-                impl: str = "ref", ext_counts: torch.Tensor | None = None,
+                col_ids: torch.Tensor, impl: str = "ref",
+                ext_counts: torch.Tensor | None = None,
                 silent_blocks: torch.Tensor | None = None) -> NetworkState:
     """One time step of the full (single-shard) network.
 
-    ``ext_counts`` (C, N) are this step's Poisson counts, drawn by
-    :func:`external_drive` when None. ``silent_blocks`` (one int64 on the
+    ``col_ids`` are the state's (C,) int32 global column ids, on its
+    device. ``ext_counts`` (C, N) are this step's Poisson counts, drawn
+    by :func:`external_drive` when None. ``silent_blocks`` (one int64 on the
     state's device), when given, gains the number of silent 128-source
     blocks the local delivery skipped (``impl`` 'cuda' and 'cuda_fused'
     count them in the kernel, 'ref' in plain PyTorch).
     """
-    d_slots, n_columns, _n = state.hist.shape
+    d_slots = state.hist.shape[0]
     t = int(state.t)
     dtype = state.hist.dtype
 
@@ -249,8 +261,7 @@ def step_single(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
 
     # 2. external Poisson drive
     if ext_counts is None:
-        ext, ext_counts = external_drive(cfg, t, n_columns,
-                                         state.hist.device)
+        ext, ext_counts = external_drive(cfg, t, col_ids)
     else:
         ext = ext_counts.to(dtype) * cfg.conn.j_ext
 
@@ -343,6 +354,8 @@ def make_step_fn(cfg: DPSNNConfig, *, impl: str = "ref"):
     def step(params: NetworkParams, state: NetworkState,
              ext_counts: torch.Tensor | None = None) -> NetworkState:
         return step_single(cfg, params, state, stencil=stencil,
-                           grid_hw=grid_hw, impl=impl, ext_counts=ext_counts)
+                           grid_hw=grid_hw,
+                           col_ids=column_ids(cfg, state.hist.device),
+                           impl=impl, ext_counts=ext_counts)
 
     return step

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import NeuronConfig
+from repro_torch.core import prng
 from repro_torch.kernels.ref import lif_constants, lif_step_ref
 
 
@@ -24,21 +25,23 @@ class LIFState(NamedTuple):
     refrac: torch.Tensor     # refractory countdown (steps, int32)
 
 
-def lif_init(cfg: NeuronConfig, shape, dtype=torch.float32, *,
-             generator: torch.Generator | None = None,
+def lif_init(cfg: NeuronConfig, shape, dtype=torch.float32, key=None, *,
              device="cpu") -> LIFState:
-    """Fresh state; with a ``generator`` potentials start uniform in
-    [rest, 0.95 * threshold)."""
-    if generator is not None:
-        lo, hi = cfg.v_rest, cfg.v_threshold * 0.95
-        v = torch.rand(shape, generator=generator, dtype=dtype,
-                       device=device) * (hi - lo) + lo
+    """Fresh state; with a ``key`` (``core/prng.py``) potentials start
+    ``uniform`` in [rest, 0.95 * threshold), as the reference draws them.
+    A batch of keys ``(..., 2)`` draws one state per key, stacked in front
+    of ``shape``, on the keys' device."""
+    if key is not None:
+        if dtype != torch.float32:
+            raise NotImplementedError(f"lif_init: keyed draws are float32, "
+                                      f"not {dtype}")
+        v = prng.uniform(key, shape, cfg.v_rest, cfg.v_threshold * 0.95)
     else:
         v = torch.full(shape, cfg.v_rest, dtype=dtype, device=device)
     return LIFState(
         v=v,
-        c=torch.zeros(shape, dtype=dtype, device=device),
-        refrac=torch.zeros(shape, dtype=torch.int32, device=device),
+        c=torch.zeros_like(v),
+        refrac=torch.zeros(v.shape, dtype=torch.int32, device=v.device),
     )
 
 

@@ -29,7 +29,7 @@ def build(cfg: DPSNNConfig, *, device="cuda"):
     """Generate params + fresh state for the full grid on one shard, on
     ``device`` (CUDA by default; raises when there is no card)."""
     dev = net.resolve_device(device)
-    col_ids = range(cfg.n_columns)
+    col_ids = net.column_ids(cfg)
     params = net.build_params(cfg, col_ids, dev)
     state = net.init_state(cfg, col_ids, device=dev)
     return params, state
@@ -56,7 +56,8 @@ def run(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
 
     ``ext_counts`` (n_steps, C, N), when given, are the Poisson drive
     counts of each step (the tests pass the reference's); else each step
-    draws its own (``network.external_drive``). ``silent_blocks`` is
+    draws its own (``network.external_drive``, keyed by the step and the
+    global column ids, as the reference's). ``silent_blocks`` is
     passed on to every step (``network.step_single``).
     """
     net.check_supported(cfg, impl)
@@ -75,13 +76,15 @@ def run(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
                      * torch.tensor(_recip(cfg.neuron.dt_ms * 1e-3),
                                     dtype=f32))
     is_inh = neuron_types(cfg, state.hist.device)
+    col_ids = net.column_ids(cfg, state.hist.device)
     d_slots = state.hist.shape[0]
     rates = []
     final = state
     for i in range(n_steps):
         s0 = final
         final = net.step_single(
-            cfg, params, s0, stencil=stencil, grid_hw=grid_hw, impl=impl,
+            cfg, params, s0, stencil=stencil, grid_hw=grid_hw,
+            col_ids=col_ids, impl=impl,
             ext_counts=None if ext_counts is None else ext_counts[i],
             silent_blocks=silent_blocks)
         if cfg.stdp:

@@ -40,6 +40,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIB_NAME = "librepro_kernels.so"
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_U = ctypes.c_uint
 _LIF = [_F] * 8 + [_I]          # decay_v .. v_threshold, arp_steps
 SIGNATURES = {
     # v, c, refrac, cur -> v', c', refrac', spikes; n; constants; stream
@@ -58,12 +59,14 @@ SIGNATURES = {
     # w, x_pre_exc, spk_exc, spikes, x_post -> w'; C, N; a_plus, a_minus,
     # lr, w_max; stream
     "repro_stdp_dense_update": [_P] * 6 + [_I] * 2 + [_F] * 4 + [_P],
+    # col_ids -> counts, currents; C, N; seed word, t; lam, j_ext; stream
+    "repro_keyed_drive": [_P] * 3 + [_I] * 2 + [_U] * 2 + [_F] * 2 + [_P],
 }
 
 # ell_gather and fused_step count their wide path (kernels/plan.py) apart
 LAUNCHES = {"lif_step": 0, "synapse_matmul": 0, "ell_gather": 0,
             "ell_gather.wide": 0, "fused_step": 0, "fused_step.wide": 0,
-            "stdp_dense_update": 0}
+            "stdp_dense_update": 0, "keyed_drive": 0}
 
 
 def reset_launches() -> None:

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 BLK = 128   # source-block width of the block-event skip (csrc/kernels.cuh)
+DRIVE_STREAM = 0xE57   # the drive's key: PRNGKey(seed + DRIVE_STREAM)
 
 
 def synapse_matmul_ref(spikes: torch.Tensor, w_local: torch.Tensor
@@ -236,6 +237,20 @@ def fused_step_ref(ncfg, v, c, refrac, s_loc, w_local, s_flat, rem_flat,
     if gcfg is not None:
         out += (guard_flags_ref(out[0], gcfg.v_floor, gcfg.v_ceil),)
     return out
+
+
+def keyed_poisson_ref(seed: int, t: int, col_ids: torch.Tensor, n: int,
+                      lam: float) -> torch.Tensor:
+    """The reference's Poisson drive counts, (C, N) float32: for each
+    global column id ``col_ids[c]``, ``jax.random.poisson`` of ``lam``
+    over N neurons under the key ``fold_in(fold_in(PRNGKey(seed +
+    DRIVE_STREAM), t), col_ids[c])``, as ``jax.vmap`` of the reference's
+    ``external_drive`` gives them; on ``col_ids``' device."""
+    # core.prng takes this module's _fma, so it is imported here
+    from repro_torch.core import prng
+    base = prng.fold_in(prng.prng_key(seed + DRIVE_STREAM, col_ids.device),
+                        t)
+    return prng.poisson(prng.fold_in(base, col_ids.long()), lam, (n,))
 
 
 def silent_block_count(spikes: torch.Tensor) -> torch.Tensor:

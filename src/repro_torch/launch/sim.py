@@ -4,7 +4,8 @@
         --neurons 1240 --steps 200 [--impl cuda_fused|cuda|ref] \
         [--stdp] [--device cuda|cpu] [--seed 42]
 
-The network is built on the device and the kernels from the sources,
+The network is built on the device from the seed, keyed as the JAX
+reference builds it, and the kernels from the sources,
 both before the clock starts; ``WARMUP_STEPS`` steps run untimed, and
 the timed steps end in ``torch.cuda.synchronize()``. The rate and the
 events count the timed steps alone. ``--stdp`` turns plasticity on and
@@ -25,7 +26,7 @@ from repro_torch.core import simulation as sim
 from repro_torch.kernels import ops
 
 # untimed steps before the clock starts: the first steps on a card pay
-# for the CUDA context, the random generator and the library's loading
+# for the CUDA context and the library's loading
 WARMUP_STEPS = 2
 
 

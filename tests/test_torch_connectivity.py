@@ -1,7 +1,8 @@
 """The port's configs and connectivity against the JAX reference: the
 config copy equal field by field and property by property, the stencil
-equal, and the port's own generator holding the reference's structural
-invariants and the Table-1 calibration."""
+equal, and the port's keyed generator holding the reference's structural
+invariants and the Table-1 calibration (tests/test_torch_simulation.py
+holds the generated network equal to the reference's)."""
 import dataclasses
 import math
 
@@ -124,28 +125,26 @@ def test_remote_column_structure():
 
 def test_columns_deterministic_per_column():
     """A column regenerated alone equals the same column generated in a
-    batch, and other columns differ."""
+    batch (of ids, and in chunks), and other columns differ."""
     cfg = _small(48)
     st = conn.build_stencil(cfg)
     w_local, rem_idx, rem_w = conn.generate_columns(cfg, [3, 7, 11])
     assert torch.equal(w_local[1], conn.generate_local_column(cfg, 7))
     idx7, w7 = conn.generate_remote_column(cfg, st, 7)
     assert torch.equal(rem_idx[1], idx7) and torch.equal(rem_w[1], w7)
+    ids = torch.tensor([3, 7, 11])
+    assert torch.equal(conn.generate_local_column(cfg, ids), w_local)
+    idx, w = conn.generate_remote_column(cfg, st, ids)
+    assert torch.equal(idx, rem_idx) and torch.equal(w, rem_w)
+    chunked = dataclasses.replace(cfg, neurons_per_column=1240)
+    assert torch.equal(conn.generate_columns(chunked, [2, 9])[0][1],
+                       conn.generate_local_column(chunked, 9))
     assert not torch.equal(w_local[0], w_local[1])
     again = conn.generate_columns(cfg, [7])
     assert torch.equal(again[0][0], w_local[1])
     other_seed = dataclasses.replace(cfg, seed=4)
     assert not torch.equal(conn.generate_local_column(other_seed, 7),
                            w_local[1])
-
-
-def test_keyed_generator_streams_independent():
-    a = torch.rand(8, generator=conn.keyed_generator(1, 0, 5, "cpu"))
-    b = torch.rand(8, generator=conn.keyed_generator(1, 0, 5, "cpu"))
-    c = torch.rand(8, generator=conn.keyed_generator(1, 0x51F, 5, "cpu"))
-    d = torch.rand(8, generator=conn.keyed_generator(1, 0, 6, "cpu"))
-    assert torch.equal(a, b)
-    assert not torch.equal(a, c) and not torch.equal(a, d)
 
 
 def test_flat_gather_index_and_out_degree():

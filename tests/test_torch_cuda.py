@@ -100,6 +100,26 @@ def test_synapse_matmul_matches_the_fma_chain(cuda_device):
 
 
 @pytest.mark.cuda
+def test_keyed_drive_matches_plain(cuda_device):
+    """keyed_drive to the bit against keyed_poisson_ref on the 24x24x1240
+    grid at steps 0, 1, 20 and 2**31 - 1, on ragged shapes and on a tile
+    of the grid, and the threefry and JAX known answers: the checks of
+    ``chip_smoke.Smoke.check_keyed_drive``, which raises on a miss."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch.configs import dpsnn
+    _build.reset_launches()
+    chip_smoke.Smoke(torch, str(cuda_device)).check_keyed_drive(
+        dpsnn.GRID_24, 20)
+    assert _build.LAUNCHES["keyed_drive"] > 0
+    ids = torch.arange(3, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.keyed_drive(0, 0, ids.repeat(2)[::2], 40, 1.62, 0.5)
+    with pytest.raises(TypeError, match="int32"):
+        ops.keyed_drive(0, 0, ids.long(), 40, 1.62, 0.5)
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_bad_inputs(cuda_device):
     s = torch.zeros(2, 40, device=cuda_device)
     with pytest.raises(TypeError, match="bfloat16"):

@@ -240,6 +240,10 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     kw = dict(a_plus=0.01, a_minus=0.012, lr=1.0, w_max=0.84)
     assert torch.equal(ops.stdp_dense_update(_t(w), *vec, **kw),
                        ref.stdp_dense_update_ref(_t(w), *vec, **kw))
+    ids = torch.tensor([4, 0, 9], dtype=torch.int32)
+    cur, counts = ops.keyed_drive(9, 4, ids, 40, 1.62, 0.6)
+    assert torch.equal(counts, ref.keyed_poisson_ref(9, 4, ids, 40, 1.62))
+    assert torch.equal(cur, counts * 0.6)
     assert sum(_build.LAUNCHES.values()) == 0
 
 
@@ -274,7 +278,7 @@ def test_build_key_covers_every_source():
     names = {p.name for p in _build._sources()}
     assert {"kernels.cuh", "lif_step.cu", "synapse_matmul.cu",
             "ell_gather.cu", "fused_step.cu", "stdp_update.cu",
-            "errors.cu"} <= names
+            "keyed_drive.cu", "errors.cu"} <= names
     assert len(_build.source_hash()) == 16
 
 

@@ -11,7 +11,7 @@ import torch
 from repro.configs.base import NeuronConfig as JNeuronConfig
 from repro.core import neuron as jneuron
 from repro_torch.configs.base import NeuronConfig
-from repro_torch.core import neuron
+from repro_torch.core import neuron, prng
 
 
 def _states(seed, n):
@@ -67,11 +67,24 @@ def test_lif_trajectory_matches_reference():
 
 
 def test_lif_init():
-    cfg = NeuronConfig()
-    st = neuron.lif_init(cfg, (3, 50),
-                         generator=torch.Generator().manual_seed(0))
-    assert float(st.v.min()) >= cfg.v_rest
-    assert float(st.v.max()) < cfg.v_threshold * 0.95
-    assert st.refrac.dtype == torch.int32 and int(st.refrac.abs().sum()) == 0
+    """Keyed potentials equal the reference's ``lif_init`` to the bit and
+    lie in [rest, 0.95 * threshold), also with a nonzero rest (the draw's
+    multiply-add fused as XLA fuses it); a batch of keys stacks one state
+    per key; without a key every potential is at rest."""
+    for kw in ({}, dict(v_rest=-3.7)):
+        cfg = NeuronConfig(**kw)
+        st = neuron.lif_init(cfg, (3, 50), key=prng.prng_key(0))
+        jst = jneuron.lif_init(JNeuronConfig(**kw), (3, 50), jnp.float32,
+                               jax.random.PRNGKey(0))
+        np.testing.assert_array_equal(st.v.numpy(), np.asarray(jst.v))
+        assert float(st.v.min()) >= cfg.v_rest
+        assert float(st.v.max()) < cfg.v_threshold * 0.95
+        assert st.refrac.dtype == torch.int32
+        assert int(st.refrac.abs().sum()) == 0
+    keys = prng.fold_in(prng.prng_key(5), torch.arange(4))
+    batch = neuron.lif_init(cfg, (50,), key=keys)
+    assert batch.v.shape == batch.c.shape == batch.refrac.shape == (4, 50)
+    assert torch.equal(batch.v[2], neuron.lif_init(cfg, (50,),
+                                                   key=keys[2]).v)
     flat = neuron.lif_init(cfg, (4,))
     assert bool((flat.v == cfg.v_rest).all())

@@ -1,11 +1,14 @@
 """The port's single-shard simulation against the JAX reference.
 
-The network and initial state come from the reference's ``sim.build``
-and are carried across with ``repro_torch.convert``; both sides are fed
-the reference's own Poisson drive counts. The bar is the reference's
-own between its impls (tests/test_simulator.py::test_pallas_matches_ref
-and tests/test_fused_step.py). On the CPU the port's three impls all
-run plain PyTorch (the kernel wrappers' CPU path)."""
+Two ways in. The trajectory tests take the network and initial state
+from the reference's ``sim.build``, carried across with
+``repro_torch.convert``, and feed both sides the reference's own Poisson
+drive counts. The seeded tests build the port's network and state from
+the seed and let it draw its own drive (``core/prng.py``): no
+``convert.py`` and no injected counts. The bar is the reference's own
+between its impls (tests/test_simulator.py::test_pallas_matches_ref and
+tests/test_fused_step.py). On the CPU the port's three impls all run
+plain PyTorch (the kernel wrappers' CPU path)."""
 import dataclasses
 
 import jax
@@ -14,11 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import dpsnn as jdpsnn
 from repro.configs.base import DPSNNConfig as JCfg
 from repro.core import metrics as JM
 from repro.core import network as jnet
 from repro.core import simulation as jsim
 from repro_torch import convert
+from repro_torch.configs import dpsnn
 from repro_torch.configs.base import DPSNNConfig
 from repro_torch.core import metrics as M
 from repro_torch.core import network as net
@@ -131,6 +136,74 @@ def test_full_column_width():
     assert float(j20.spikes) > 0
     assert abs(float(r20.spikes) - float(j20.spikes)) <= \
         0.01 * float(j20.spikes)
+
+
+# the Gaussian grid of the parity bar, a radius-3 family and a
+# non-square grid: (name, config maker) with the maker taking the
+# package's configs module
+SEEDED = {
+    "gauss-4x4x64": lambda m: m.reduced(4, 4, 64, seed=0),
+    "exp-r3-6x6x48": lambda m: m.reduced_family("exp", 6, 6, 48, radius=3,
+                                                seed=5),
+    "gauss-3x5x40": lambda m: m.reduced(3, 5, 40, seed=1),
+}
+# the weights' bound: the truncated-normal jitter within 4 ulp
+# (tests/test_torch_prng.py), so each weight within 1e-6 of its value
+W_RTOL = 1e-6
+
+
+@pytest.fixture(scope="module")
+def seeded():
+    """Per SEEDED config: the reference's build and its 60-step ``ref``
+    run, and the port's own build from the same seed, on the CPU."""
+    out = {}
+
+    def get(name):
+        if name not in out:
+            jcfg, cfg = SEEDED[name](jdpsnn), SEEDED[name](dpsnn)
+            jparams, jstate = jsim.build(jcfg)
+            jres = jsim.run(jcfg, jparams, jstate, 60, impl="ref")
+            out[name] = (cfg, jparams, jstate, jres,
+                         *sim.build(cfg, device="cpu"))
+        return out[name]
+    return get
+
+
+@pytest.mark.parametrize("name", SEEDED)
+def test_seeded_network_matches_reference(seeded, name):
+    """The port's keyed build against the reference's: the local mask,
+    the ELL indices and the initial state to the bit, the weights within
+    the truncated-normal bound."""
+    cfg, jparams, jstate, _jres, params, state = seeded(name)
+    jw = np.asarray(jparams.w_local)
+    np.testing.assert_array_equal(params.w_local.numpy() != 0, jw != 0)
+    np.testing.assert_array_equal(params.rem_flat.numpy(),
+                                  np.asarray(jparams.rem_flat))
+    np.testing.assert_array_equal(params.local_outdeg.numpy(),
+                                  np.asarray(jparams.local_outdeg))
+    for leaf in ("w_local", "rem_w"):
+        np.testing.assert_allclose(getattr(params, leaf).numpy(),
+                                   np.asarray(getattr(jparams, leaf)),
+                                   rtol=W_RTOL, atol=0)
+    for leaf in ("v", "c", "refrac"):
+        np.testing.assert_array_equal(getattr(state.lif, leaf).numpy(),
+                                      np.asarray(getattr(jstate.lif, leaf)))
+    assert state.hist.shape == jstate.hist.shape
+
+
+@pytest.mark.parametrize("impl", ["ref", "cuda", "cuda_fused"])
+@pytest.mark.parametrize("name", SEEDED)
+def test_seeded_run_matches_reference(seeded, name, impl):
+    """The queue-1 gate: the port built from the seed, drawing its own
+    drive, against the reference run from the same seed over 60 steps:
+    equal spikes and events, ``v`` allclose at 2e-4."""
+    cfg, _jparams, _jstate, jres, params, state = seeded(name)
+    res = sim.run(cfg, params, state, 60, impl=impl)
+    assert float(res.spikes) == float(jres.spikes) > 0
+    assert float(res.events) == float(jres.events)
+    np.testing.assert_allclose(res.state.lif.v.numpy(),
+                               np.asarray(jres.state.lif.v),
+                               rtol=2e-4, atol=2e-4)
 
 
 def test_convert_round_trip(small):
