@@ -20,11 +20,14 @@ then, on the card:
    column in which every source spikes); ``keyed_drive``, the port's
    kernel with no Pallas counterpart (the reference's Poisson drive,
    keyed per step and global column id), is held to the bit against its
-   plain version at the main shapes (steps 0, 1, 20 and 2**31 - 1), at
-   ragged shapes and on a 2-D tile of the grid, and to known answers:
-   the Random123 threefry2x32 vector and the JAX reference's own drive
-   counts and ELL indices (``THREEFRY_KAT``, ``DRIVE_KAT``,
-   ``RANDINT_KAT``);
+   plain version at the main shapes (steps 0, 1, 20 and 2**31 - 1, and
+   rates 9.9 and 0), at ragged shapes, on one column of 1, 33, 1240 and
+   of the most and one more neurons than one CTA takes, and on a 2-D
+   tile of the grid, and to known answers: the Random123 threefry2x32
+   vector and the JAX reference's own drive counts and ELL indices
+   (``THREEFRY_KAT``, ``DRIVE_KAT``, ``RANDINT_KAT``); its time is
+   printed beside the timing floor and its lane work beside the useful
+   draws;
 2. runs a 4x4-column, 64-neuron network for 60 steps, and a plastic
    guarded 4x4x48 one for 100, under the three impls from one state and
    one drive: equal spikes and events; the network the card builds from
@@ -114,6 +117,31 @@ PLASTIC_TOL = dict(rtol=1e-6, atol=1e-6)   # weights across impls
 
 def log(*args):
     print(*args, flush=True)
+
+
+def kernel_constant(name, constant):
+    """The value of ``constexpr int constant`` in kernel ``name``'s
+    source."""
+    src = (ROOT / SOURCES[name]).read_text()
+    return int(re.search(rf"constexpr int {constant} = (\d+);", src)[1])
+
+
+def drive_lane_slots(counts, draws):
+    """Lane slots that ``keyed_drive`` issues for draws, modelled from
+    the (C, N) counts for columns of one CTA each: round r draws
+    ``draws`` times for each neuron still undone, 32 to a warp. Beside
+    them, those of a layout of one thread per neuron in CTAs of 256,
+    each warp running to its largest count."""
+    import torch
+    need = counts.long() + 1
+    slots = 0
+    for r in range(-(-int(need.max()) // draws)):
+        undone = (need > draws * r).sum(1)
+        slots += draws * 32 * int(((undone + 31) // 32).sum())
+    pad = torch.nn.functional.pad(counts.long(),
+                                  (0, -counts.shape[1] % 256), value=-1)
+    parent = 32 * int((pad.reshape(-1, 32).max(1).values + 1).sum())
+    return slots, parent
 
 
 def main() -> int:
@@ -502,25 +530,37 @@ class Smoke:
     def check_keyed_drive(self, cfg, t_now):
         """keyed_drive against its plain version, counts and currents to
         the bit: the whole grid at steps 0, 1, 20, 2**31 - 1 and
-        ``t_now``, ragged shapes, and a 6x6 tile of the grid (a shard's
-        non-contiguous ids, whose counts equal the whole grid's rows);
-        the known answers; then its times at ``t_now``."""
+        ``t_now``, and at rates 9.9 (long chains, many rounds) and 0;
+        ragged shapes, one column of 1, 33, 1240 neurons and of the most
+        one CTA takes (the kernel's ``SHARE_MAX``) and one more, and a 6x6
+        tile of the grid (a shard's non-contiguous ids, whose counts equal
+        the whole grid's rows); the known answers; then its times at
+        ``t_now``, beside the timing floor, and its lane work."""
         torch, ops, ref = self.torch, self.ops, self.ref
         lam, j_ext = self.drive_rate(cfg), cfg.conn.j_ext
 
-        def pair(name, seed, t, ids, n):
-            cur, got = ops.keyed_drive(seed, t, ids, n, lam, j_ext)
-            want = ref.keyed_poisson_ref(seed, t, ids, n, lam)
+        def pair(name, seed, t, ids, n, rate=lam):
+            cur, got = ops.keyed_drive(seed, t, ids, n, rate, j_ext)
+            want = ref.keyed_poisson_ref(seed, t, ids, n, rate)
             self.equal(f"keyed_drive {name} counts", got, want)
             self.equal(f"keyed_drive {name} currents", cur, want * j_ext)
             return got
         ids, n = self.col_ids(cfg), cfg.neurons_per_column
         for t in (0, 1, 20, 2**31 - 1):
             pair(f"{cfg.name} t={t}", cfg.seed, t, ids, n)
+        long_counts = pair(f"{cfg.name} lam=9.9", cfg.seed, t_now, ids, n,
+                           rate=9.9)
+        if not bool((pair(f"{cfg.name} lam=0", cfg.seed, t_now, ids, n,
+                          rate=0.0) == 0).all()):
+            raise AssertionError("keyed_drive: lam = 0 drew a spike")
         for c, nr in ((3, 70), (5, 130), (7, 257)):
             pair(f"{c}x{nr}", cfg.seed, 5,
                  torch.arange(11, 11 + c, dtype=torch.int32,
                               device=self.dev), nr)
+        one = torch.tensor([100], dtype=torch.int32, device=self.dev)
+        share_max = kernel_constant("keyed_drive", "SHARE_MAX")
+        for nr in (1, 33, n, share_max, share_max + 1):
+            pair(f"1x{nr}", cfg.seed, t_now, one, nr)
         rows = torch.arange(6, 12, device=self.dev)
         cols = torch.arange(12, 18, device=self.dev)
         tile = (rows[:, None] * cfg.grid_w + cols[None, :]).reshape(-1).int()
@@ -560,26 +600,43 @@ class Smoke:
                                                   lam, j_ext))
         plain_ms = self.time_ms(lambda: ref.keyed_poisson_ref(
             cfg.seed, t_now, ids, n, lam), iters=3)
+        floor_ms = self.time_ms(torch.zeros(1, device=self.dev).zero_)
+        ms_long = self.time_ms(lambda: ops.keyed_drive(
+            cfg.seed, t_now, ids, n, 9.9, j_ext))
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = n_ops / PEAK_INT32_OPS * 1e3
+        slots, slots_parent = drive_lane_slots(
+            counts, kernel_constant("keyed_drive", "DRAWS"))
         entry = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                      library_ms=None, bound_ms=max(t_bytes, t_ops),
                      bound_by="bytes" if t_bytes >= t_ops else "operations",
                      bytes=nbytes, int_ops=n_ops, draws=draws,
                      max_count=float(counts.max()),
-                     mean_count=float(counts.mean()))
+                     mean_count=float(counts.mean()), ms_floor=floor_ms,
+                     ms_lam_9_9=ms_long,
+                     draws_lam_9_9=float((long_counts + 1).sum()),
+                     max_count_lam_9_9=float(long_counts.max()))
         self.report["kernels"]["keyed_drive"] = entry
         self.note(f"phase 1 keyed_drive: counts and currents equal to the "
                   f"plain version at {cfg.name} (t = 0, 1, 20, 2**31 - 1, "
-                  f"{t_now}), ragged 3x70/5x130/7x257, and a 6x6 tile equal "
-                  f"to the grid's rows; threefry2x32 equal to the Random123 "
-                  f"vector; the reference's drive counts (DRIVE_KAT) and "
-                  f"remote indices (RANDINT_KAT) equal")
+                  f"{t_now}; lam 9.9 at t = {t_now}, max count "
+                  f"{entry['max_count_lam_9_9']:.0f}; lam 0 all zero), ragged "
+                  f"3x70/5x130/7x257, one column of 1, 33, {n}, {share_max} "
+                  f"and {share_max + 1} neurons, and a 6x6 tile equal to the "
+                  f"grid's rows; threefry2x32 equal to the Random123 vector; "
+                  f"the reference's drive counts (DRIVE_KAT) and remote "
+                  f"indices (RANDINT_KAT) equal")
         log(f"  keyed_drive: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
             f"-, bound {entry['bound_ms']:.4f} ms by {entry['bound_by']}, "
             f"{n_ops/1e6:.1f} M integer operations, {nbytes/1e6:.3f} MB; "
             f"{draws:.0f} draws, mean count {entry['mean_count']:.4f}, max "
-            f"{entry['max_count']:.0f})")
+            f"{entry['max_count']:.0f}); timing floor (a one-float fill) "
+            f"{floor_ms:.4f} ms; at lam 9.9 {ms_long:.4f} ms for "
+            f"{entry['draws_lam_9_9']:.0f} draws")
+        log(f"  keyed_drive lane work, modelled from the counts: "
+            f"{slots} lane slots for draws, {slots / draws:.3f}x the "
+            f"useful draws (a thread per neuron, 32 lanes to a warp's "
+            f"largest count: {slots_parent}, {slots_parent / draws:.3f}x)")
 
     def step_inputs(self, cfg, params, state):
         """The inputs the main path's kernels see at the state's step."""

@@ -14,19 +14,54 @@
 // Bound on the card: operations. Each draw is one threefry2x32 (20 rounds
 // of add, rotate, xor and 5 key injections, about 80 integer operations)
 // and a logf; a neuron makes count + 1 draws (2.6 on average at lam =
-// 1.62), and it writes 8 bytes (count and current). The design: one
-// thread per neuron, CTAs of 256 neurons of one column; thread 0 derives
-// the column's key in a prologue and grows the split chain in shared
-// memory, CHAIN subkeys at a time, as far as the CTA's slowest neuron
-// needs; every thread stops drawing when its own sum is done. logf, never
-// __logf (no --use_fast_math): the kernel rounds as torch.log on the card
-// does, so it equals its plain version to the bit.
+// 1.62), and it writes 8 bytes (count and current).
+//
+// The design: one CTA per column (a column of more than SHARE_MAX
+// neurons is split into equal shares, one CTA each, and each share's CTA
+// grows the chain itself). The draws go in rounds: round r draws DRAWS =
+// 2 times for every neuron still undone, with subkeys 2r and 2r + 1, the
+// two threefry2x32 independent of each other; the sum still adds log u in
+// order of j, so the counts are the plain version's to the bit. The
+// undone neurons and their sums are a list in shared memory, packed
+// densely: a warp draws for 32 undone neurons whatever their counts, and
+// appends those still undone to the next round's list with a ballot and
+// one shared atomic. A neuron that is done writes its count to shared
+// memory; counts and currents go out coalesced at the end. The column's
+// split chain is grown once, by lanes 0 and 1 of the last warp, a round
+// ahead: in round r they make subkeys 2r + 2 and 2r + 3 (lane 0 the
+// subkey, lane 1 the next rng, from the same rng) while the other warps
+// draw, and the barrier that closes the round publishes them; the last
+// warp has the fewest draws of a round. Only the prologue waits for the
+// chain: the column key and subkeys 0 and 1, four threefry2x32 in a row.
+//
+// What holds it below the bound (PERF.md, section 6): issue first. Even at
+// lam = 9.9, where nearly every round is wide, a useful draw costs about
+// 1.7 times the bound's 80 integer operations: the funnel shifts and
+// xors of threefry2x32, logf, the list's load, ballot, atomic, shuffle
+// and store, and the second draw of a pair when the first ends a neuron
+// (about 1.2 times the useful draws at lam = 1.62). Then latency: a
+// column's later rounds are a warp or two each behind a CTA-wide
+// barrier, and an SM holds only 4 or 5 columns (576 over 132) to hide
+// them; and the prologue. logf, never __logf (no --use_fast_math): the
+// kernel rounds as torch.log on the card does, so it equals its plain
+// version to the bit.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int CHAIN = 8;   // subkeys grown at a time (counts up to 7)
+constexpr int WARPS = THREADS / 32;
+// the most neurons of a column one CTA draws for, and the shared memory
+// each takes: two list entries and a count
+constexpr int SHARE_MAX = 2048;
+constexpr int SMEM_PER_NEURON = 20;
+// CTAs an SM must hold at once (at most 51 registers a thread), so that
+// one wave takes GRID_24's 576
+constexpr int MIN_CTAS = 5;
+// draws per undone neuron in a round, and the subkey ring (the round's
+// and the next round's)
+constexpr int DRAWS = 2;
+constexpr int RING = 2 * DRAWS;
 
 struct Key {
   unsigned a, b;
@@ -55,61 +90,141 @@ __device__ __forceinline__ Key threefry(Key k, unsigned c0, unsigned c1) {
   return Key{x0, x1};
 }
 
-__global__ void __launch_bounds__(THREADS)
+// One step of the split chain on lanes 0 and 1 (both holding rng): lane 0
+// hashes (0, 1) into the subkey, lane 1 (0, 0) into the next rng.
+__device__ __forceinline__ void chain_step(Key& rng, Key* sub, int lane) {
+  const Key r = threefry(rng, 0u, 1u - lane);
+  const Key s{__shfl_sync(0x3u, r.a, 0), __shfl_sync(0x3u, r.b, 0)};
+  rng = Key{__shfl_sync(0x3u, r.a, 1), __shfl_sync(0x3u, r.b, 1)};
+  if (lane == 0) *sub = s;
+}
+
+// log u of the uniform that the threefry2x32 output b gives
+__device__ __forceinline__ float log_uniform(Key b) {
+  return logf(__uint_as_float(((b.a ^ b.b) >> 9) | 0x3F800000u) - 1.0f);
+}
+
+// atomicAdd on shared memory, as one instruction (nvcc would otherwise
+// aggregate the single lane's add across the warp)
+__device__ __forceinline__ int shared_add(int* p, int v) {
+  int old;
+  asm volatile("atom.shared.add.u32 %0, [%1], %2;"
+               : "=r"(old)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))),
+                 "r"(v)
+               : "memory");
+  return old;
+}
+
+__global__ void __launch_bounds__(THREADS, MIN_CTAS)
 keyed_drive_kernel(const int* __restrict__ col_ids, float* __restrict__ counts,
-                   float* __restrict__ cur, int n, int blocks_per_col,
+                   float* __restrict__ cur, int n, int share, int parts,
                    unsigned seed_word, unsigned t, float neg_lam,
                    float j_ext) {
-  __shared__ Key sub[CHAIN];
-  const int c = blockIdx.x / blocks_per_col;
-  const int i = (blockIdx.x % blocks_per_col) * THREADS + threadIdx.x;
-  const bool in_col = i < n;   // the rest only take part in the barriers
+  // list r & 1 holds round r's undone neurons (neuron, sum bits), then
+  // every neuron's count
+  extern __shared__ int2 smem[];
+  __shared__ Key sub[RING];        // subkey_j in sub[j % RING]
+  __shared__ int len[3];           // round r's list length in len[r % 3]
+  const int c = blockIdx.x / parts;
+  const int lo = (blockIdx.x % parts) * share;
+  const int m = min(share, n - lo);   // this CTA's neurons lo .. lo + m - 1
+  if (m <= 0) return;
+  const long long out = static_cast<long long>(c) * n + lo;
+  if (!(0.0f > neg_lam)) {            // lam = 0: no draw, every count 0
+    for (int i = threadIdx.x; i < m; i += THREADS) {
+      counts[out + i] = 0.0f;
+      cur[out + i] = 0.0f * j_ext;
+    }
+    return;
+  }
+  int* const count = reinterpret_cast<int*>(smem + 2 * share);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const unsigned below = (1u << lane) - 1u, all = 0xffffffffu;
+  const bool chain = warp == WARPS - 1 && lane < 2;
   Key rng{0u, 0u};
-  if (threadIdx.x == 0) {
+  if (chain) {   // the column key, then subkeys 0 .. DRAWS - 1
     const Key step = threefry(Key{0u, seed_word}, 0u, t);
     rng = threefry(step, 0u, static_cast<unsigned>(col_ids[c]));
+    for (int d = 0; d < DRAWS; ++d) chain_step(rng, &sub[d], lane);
   }
-  float log_prod = 0.0f;
-  int draws = 0;
-  for (;;) {
-    if (threadIdx.x == 0) {
-      for (int j = 0; j < CHAIN; ++j) {
-        sub[j] = threefry(rng, 0u, 1u);
-        rng = threefry(rng, 0u, 0u);
+  if (threadIdx.x == 0) len[1] = 0;
+  __syncthreads();
+  // round r draws DRAWS times for each undone neuron, with subkeys
+  // j = r * DRAWS ..., while the chain grows the next round's; the rounds
+  // go on while any neuron is undone
+  int u_len = m, j = 0;
+  for (int r = 0; u_len > 0; ++r, j += DRAWS) {
+    Key key[DRAWS];
+    for (int d = 0; d < DRAWS; ++d) key[d] = sub[(j + d) % RING];
+    // len[(r + 2) % 3] was last read before the previous barrier and is
+    // next appended to after the coming one
+    if (threadIdx.x == 0) len[(r + 2) % 3] = 0;
+    if (chain) {
+      for (int d = 0; d < DRAWS; ++d) {
+        chain_step(rng, &sub[(j + DRAWS + d) % RING], lane);
       }
     }
-    __syncthreads();
-    if (in_col) {
-      for (int j = 0; j < CHAIN && log_prod > neg_lam; ++j) {
-        const Key b = threefry(sub[j], 0u, static_cast<unsigned>(i));
-        const float u =
-            __uint_as_float(((b.a ^ b.b) >> 9) | 0x3F800000u) - 1.0f;
-        log_prod += logf(u);
-        ++draws;
+    const int2* const now = smem + (r & 1) * share;
+    int2* const next = smem + ((r + 1) & 1) * share;
+    for (int k0 = warp * 32; k0 < u_len; k0 += THREADS) {
+      const int k = k0 + lane;
+      int i = k;                       // round 0: neuron k
+      float lp = 0.0f;
+      if (r > 0 && k < u_len) {
+        const int2 e = now[k];
+        i = e.x;
+        lp = __int_as_float(e.y);
+      }
+      float lg[DRAWS];
+      for (int d = 0; d < DRAWS; ++d) {
+        lg[d] = log_uniform(
+            threefry(key[d], 0u, static_cast<unsigned>(lo + i)));
+      }
+      bool more = k < u_len;
+      for (int d = 0; d < DRAWS; ++d) {
+        if (more) {
+          lp += lg[d];
+          if (!(lp > neg_lam)) {
+            count[i] = j + d;          // j + d + 1 draws
+            more = false;
+          }
+        }
+      }
+      const unsigned ball = __ballot_sync(all, more);
+      int base = 0;
+      if (lane == 0 && ball != 0u) {
+        base = shared_add(&len[(r + 1) % 3], __popc(ball));
+      }
+      base = __shfl_sync(all, base, 0);
+      if (more) {
+        next[base + __popc(ball & below)] = make_int2(i, __float_as_int(lp));
       }
     }
-    // also the barrier before thread 0 overwrites the chain
-    if (!__syncthreads_or(in_col && log_prod > neg_lam)) break;
+    __syncthreads();   // the next list, its length and the next subkeys
+    u_len = len[(r + 1) % 3];
   }
-  if (in_col) {
-    const float k = static_cast<float>(max(draws - 1, 0));   // lam = 0: 0
-    const long long o = static_cast<long long>(c) * n + i;
-    counts[o] = k;
-    cur[o] = k * j_ext;
+  for (int i = threadIdx.x; i < m; i += THREADS) {
+    const float k = static_cast<float>(count[i]);
+    counts[out + i] = k;
+    cur[out + i] = k * j_ext;
   }
 }
 
 }  // namespace
 
 extern "C" int repro_keyed_drive(const int* col_ids, float* counts,
-                                 float* cur, int c, int n,
-                                 unsigned seed_word, unsigned t, float lam,
-                                 float j_ext, cudaStream_t stream) {
+                                 float* cur, int c, int n, unsigned seed_word,
+                                 unsigned t, float lam, float j_ext,
+                                 cudaStream_t stream) {
   if (c <= 0 || n <= 0) return 0;
-  const int blocks_per_col = (n + THREADS - 1) / THREADS;
-  const long long blocks = static_cast<long long>(c) * blocks_per_col;
+  // ceil(n / SHARE_MAX) CTAs a column, with equal shares of it
+  const int parts = static_cast<int>((n + SHARE_MAX - 1LL) / SHARE_MAX);
+  const int share = static_cast<int>((n + parts - 1LL) / parts);
+  const long long blocks = static_cast<long long>(c) * parts;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  keyed_drive_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
-      col_ids, counts, cur, n, blocks_per_col, seed_word, t, -lam, j_ext);
+  keyed_drive_kernel<<<static_cast<unsigned>(blocks), THREADS,
+                       SMEM_PER_NEURON * share, stream>>>(
+      col_ids, counts, cur, n, share, parts, seed_word, t, -lam, j_ext);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,6 +8,12 @@ currents ``counts * j_ext``; the column keys are derived on the device,
 so the host makes no generator and waits for nothing. Bound by
 operations: one threefry2x32 per draw, count + 1 draws per neuron.
 
+The kernel gives each column one CTA (a column of more than 2048
+neurons is split into equal shares). It draws in rounds of two draws
+for each neuron still undone, the neurons packed densely into full
+warps from a list in shared memory, while two lanes of its last warp
+grow the column's split chain a round ahead.
+
 On CPU tensors the wrapper returns the plain version,
 ``ref.keyed_poisson_ref``; on CUDA tensors it launches the kernel or
 raises. The kernel equals its plain version on the card to the bit.

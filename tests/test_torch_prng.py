@@ -161,19 +161,42 @@ def test_keyed_poisson_matches_reference_drive(col_ids):
     assert bad <= MAX_DRIVE_MISMATCH * total
 
 
-def test_poisson_matches_reference():
+
+@pytest.mark.parametrize("n", [1, 33, 1240, 2049])
+def test_keyed_poisson_one_column_matches_reference_drive(n):
+    """``keyed_poisson_ref`` against the reference's drive on one column
+    of ``n`` neurons (the edge shapes the card's kernel is held to this
+    plain version at: one neuron, one warp and one more, the paper's
+    column, and one more neuron than one CTA takes), over 5 steps."""
+    jcfg = JCfg(grid_h=4, grid_w=4, neurons_per_column=n, seed=42)
+    lam = jcfg.c_ext * jcfg.nu_ext_hz * jcfg.neuron.dt_ms * 1e-3
+    jids = jnp.asarray([9], jnp.int32)
+    ids = torch.tensor([9], dtype=torch.int32)
+    bad = 0
+    for t in range(5):
+        got = ref.keyed_poisson_ref(42, t, ids, n, lam)
+        assert got.shape == (1, n)
+        want = np.asarray(jnet.external_drive(jcfg, jnp.int32(t), jids)[1])
+        bad += int((got.numpy() != want).sum())
+    assert bad <= MAX_DRIVE_MISMATCH * 5 * n
+
+@pytest.mark.parametrize("lam", [0.0, 1.62, 5.0, 9.9])
+def test_poisson_matches_reference(lam):
     """``prng.poisson`` of one key and of a batch of keys against
-    ``jax.random.poisson``, and at rate 0."""
+    ``jax.random.poisson`` at ``lam`` (every rate in Knuth's branch,
+    up to the long chains of 9.9 that the card's drive is checked at),
+    and at rates 4.5 and 0."""
     jk = jax.random.PRNGKey(7)
-    want = np.asarray(jax.random.poisson(jk, 1.62, (1240,)))
-    got = prng.poisson(prng.prng_key(7), 1.62, (1240,))
+    want = np.asarray(jax.random.poisson(jk, lam, (1240,)))
+    got = prng.poisson(prng.prng_key(7), lam, (1240,))
     np.testing.assert_array_equal(got.numpy(), want)
     keys = prng.split(prng.prng_key(7), 3)
     jkeys = jax.random.split(jk, 3)
-    np.testing.assert_array_equal(
-        prng.poisson(keys, 4.5, (9, 11)).numpy(),
-        np.asarray(jax.vmap(lambda k: jax.random.poisson(k, 4.5, (9, 11))
-                            )(jkeys)))
+    for rate in (lam, 4.5):
+        np.testing.assert_array_equal(
+            prng.poisson(keys, rate, (9, 11)).numpy(),
+            np.asarray(jax.vmap(
+                lambda k, r=rate: jax.random.poisson(k, r, (9, 11)))(jkeys)))
     assert float(prng.poisson(keys, 0.0, (5,)).abs().sum()) == 0.0
     with pytest.raises(NotImplementedError, match="Knuth"):
         prng.poisson(keys, 12.0, (5,))
@@ -197,6 +220,24 @@ def test_chip_smoke_literals_match_reference():
     assert np.asarray(idx)[kat["row"], :len(kat["idx"])].tolist() == \
         kat["idx"]
 
+
+
+def test_chip_smoke_drive_lane_model():
+    """``chip_smoke.py``'s model of ``keyed_drive``'s lane work, on one
+    column of 40 counts: 33 neurons of one draw, one of five and six of
+    three. Rounds of two draws issue two full warps, then one (7 undone),
+    then one (1 undone): 256 slots; one thread per neuron issues 32 lanes
+    of one draw and 32 of five: 192. The model reads the kernel's own
+    constants from its source."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    counts = torch.tensor([[0] * 33 + [4] + [2] * 6])
+    assert chip_smoke.drive_lane_slots(counts, 2) == (256, 192)
+    assert chip_smoke.drive_lane_slots(counts, 1) == (32 * (2 + 1 + 1 + 1 + 1),
+                                                      192)
+    assert chip_smoke.kernel_constant("keyed_drive", "DRAWS") >= 1
+    assert chip_smoke.kernel_constant("keyed_drive", "SHARE_MAX") >= \
+        DPSNNConfig().neurons_per_column
 
 def test_external_drive_on_device_tensors_takes_the_kernel(monkeypatch):
     """On a tensor that is not on the CPU, ``network.external_drive``
