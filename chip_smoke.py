@@ -27,7 +27,14 @@ then, on the card:
    vector and the JAX reference's own drive counts and ELL indices
    (``THREEFRY_KAT``, ``DRIVE_KAT``, ``RANDINT_KAT``); its time is
    printed beside the timing floor and its lane work beside the useful
-   draws;
+   draws; ``lif_step`` is held to the bit on the real state and on
+   ragged (n = 1, 3, 4097) and unaligned inputs (views one element
+   off, which take its scalar path); ``stdp_remote_update``, the remote
+   STDP rule (plain jnp in the reference), is held to the bit on the
+   plastic state after 20 steps (lr 1 and 0.7, all-silent and
+   all-spiking frames, weights at 0, below 0 and near w_max with the
+   clip biting on both sides), on small grids with K = 7 and 248, on
+   unaligned weights, and on a table of T = 180,000 (its wide path);
 2. runs a 4x4-column, 64-neuron network for 60 steps, and a plastic
    guarded 4x4x48 one for 100, under the three impls from one state and
    one drive: equal spikes and events; the network the card builds from
@@ -90,10 +97,12 @@ TPU_KERNELS = {
 }
 # the port's kernels with no Pallas counterpart: the plain-jnp function
 # of the reference each replaces
-PORT_KERNELS = {"keyed_drive": "src/repro/core/network.py:181"}
+PORT_KERNELS = {"keyed_drive": "src/repro/core/network.py:181",
+                "stdp_remote_update": "src/repro/core/plasticity.py:115"}
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu"
            for name in (*TPU_KERNELS, *PORT_KERNELS)}
 SOURCES["stdp_dense_update"] = "src/repro_torch/csrc/stdp_update.cu"
+SOURCES["stdp_remote_update"] = "src/repro_torch/csrc/stdp_remote.cu"
 # rtol = atol = 1e-5; the relative part of a sum's error is taken against
 # the sum of its absolute terms (Smoke.close)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -163,13 +172,14 @@ def main() -> int:
 class Smoke:
     def __init__(self, torch, device="cuda:0"):
         from repro_torch.configs import base, dpsnn
-        from repro_torch.core import (connectivity, metrics, network, prng,
-                                      simulation)
+        from repro_torch.core import (connectivity, metrics, network,
+                                      plasticity, prng, simulation)
         from repro_torch.kernels import _build, ops, plan, ref
         self.torch, self.dpsnn, self.M = torch, dpsnn, metrics
         self.build, self.plan = _build, plan
         self.net, self.sim, self.conn, self.prng = (network, simulation,
                                                     connectivity, prng)
+        self.plast = plasticity
         self.ops, self.ref = ops, ref
         self.STDPConfig, self.GuardConfig = base.STDPConfig, base.GuardConfig
         self.neuron_types = connectivity.neuron_types
@@ -315,9 +325,11 @@ class Smoke:
         pwarm = self.sim.run(pcfg, params, pstate0, WARMUP_STEPS,
                              impl="cuda_fused")
         self.check_plastic_real(pcfg, pwarm)
+        self.check_stdp_remote_real(pcfg, pwarm)
         self.check_kernels_random(cfg, params, real)
         self.check_ragged()
         self.check_wide_table()
+        self.check_stdp_remote_shapes()
 
         # 2. small runs: three impls, one state, one drive
         self.check_small_run()
@@ -352,13 +364,13 @@ class Smoke:
         """Registers and spill bytes of every instance of the kernels that
         ``kernels/plan.py`` plans, labelled by path and epilogues, from the
         build log."""
-        out = {"synapse_matmul": {}, "ell_gather": {}, "fused_step": {}}
+        out = {name: {} for name in self.plan.KERNELS}
         for mangled, info in self.build.ptxas_report(log).items():
             if re.search(r"synapse_matmul_kernel", mangled):
                 out["synapse_matmul"]["staged"] = info
                 continue
-            m = re.search(r"(ell_gather|fused_step)_kernelI((?:Lb[01]E)+)E",
-                          mangled)
+            m = re.search(r"(ell_gather|fused_step|stdp_remote_update)"
+                          r"_kernelI((?:Lb[01]E)+)E", mangled)
             if m is None:
                 continue
             flags = [f == "1" for f in re.findall(r"Lb([01])E", m[2])]
@@ -519,6 +531,180 @@ class Smoke:
             + f" (with both epilogues: plain "
             f"{fused['plain_ms_stdp_guard']:.4f} ms, bound "
             f"{fused['bound_ms_stdp_guard']:.4f} ms)")
+
+    def lif_equal(self, name, ncfg, v, c, refrac, cur):
+        """lif_step against its plain version, all four outputs to the
+        bit; returns the spikes."""
+        got = self.ops.lif_step(ncfg, v, c, refrac, cur)
+        want = self.ref.lif_step_ref(v, c, refrac, cur,
+                                     **self.ref.lif_constants(ncfg))
+        for leaf, g, w in zip(("v", "c", "refrac", "spikes"), got, want):
+            self.equal(f"lif_step {name} {leaf}", g, w)
+        return got[3]
+
+    def check_lif_shapes(self, ncfg, real=None):
+        """lif_step to the bit: on ``real`` (v, c, refrac, cur) at the main
+        path's shapes (the vector path), on n = 1, 3 and 4097 (the scalar
+        path), and on views one element off of n = 4096 and of the main
+        path's 714,240 neurons (every input, or refrac alone): unaligned,
+        so the scalar path too."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(6)
+        n_main = self.dpsnn.GRID_24.n_neurons
+
+        def inputs(n, off=0):
+            def rnd():
+                return torch.rand(n + off, generator=g, device=self.dev)
+            cur = torch.randn(n + off, generator=g, device=self.dev) * 4 + 1
+            return [x[off:] for x in (rnd() * 22, rnd() * 3,
+                                      (rnd() * 3).int(), cur)]
+        spikes = 0
+        if real is not None:
+            spikes += int(self.lif_equal("real", ncfg, *real).sum())
+        for n in (1, 3, 4097):
+            spikes += int(self.lif_equal(f"n={n}", ncfg, *inputs(n)).sum())
+        for n in (4096, n_main):
+            spikes += int(self.lif_equal(f"n={n} one element off", ncfg,
+                                         *inputs(n, 1)).sum())
+            x = inputs(n)
+            x[2] = inputs(n, 1)[2]
+            self.lif_equal(f"n={n} refrac one element off", ncfg, *x)
+        if spikes == 0:
+            raise AssertionError("lif_step checks: no neuron spiked")
+        self.report["kernels"].setdefault("lif_step", {"max_abs_err": 0.0})
+        self.note(f"phase 1 lif_step equal to its plain version"
+                  f"{' on the real state, ' if real is not None else ' '}on "
+                  f"n = 1, 3, 4097 and on views one element off of n = 4096 "
+                  f"and {n_main} ({spikes} spikes)")
+
+    def remote_equal(self, name, args, kw):
+        """stdp_remote_update against its plain version, to the bit."""
+        got = self.ops.stdp_remote_update(*args, **kw)
+        self.equal(f"stdp_remote_update {name}", got,
+                   self.ref.stdp_remote_update_ref(*args, **kw))
+        return got
+
+    def check_stdp_remote_real(self, pcfg, pwarm):
+        """stdp_remote_update on the plastic state after 20 steps, as
+        ``core/simulation.py`` hands it over (the pre-trace table of the
+        state's x_pre, its last spikes and x_post, the real indices and
+        weights), to the bit: at lr 1 and 0.7; all-silent and all-spiking
+        frames; and weights at 0, below 0, near w_max and just above 0,
+        with a_plus 0.5 on the all-spiking frame and a_minus 0.5 on the
+        silent one, and the traces raised by 1 (every pre-trace positive),
+        so that the clip bites at w_max and at 0. Then its times."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        params, state = pwarm.params, pwarm.state
+        stencil = self.net.build_stencil(pcfg)
+        table = self.plast.pre_trace_table(state.stdp.x_pre, stencil,
+                                           (pcfg.grid_h, pcfg.grid_w))
+        spikes = state.hist[(int(state.t) - 1) % state.hist.shape[0]]
+        x_post = state.stdp.x_post
+        idx, w = params.rem_flat, params.rem_w
+        scfg = pcfg.stdp_cfg
+        w_max = scfg.w_max_factor * pcfg.conn.j_exc
+        kw = dict(a_plus=scfg.a_plus, a_minus=scfg.a_minus, lr=scfg.lr,
+                  w_max=w_max)
+        args = (table, idx, w, spikes, x_post)
+        for lr in (1.0, 0.7):
+            self.remote_equal(f"real lr={lr}", args, dict(kw, lr=lr))
+        silent, spiking = torch.zeros_like(spikes), torch.ones_like(spikes)
+        for name, frame in (("all-silent", silent), ("all-spiking", spiking)):
+            self.remote_equal(f"real {name}", (table, idx, w, frame, x_post),
+                              kw)
+        g = torch.Generator(device=self.dev).manual_seed(5)
+        u = torch.rand(w.shape, generator=g, device=self.dev)
+        edge = torch.where(u < 0.25, 0.0, torch.where(
+            u < 0.5, -w.abs() - 0.1, torch.where(
+                u < 0.75, w_max - 1e-3 * u, 1e-3 * u)))
+        del u
+        raised = (table + 1.0, idx, edge)
+        top = self.remote_equal("real near w_max, all spiking",
+                                (*raised, spiking, x_post + 1.0),
+                                dict(kw, a_plus=0.5))
+        bottom = self.remote_equal("real near 0, all silent, lr 0.7",
+                                   (*raised, silent, x_post + 1.0),
+                                   dict(kw, a_minus=0.5, lr=0.7))
+        pos = edge > 0
+        n_top = int(((top == ref._f32(w_max)) & pos).sum())
+        n_bottom = int(((bottom == 0) & pos).sum())
+        if n_top == 0 or n_bottom == 0:
+            raise AssertionError(f"stdp_remote_update: the clip did not bite "
+                                 f"({n_top} at w_max, {n_bottom} at 0)")
+        if not torch.equal(top[~pos], edge[~pos]):
+            raise AssertionError("stdp_remote_update: a weight <= 0 moved")
+        del raised, edge, top, bottom, pos
+        # times; the bound reads idx and weights and writes the new weights
+        # once (12 B a synapse), the table and the two (C, N) vectors once
+        c, n, k = idx.shape
+        t = table.shape[1]
+        nbytes = 12 * c * n * k + 4 * c * t + 8 * c * n
+        flops = 7 * c * n * k
+        ms = self.time_ms(lambda: ops.stdp_remote_update(*args, **kw))
+        plain_ms = self.time_ms(
+            lambda: ref.stdp_remote_update_ref(*args, **kw), iters=3)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        entry = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                     library_ms=None, bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     bytes=nbytes, flops=flops,
+                     **self.plan_entry("stdp_remote_update", c, n, t))
+        self.report["kernels"]["stdp_remote_update"] = entry
+        self.note(f"phase 1 stdp_remote_update on the plastic real state "
+                  f"(step {WARMUP_STEPS}): equal to its plain version at lr 1 "
+                  f"and 0.7, on all-silent and all-spiking frames, and on "
+                  f"weights at 0, below 0 and near w_max ({n_top} clipped at "
+                  f"w_max, {n_bottom} at 0, none <= 0 moved)")
+        log(f"  stdp_remote_update: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+            f"library -, bound {entry['bound_ms']:.4f} ms by "
+            f"{entry['bound_by']}, {nbytes/1e9:.4f} GB; {entry['path']} path, "
+            f"{entry['ctas']} CTAs ({entry['schedule']} schedule), "
+            f"{entry['smem_bytes']} B of shared memory each, registers "
+            f"{entry['registers']}, {entry['spill_bytes']} B spilled)")
+
+    def check_stdp_remote_shapes(self):
+        """stdp_remote_update to the bit on random inputs (a pre-trace
+        table, weights a tenth absent, 10 % spiking) at lr 1 and 0.7: K = 7
+        (4-byte accesses) and K = 248 on ragged grids, K = 248 with weights
+        one element off (4-byte accesses), all staged; and a table of T =
+        180,000 at K = 248 and 7 (the wide path). Staged and wide launches
+        are counted apart."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(7)
+
+        def rnd(*shape):
+            return torch.rand(shape, generator=g, device=self.dev)
+        cases = [(5, 130, 7, 20 * 130, "staged"),
+                 (7, 257, 248, 20 * 257, "staged"),
+                 (3, 1240, 248, 20 * 1240, "unaligned"),
+                 (4, 1240, 248, 180_000, "wide"),
+                 (4, 1240, 7, 180_000, "wide")]
+        self.ops.reset_launches()
+        for c, n, k, t, kind in cases:
+            w = torch.randn((c, n, k), generator=g, device=self.dev) * 0.3
+            w = torch.where(rnd(c, n, k) < 0.1, 0.0, w + 0.2)
+            if kind == "unaligned":
+                off = torch.empty(c * n * k + 1, device=self.dev)
+                w = off[1:].view(c, n, k).copy_(w)
+            args = (rnd(c, t) * 3,
+                    torch.randint(0, t, (c, n, k), generator=g,
+                                  device=self.dev, dtype=torch.int32),
+                    w, (rnd(c, n) < 0.1).float(), rnd(c, n) * 3)
+            for lr in (1.0, 0.7):
+                self.remote_equal(f"{c}x{n}x{k} T={t} {kind} lr={lr}", args,
+                                  dict(a_plus=0.05, a_minus=0.055, lr=lr,
+                                       w_max=0.84))
+        want = self.expected_launches(**{"stdp_remote_update": 6,
+                                         "stdp_remote_update.wide": 4})
+        launches = dict(self.ops.LAUNCHES)
+        if launches != want:
+            raise AssertionError(f"stdp_remote_update launches {launches}, "
+                                 f"expected {want}")
+        self.note("phase 1 stdp_remote_update equal to its plain version at "
+                  "lr 1 and 0.7 on 5x130 K=7, 7x257 K=248, 3x1240 K=248 with "
+                  "unaligned weights (staged) and on T = 180,000 at K = 248 "
+                  "and 7 (every launch on the wide path)")
 
     def col_ids(self, cfg):
         return self.net.column_ids(cfg, self.dev)
@@ -689,6 +875,7 @@ class Smoke:
                                 **ref.lif_constants(ncfg))
         kinds["lif_step"], flips_lif = self.close_step("lif_step real",
                                                        got, want)
+        self.check_lif_shapes(ncfg, (x["v"], x["c"], x["refrac"], cur))
         # fused_step
         args = (x["v"], x["c"], x["refrac"], x["s_loc"], params.w_local,
                 x["s_flat"], params.rem_flat, params.rem_w, x["ext"])
@@ -1367,12 +1554,13 @@ class Smoke:
                         "ref": {}}[impl]
             if impl != "ref":
                 per_step["stdp_dense_update"] = MAIN_STEPS
+                per_step["stdp_remote_update"] = MAIN_STEPS
             per_step["keyed_drive"] = MAIN_STEPS
             if launches != self.expected_launches(**per_step):
                 raise AssertionError(f"plastic {impl} launches {launches}")
             if impl == "cuda_fused":
-                self.report["kernels"]["stdp_dense_update"]["launches"] = \
-                    launches["stdp_dense_update"]
+                for name in ("stdp_dense_update", "stdp_remote_update"):
+                    self.report["kernels"][name]["launches"] = launches[name]
                 peak_gb = torch.cuda.max_memory_allocated(self.dev) / 1e9
             g = res.state.guard
             if bool(g.tripped):

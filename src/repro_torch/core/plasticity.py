@@ -6,8 +6,10 @@ only; inhibitory weights are left untouched, weights are clipped to
 [0, w_max] and absent synapses (exact zeros) stay absent. The dense
 local update is the ``stdp_dense_update`` kernel (``impl`` 'cuda' and
 'cuda_fused') or its plain version (``impl='ref'``); the remote ELL
-update gathers pre-traces through a neighbour pre-trace table, in plain
-PyTorch under every ``impl`` (it is jnp in the reference, not Pallas).
+update gathers pre-traces through a neighbour pre-trace table (built in
+plain PyTorch) with the ``stdp_remote_update`` kernel or, under 'ref',
+its plain version (the rule is jnp in the reference, not Pallas). Under
+the two CUDA impls nothing in the update makes the host wait.
 
 Every multiply-add is grouped as XLA groups the reference's jitted step
 on the CPU (``kernels/ref.py::_fma``), so the port's weights and traces
@@ -65,34 +67,6 @@ def advance_traces(cfg: DPSNNConfig, scfg: STDPConfig, st: STDPState,
                      x_post=kref.stdp_trace_ref(st.x_post, k["dm"], spikes))
 
 
-def remote_update(scfg: STDPConfig, rem_w: torch.Tensor,
-                  rem_flat: torch.Tensor, table: torch.Tensor,
-                  spikes: torch.Tensor, x_post: torch.Tensor,
-                  w_max: float) -> torch.Tensor:
-    """The remote ELL rule of the reference (``plasticity.py:116-133``),
-    its ``* 0.5`` on the depression term kept as written:
-    ``dw = lr * (a_plus*pre*spk - a_minus*pre*x_post*0.5)`` with ``pre``
-    the pre-traces gathered through ``rem_flat``. Grouped as XLA rewrites
-    and fuses it: ``fma(lr, fma(pre, spk*a_plus, -(pre*(x_post*a_minus))
-    *0.5), rem_w)``, then the clip on positive weights. Finding the rows
-    of the neurons that spiked makes the host wait for the card once per
-    call."""
-    a_plus, a_minus, lr, w_max = map(
-        kref._f32, (scfg.a_plus, scfg.a_minus, scfg.lr, w_max))
-    c, n, k = rem_flat.shape
-    pre = torch.gather(table, 1, rem_flat.reshape(c, n * k).long()
-                       ).reshape(c * n, k)
-    dep = pre * (x_post * a_minus).reshape(c * n, 1) * 0.5
-    # a neuron that did not spike has spk*a_plus = 0, and there the FMA is
-    # -dep exactly; it is emulated on the rows of the neurons that spiked
-    y = -dep
-    spk = spikes.reshape(c * n)
-    rows = spk.nonzero().squeeze(1)
-    y[rows] = kref._fma(pre[rows], (spk[rows] * a_plus)[:, None], -dep[rows])
-    new = kref._fma_lr(y.reshape(c, n, k), lr, rem_w)
-    return torch.where(rem_w > 0, torch.clamp(new, 0.0, w_max), rem_w)
-
-
 def stdp_update(cfg: DPSNNConfig, scfg: STDPConfig, params: NetworkParams,
                 st: STDPState, spikes: torch.Tensor, is_inh: torch.Tensor,
                 pre_trace_table: torch.Tensor | None = None,
@@ -117,17 +91,18 @@ def stdp_update(cfg: DPSNNConfig, scfg: STDPConfig, params: NetworkParams,
     kw = dict(a_plus=scfg.a_plus, a_minus=scfg.a_minus, lr=scfg.lr,
               w_max=w_max)
     if impl in ("cuda", "cuda_fused"):
-        w_local = ops.stdp_dense_update(params.w_local, x_pre_exc, spk_exc,
-                                        spikes, x_post, **kw)
+        dense, remote = ops.stdp_dense_update, ops.stdp_remote_update
     elif impl == "ref":
-        w_local = kref.stdp_dense_update_ref(params.w_local, x_pre_exc,
-                                             spk_exc, spikes, x_post, **kw)
+        dense = kref.stdp_dense_update_ref
+        remote = kref.stdp_remote_update_ref
     else:
         raise ValueError(f"unknown stdp impl {impl!r}")
+    w_local = dense(params.w_local, x_pre_exc, spk_exc, spikes, x_post, **kw)
 
     rem_w = params.rem_w
     if pre_trace_table is not None and rem_flat is not None:
-        rem_w = remote_update(scfg, params.rem_w, rem_flat, pre_trace_table,
-                              spikes, x_post, w_max)
+        # the remote ELL rule of the reference (plasticity.py:115-133)
+        rem_w = remote(pre_trace_table, rem_flat, params.rem_w, spikes,
+                       x_post, **kw)
     return (params._replace(w_local=w_local, rem_w=rem_w),
             STDPState(x_pre=x_pre, x_post=x_post))

@@ -1,6 +1,6 @@
 // Device code shared by the port's kernels (lif_step, synapse_matmul,
-// ell_gather, fused_step, stdp_update). Float32 throughout; int32
-// refractory counters.
+// ell_gather, fused_step, stdp_update, stdp_remote). Float32 throughout;
+// int32 refractory counters and ELL indices.
 //
 // Every multiply-add below is written with __fmaf_rn / __fmul_rn /
 // __fadd_rn so that nvcc does not choose the grouping: the LIF update
@@ -49,6 +49,15 @@ __device__ __forceinline__ LifOut lif_update(const LifParams& p, float v,
   *r_out = spike ? p.arp : max(refrac - 1, 0);
   *s_out = s;
   return LifOut{v2, s};
+}
+
+// The STDP weight clip of both plasticity rules (stdp_update, stdp_remote):
+// jnp.where(w > 0, jnp.clip(nw, 0, w_max), w), the clip as
+// min(max(x, 0), w_max); a NaN passes through, as there.
+__device__ __forceinline__ float clip_positive(float w, float nw,
+                                              float w_max) {
+  if (!(w > 0.0f)) return w;
+  return nw < 0.0f ? 0.0f : (nw > w_max ? w_max : nw);
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -272,11 +281,14 @@ __device__ __forceinline__ void ell_rows(TableRow<STAGED> tbl,
   }
 }
 
+inline bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
 // Whether (idx, w) can be read as 16-byte vectors: K a multiple of 4 and
 // both arrays 16-byte aligned (then so is every row).
 inline bool ell_vec(const int* idx, const float* w, int k) {
-  return k % 4 == 0 && reinterpret_cast<uintptr_t>(idx) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  return k % 4 == 0 && aligned16(idx) && aligned16(w);
 }
 
 // Sets the dynamic shared memory of a kernel instance and checks it

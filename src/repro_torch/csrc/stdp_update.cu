@@ -34,13 +34,6 @@ struct StdpParams {
   float a_plus, a_minus, lr, w_max;
 };
 
-__device__ __forceinline__ float clip_positive(float w, float nw,
-                                               float w_max) {
-  // jnp.clip as min(max(x, 0), w_max); a NaN passes through, as there
-  if (!(w > 0.0f)) return w;
-  return nw < 0.0f ? 0.0f : (nw > w_max ? w_max : nw);
-}
-
 __global__ void __launch_bounds__(THREADS) stdp_dense_update_kernel(
     const float* __restrict__ w, const float* __restrict__ x_pre_exc,
     const float* __restrict__ spk_exc, const float* __restrict__ spikes,
@@ -88,13 +81,14 @@ __global__ void __launch_bounds__(THREADS) stdp_dense_update_kernel(
       const float pot = __fmul_rn(xpre_sh[r], ts);
       const float dep = __fmul_rn(sspk_sh[r], xq);
       const float y = __fmaf_rn(p.a_plus, pot, -__fmul_rn(p.a_minus, dep));
-      op[(size_t)r * n] = clip_positive(wv, __fmaf_rn(p.lr, y, wv), p.w_max);
+      op[(size_t)r * n] =
+          repro::clip_positive(wv, __fmaf_rn(p.lr, y, wv), p.w_max);
     }
   } else {
 #pragma unroll 8
     for (int r = ty; r < rows; r += ROW_STEP) {
       const float wv = wp[(size_t)r * n];
-      op[(size_t)r * n] = clip_positive(wv, wv, p.w_max);
+      op[(size_t)r * n] = repro::clip_positive(wv, wv, p.w_max);
     }
   }
 }

@@ -59,14 +59,19 @@ SIGNATURES = {
     # w, x_pre_exc, spk_exc, spikes, x_post -> w'; C, N; a_plus, a_minus,
     # lr, w_max; stream
     "repro_stdp_dense_update": [_P] * 6 + [_I] * 2 + [_F] * 4 + [_P],
+    # tbl, idx, w, spikes, x_post -> w'; C, N, T, K; a_plus, a_minus, lr,
+    # w_max; staged, CTAs, shared bytes; stream
+    "repro_stdp_remote_update": ([_P] * 6 + [_I] * 4 + [_F] * 4 + [_I] * 3
+                                 + [_P]),
     # col_ids -> counts, currents; C, N; seed word, t; lam, j_ext; stream
     "repro_keyed_drive": [_P] * 3 + [_I] * 2 + [_U] * 2 + [_F] * 2 + [_P],
 }
 
-# ell_gather and fused_step count their wide path (kernels/plan.py) apart
+# the ELL kernels count their wide path (kernels/plan.py) apart
 LAUNCHES = {"lif_step": 0, "synapse_matmul": 0, "ell_gather": 0,
             "ell_gather.wide": 0, "fused_step": 0, "fused_step.wide": 0,
-            "stdp_dense_update": 0, "keyed_drive": 0}
+            "stdp_dense_update": 0, "stdp_remote_update": 0,
+            "stdp_remote_update.wide": 0, "keyed_drive": 0}
 
 
 def reset_launches() -> None:

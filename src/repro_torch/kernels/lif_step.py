@@ -2,9 +2,12 @@
 
 Replaces ``repro/kernels/lif_step.py::lif_step``. Bound by bytes: 16
 read and 16 written per neuron (22.9 MB per step on a 24x24 grid of
-1240-neuron columns). One thread per neuron over a grid-stride loop;
-the constants are computed once here, in float32, with the gain
-pre-folded (``ref.lif_constants``).
+1240-neuron columns). Each thread updates four groups of four neurons
+through 16-byte loads and stores, all its loads in flight before the
+first use; any other n or alignment takes the same loop one neuron at a
+time (the C entry chooses from the shapes and pointers). The constants
+are computed once here, in float32, with the gain pre-folded
+(``ref.lif_constants``).
 
 On CPU tensors the wrapper returns the plain version, ``lif_step_ref``;
 on CUDA tensors it launches the kernel or raises.

@@ -3,10 +3,11 @@
 ``impl='cuda'`` in core/network.py takes :func:`synapse_matmul`,
 :func:`ell_gather` and :func:`lif_step`; ``impl='cuda_fused'`` takes
 :func:`fused_step`; both take :func:`stdp_dense_update` under STDP
-(core/plasticity.py). Every impl draws its Poisson drive with
-:func:`keyed_drive`. Each wrapper runs its plain PyTorch version for CPU
-tensors and launches its CUDA kernel for CUDA tensors, or raises.
-``LAUNCHES`` counts the kernel launches by name.
+(core/plasticity.py), and :func:`stdp_remote_update` for the remote
+rule. Every impl draws its Poisson drive with :func:`keyed_drive`. Each
+wrapper runs its plain PyTorch version for CPU tensors and launches its
+CUDA kernel for CUDA tensors, or raises. ``LAUNCHES`` counts the kernel
+launches by name.
 """
 from __future__ import annotations
 
@@ -15,9 +16,10 @@ from repro_torch.kernels.ell_gather import ell_gather
 from repro_torch.kernels.fused_step import fused_step
 from repro_torch.kernels.keyed_drive import keyed_drive
 from repro_torch.kernels.lif_step import lif_step
+from repro_torch.kernels.stdp_remote import stdp_remote_update
 from repro_torch.kernels.stdp_update import stdp_dense_update
 from repro_torch.kernels.synapse_matmul import synapse_matmul
 
 __all__ = ["synapse_matmul", "ell_gather", "lif_step", "fused_step",
-           "stdp_dense_update", "keyed_drive", "LAUNCHES", "reset_launches",
-           "library"]
+           "stdp_dense_update", "stdp_remote_update", "keyed_drive",
+           "LAUNCHES", "reset_launches", "library"]

@@ -1,23 +1,26 @@
 """Shape plan of the kernels that keep per-column data in shared memory:
-``ell_gather``, ``fused_step`` and ``synapse_matmul``. Which path they
-take, their grid and their shared memory.
+``ell_gather``, ``stdp_remote_update``, ``fused_step`` and
+``synapse_matmul``. Which path they take, their grid and their shared
+memory.
 
-All three work in (column, target block) items of ``TARGET_BLOCK``
-targets, one thread per target.
+All four work in (column, target block) items of ``TARGET_BLOCK``
+targets (ELL rows), one thread per target or one warp per row.
 
 The ELL kernels: on the **staged** path a CTA copies its column's
-neighbour-table row into shared memory and gathers from there; CTAs are
-persistent, ``CTAS_PER_SM`` per SM, and reload the row only when the
-column changes. A table row too wide for that budget takes the **wide**
-path: the table is read from device memory through L2, one CTA per item.
+neighbour-table row (spikes, or pre-traces for ``stdp_remote_update``)
+into shared memory and gathers from there; CTAs are persistent,
+``CTAS_PER_SM`` per SM, and reload the row only when the column changes.
+A table row too wide for that budget takes the **wide** path: the table
+is read from device memory through L2, one CTA per item.
 
 ``synapse_matmul`` (always **staged**) streams the weight rows of its
 column's spiking sources through a ring of ``RING_STAGES`` stages of
 ``RING_ROWS`` rows in shared memory, one CTA per item; a column too long
 for its list of spiking sources to fit beside the ring is refused.
 
-How the items are shared out (``schedule``): ``ell_gather``'s items all
-cost the same, so each CTA takes a contiguous, equal share
+How the items are shared out (``schedule``): the items of ``ell_gather``
+and ``stdp_remote_update`` all cost the same, so each CTA takes a
+contiguous, equal share
 (:meth:`Plan.item_range`); ``synapse_matmul``'s CTAs take one item each,
 the same static schedule with as many CTAs as items. ``fused_step``'s
 items do not cost the same (an item's local product reads one weight row
@@ -30,7 +33,8 @@ The path is chosen here, from the shapes alone, never on failure; the
 wrappers call :func:`plan` and pass its choice down to the C entry point,
 which returns an error if asked for more shared memory than the card's
 block can hold. ``csrc/kernels.cuh`` mirrors ``TARGET_BLOCK``, the ring
-and the shared-memory layouts (``ell_gather_smem``, ``fused_step_smem``,
+and the shared-memory layouts (``ell_gather_smem``, which
+``stdp_remote_update`` shares, ``fused_step_smem``,
 ``synapse_matmul_smem``).
 """
 from __future__ import annotations
@@ -54,7 +58,10 @@ STAGED_BUDGET = SMEM_PER_SM // CTAS_PER_SM - SMEM_RESERVED_PER_CTA
 #: stages; (RING_STAGES - 1) * RING_ROWS rows in flight
 RING_ROWS = 16
 RING_STAGES = 4
-KERNELS = ("ell_gather", "fused_step", "synapse_matmul")
+KERNELS = ("ell_gather", "stdp_remote_update", "fused_step",
+           "synapse_matmul")
+#: kernels whose items cost the same: equal, contiguous shares
+STATIC = ("ell_gather", "stdp_remote_update")
 
 
 class Plan(NamedTuple):
@@ -91,7 +98,8 @@ def _round16(nbytes: int) -> int:
 
 
 def smem_bytes(kernel: str, staged: bool, n: int, t_len: int) -> int:
-    """Dynamic shared memory of one CTA: the table row when staged; for
+    """Dynamic shared memory of one CTA: the table row when staged (all
+    that ``ell_gather`` and ``stdp_remote_update`` keep); for
     ``fused_step`` also the column's spikes and spiking-source list (n
     each), the ELL sums of two items, per-warp counts and the claimed
     chunk; for ``synapse_matmul`` (``staged`` and ``t_len`` unused) the
@@ -103,7 +111,7 @@ def smem_bytes(kernel: str, staged: bool, n: int, t_len: int) -> int:
                    _round16(4 * n))
         return ring + 2 * _round16(4 * n) + 4 * WARPS
     table = _round16(4 * t_len) if staged else 0
-    if kernel == "ell_gather":
+    if kernel in STATIC:
         return table
     return table + 2 * _round16(4 * n) + 8 * TARGET_BLOCK + 4 * WARPS + 8
 
@@ -134,7 +142,7 @@ def plan(kernel: str, n_cols: int, n: int, t_len: int,
                 f"memory per CTA, more than the {SMEM_PER_CTA_MAX} B a CTA "
                 f"may have")
         path, ctas = "wide", items
-    schedule = "static" if kernel == "ell_gather" else "claims"
+    schedule = "static" if kernel in STATIC else "claims"
     return Plan(kernel, path, schedule, ctas, items, smem)
 
 

@@ -4,8 +4,10 @@
 ``stdp_dense_update_ref`` are the counterparts of the oracles of the
 same names in ``repro/kernels/ref.py``; ``fused_step_ref`` composes them
 as the reference step does, with the STDP-trace and guard-flag
-epilogues of ``repro/kernels/fused_step.py``. Each is the version a
-kernel wrapper takes for a tensor on the CPU. On the card
+epilogues of ``repro/kernels/fused_step.py``. ``keyed_poisson_ref`` and
+``stdp_remote_update_ref`` are plain jnp in the reference (the drive of
+``core/network.py``, the remote rule of ``core/plasticity.py``). Each is
+the version a kernel wrapper takes for a tensor on the CPU. On the card
 ``chip_smoke.py`` holds each CUDA kernel against it, and
 ``synapse_matmul`` also against ``synapse_matmul_chain_ref``, the same
 product summed in the CUDA kernel's order and rounding. Products that the
@@ -88,6 +90,12 @@ def lif_constants(ncfg, dtype=torch.float32) -> dict:
                 arp_steps=round(ncfg.tau_arp_ms / dt))
 
 
+def _f64(x):
+    """A tensor as float64; a Python number stays a scalar (made a tensor
+    on the card, it would be a copy the host waits for)."""
+    return x.double() if isinstance(x, torch.Tensor) else float(x)
+
+
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     """``a * b + c`` for float32 ``a``, ``b``, ``c``, rounded once to
     float32 like a fused multiply-add (CUDA's ``__fmaf_rn``).
@@ -98,14 +106,13 @@ def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     the one rounding to float32 that follows is the correct one: a plain
     float64 sum would round twice and miss now and then.
     """
-    f64 = torch.float64
-    p = a.double() * torch.as_tensor(b, dtype=f64, device=a.device)
-    c = torch.as_tensor(c, dtype=f64, device=a.device)
+    p = a.double() * _f64(b)
+    c = _f64(c)
     s = p + c
     bp = s - p
     err = (p - (s - bp)) + (c - bp)
     even = (s.view(torch.int64) & 1) == 0
-    inf = torch.tensor(float("inf"), dtype=f64, device=a.device)
+    inf = torch.full_like(s, float("inf"))
     s = torch.where((err != 0) & even,
                     torch.nextafter(s, torch.where(err > 0, inf, -inf)), s)
     return s.to(a.dtype)
@@ -206,6 +213,32 @@ def stdp_dense_update_ref(w_local, x_pre_exc, spk_exc, spikes, x_post, *,
         new = _fma_lr(_fma_sparse(pot, a_plus, -(a_minus * dep)), lr, w)
         out[cs] = torch.where(w > 0, torch.clamp(new, 0.0, w_max), w)
     return out
+
+
+def stdp_remote_update_ref(table, rem_flat, rem_w, spikes, x_post, *,
+                          a_plus, a_minus, lr, w_max):
+    """The remote ELL rule of the reference (``core/plasticity.py:115-133``),
+    its ``* 0.5`` on the depression term kept as written:
+    ``dw = lr * (a_plus*pre*spk - a_minus*pre*x_post*0.5)`` with ``pre``
+    the (C, O*N) pre-trace ``table`` gathered through ``rem_flat`` (C, N, K)
+    int32, ``spk`` and ``x_post`` each neuron's (C, N), then the clip on
+    positive weights. Grouped as XLA rewrites and fuses it:
+    ``fma(lr, fma(pre, spk*a_plus, -(pre*(x_post*a_minus))*0.5), rem_w)``.
+    Out of place. Finding the rows of the neurons that spiked makes the
+    host wait for the device once per call."""
+    a_plus, a_minus, lr, w_max = map(_f32, (a_plus, a_minus, lr, w_max))
+    c, n, k = rem_flat.shape
+    pre = torch.gather(table, 1, rem_flat.reshape(c, n * k).long()
+                       ).reshape(c * n, k)
+    dep = pre * (x_post * a_minus).reshape(c * n, 1) * 0.5
+    # a neuron that did not spike has spk*a_plus = 0, and there the FMA is
+    # -dep exactly; it is emulated on the rows of the neurons that spiked
+    y = -dep
+    spk = spikes.reshape(c * n)
+    rows = spk.nonzero().squeeze(1)
+    y[rows] = _fma(pre[rows], (spk[rows] * a_plus)[:, None], -dep[rows])
+    new = _fma_lr(y.reshape(c, n, k), lr, rem_w)
+    return torch.where(rem_w > 0, torch.clamp(new, 0.0, w_max), rem_w)
 
 
 def guard_flags_ref(v: torch.Tensor, v_floor: float,

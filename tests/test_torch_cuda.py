@@ -120,6 +120,71 @@ def test_keyed_drive_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
+def test_stdp_remote_update_matches_plain(cuda_device):
+    """stdp_remote_update to the bit against stdp_remote_update_ref at
+    lr 1 and 0.7, staged (K = 7 and 248, and weights one element off) and
+    wide (T = 180,000, K = 248 and 7), each launch on the path its plan
+    names: the checks of ``chip_smoke.Smoke.check_stdp_remote_shapes``,
+    which raises on a miss. Asked to stage a row too wide for a block,
+    the C entry point refuses."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch.kernels import plan
+    chip_smoke.Smoke(torch, str(cuda_device)).check_stdp_remote_shapes()
+    c, n, k, t = 1, 256, 4, 180_000
+    tbl = torch.zeros(c, t, device=cuda_device)
+    idx = torch.zeros(c, n, k, dtype=torch.int32, device=cuda_device)
+    w = torch.zeros(c, n, k, device=cuda_device)
+    vec = torch.zeros(c, n, device=cuda_device)
+    _build.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.launch("stdp_remote_update", "repro_stdp_remote_update",
+                      cuda_device, tbl.data_ptr(), idx.data_ptr(),
+                      w.data_ptr(), vec.data_ptr(), vec.data_ptr(),
+                      torch.empty_like(w).data_ptr(), c, n, t, k, 0.01, 0.012,
+                      1.0, 0.84, 1, 1,
+                      plan.smem_bytes("stdp_remote_update", True, n, t))
+    assert _build.LAUNCHES["stdp_remote_update"] == 0
+
+
+@pytest.mark.cuda
+def test_lif_step_ragged_and_unaligned_match_plain(cuda_device):
+    """lif_step to the bit on n = 1, 3 and 4097 and on views one element
+    off (the scalar path), beside aligned inputs (the vector path): the
+    checks of ``chip_smoke.Smoke.check_lif_shapes``, which raises on a
+    miss."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch.configs import dpsnn
+    _build.reset_launches()
+    chip_smoke.Smoke(torch, str(cuda_device)).check_lif_shapes(
+        dpsnn.GRID_24.neuron)
+    assert _build.LAUNCHES["lif_step"] == 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["cuda_fused", "cuda"])
+def test_plastic_step_never_waits_for_the_card(cuda_device, impl):
+    """Plastic guarded steps under sync debug mode "error": no operation
+    of the step, the STDP update or the guard makes the host wait for the
+    card (the remote rule's ``nonzero`` did, once per step), and the
+    remote rule runs as its kernel."""
+    cfg = DPSNNConfig(grid_h=4, grid_w=4, neurons_per_column=48, seed=3,
+                      stdp=True, guard=GuardConfig(enabled=True))
+    params, state = sim.build(cfg, device=cuda_device)
+    sim.run(cfg, params, state, 2, impl=impl)        # builds the kernels
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = sim.run(cfg, params, state, 3, impl=impl)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert _build.LAUNCHES["stdp_remote_update"] == 3
+    assert float(res.spikes) > 0
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_bad_inputs(cuda_device):
     s = torch.zeros(2, 40, device=cuda_device)
     with pytest.raises(TypeError, match="bfloat16"):

@@ -1,5 +1,6 @@
 """The shape plan of the port's kernels that keep per-column data in
-shared memory (``ell_gather``, ``fused_step``, ``synapse_matmul``):
+shared memory (``ell_gather``, ``stdp_remote_update``, ``fused_step``,
+``synapse_matmul``):
 which path the shapes take, the grid and the shared memory, and that
 the CTAs' item shares cover every (column, target block) item exactly
 once. No card, no JAX: the plan is computed from the shapes and an SM
@@ -10,7 +11,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import plan as P
 
 H100_SMS = 132
-KERNELS = ("ell_gather", "fused_step")         # the persistent ELL kernels
+# the persistent ELL kernels
+KERNELS = ("ell_gather", "stdp_remote_update", "fused_step")
 ALL = KERNELS + ("synapse_matmul",)
 # GRID_24: 1240 neurons per column, 20 stencil offsets, K = 248
 N, T24 = 1240, 20 * 1240
@@ -37,12 +39,12 @@ def test_grid24_is_staged_at_two_ctas_per_sm(kernel):
     assert p.smem_bytes >= 4 * T24                  # the whole row
     assert p.smem_bytes <= P.SMEM_PER_CTA_MAX       # 227 KB
     assert 2 * (p.smem_bytes + P.SMEM_RESERVED_PER_CTA) <= P.SMEM_PER_SM
-    # ell_gather's items cost the same: equal shares of 10 or 11; the
-    # fused step's first claims are one column (5 items)
-    assert max(len(r) for r in _shares(p)) == {"ell_gather": 11,
-                                               "fused_step": 5}[kernel]
-    assert p.schedule == {"ell_gather": "static",
-                          "fused_step": "claims"}[kernel]
+    # the items of ell_gather and stdp_remote_update cost the same: equal
+    # shares of 10 or 11; the fused step's first claims are one column (5
+    # items)
+    assert max(len(r) for r in _shares(p)) == (5 if kernel == "fused_step"
+                                               else 11)
+    assert p.schedule == ("claims" if kernel == "fused_step" else "static")
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -95,6 +97,20 @@ def test_items_covered_exactly_once(kernel, n_cols):
         assert len(sizes) == p.ctas and max(sizes) - min(sizes) <= 1
     else:                               # claims shrink to single items
         assert sizes == sorted(sizes, reverse=True) and sizes[-1] == 1
+
+
+@pytest.mark.parametrize("c,n,t", [(576, N, T24), (4, N, 180_000),
+                                   (5, 130, 20 * 130)])
+def test_stdp_remote_update_plans_as_ell_gather(c, n, t):
+    """The remote STDP rule stages the same table row as ell_gather, in
+    the same grid: staged at GRID_24 (the 99,200-byte pre-trace row), wide
+    at T = 180,000, one CTA per item on a ragged grid."""
+    p = P.plan("stdp_remote_update", c, n, t, H100_SMS)
+    assert p._replace(kernel="ell_gather") == P.plan("ell_gather", c, n, t,
+                                                     H100_SMS)
+    assert p.path == ("wide" if t == 180_000 else "staged")
+    if t == T24:
+        assert p.smem_bytes == 4 * T24 == 99_200
 
 
 def test_grid24_synapse_matmul_one_cta_per_item():

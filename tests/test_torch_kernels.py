@@ -240,6 +240,12 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     kw = dict(a_plus=0.01, a_minus=0.012, lr=1.0, w_max=0.84)
     assert torch.equal(ops.stdp_dense_update(_t(w), *vec, **kw),
                        ref.stdp_dense_update_ref(_t(w), *vec, **kw))
+    tbl = _t(rng.random((2, 120)).astype(np.float32))
+    idx = _t(rng.integers(0, 120, (2, 40, 7)).astype(np.int32))
+    rw = _t(_normal(rng, (2, 40, 7)))
+    assert torch.equal(ops.stdp_remote_update(tbl, idx, rw, *vec[:2], **kw),
+                       ref.stdp_remote_update_ref(tbl, idx, rw, *vec[:2],
+                                                  **kw))
     ids = torch.tensor([4, 0, 9], dtype=torch.int32)
     cur, counts = ops.keyed_drive(9, 4, ids, 40, 1.62, 0.6)
     assert torch.equal(counts, ref.keyed_poisson_ref(9, 4, ids, 40, 1.62))
@@ -260,6 +266,12 @@ def test_non_cpu_tensors_never_fall_back():
         ops.stdp_dense_update(torch.zeros(2, 40, 40, device="meta"), m, m, m,
                               m, a_plus=0.01, a_minus=0.012, lr=1.0,
                               w_max=0.84)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.stdp_remote_update(
+            torch.zeros(2, 120, device="meta"),
+            torch.zeros(2, 40, 7, dtype=torch.int32, device="meta"),
+            torch.zeros(2, 40, 7, device="meta"), m, m, a_plus=0.01,
+            a_minus=0.012, lr=1.0, w_max=0.84)
 
 
 def test_missing_library_raises(monkeypatch, tmp_path):
@@ -278,7 +290,7 @@ def test_build_key_covers_every_source():
     names = {p.name for p in _build._sources()}
     assert {"kernels.cuh", "lif_step.cu", "synapse_matmul.cu",
             "ell_gather.cu", "fused_step.cu", "stdp_update.cu",
-            "keyed_drive.cu", "errors.cu"} <= names
+            "keyed_drive.cu", "stdp_remote.cu", "errors.cu"} <= names
     assert len(_build.source_hash()) == 16
 
 

@@ -31,6 +31,7 @@ from repro.core import plasticity as jplast
 from repro.core import simulation as jsim
 from repro.core.connectivity import build_stencil as jbuild_stencil
 from repro.core.connectivity import neuron_types as jneuron_types
+from repro.core.network import NetworkParams as JParams
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import convert
@@ -198,7 +199,7 @@ def test_stdp_update_step_matches_reference(with_table, lr):
     tst = plast.STDPState(_t(x_pre), _t(x_post))
     table = (plast.pre_trace_table(tst.x_pre, build_stencil(cfg), (4, 4))
              if with_table else None)
-    for impl in ("ref", "cuda_fused"):
+    for impl in ("ref", "cuda", "cuda_fused"):
         p1, st1 = plast.stdp_update(
             cfg, cfg.stdp_cfg, params, tst, _t(spikes), neuron_types(cfg),
             pre_trace_table=table, rem_flat=params.rem_flat, impl=impl)
@@ -208,6 +209,92 @@ def test_stdp_update_step_matches_reference(with_table, lr):
         _equal(p1.rem_w, jp.rem_w)
     assert torch.equal(params.w_local, _t(np.asarray(jparams.w_local)))
     assert torch.equal(p1.rem_w, params.rem_w) != with_table
+
+
+def _remote_inputs(rng, c, n, k, t, frame, w_max):
+    """A (C, T) pre-trace table, indices, weights (a fifth each absent,
+    negative, within 1e-3 of w_max and just above 0, the rest in
+    between), this step's spikes (``frame``) and post-traces."""
+    table = rng.uniform(0, 3, (c, t)).astype(np.float32)
+    idx = rng.integers(0, t, (c, n, k)).astype(np.int32)
+    u = rng.random((c, n, k)).astype(np.float32)
+    w = rng.uniform(0.05, 0.8, (c, n, k)).astype(np.float32)
+    w = np.select([u < 0.2, u < 0.4, u < 0.6, u < 0.8],
+                  [0.0, -w, np.float32(w_max) - 1e-3 * u, 1e-4 * u], w)
+    spikes = {"random": (rng.random((c, n)) < 0.3),
+              "silent": np.zeros((c, n)),
+              "spiking": np.ones((c, n))}[frame].astype(np.float32)
+    x_post = rng.uniform(0, 3, (c, n)).astype(np.float32)
+    return table, idx, w.astype(np.float32), spikes, x_post
+
+
+@pytest.mark.parametrize("frame", ["random", "silent", "spiking"])
+@pytest.mark.parametrize("k", [248, 7])
+@pytest.mark.parametrize("lr", [1.0, 0.7])
+def test_stdp_remote_update_ref_bitwise(lr, k, frame):
+    """The remote rule's plain version against the reference's (its
+    ``rem_w`` branch of ``stdp_update``, jitted) on the same table,
+    indices, spikes and post-traces, to the bit; the clip bites at w_max
+    when every neuron spikes and at 0 when none does, and weights <= 0
+    stay as they were."""
+    kw = dict(grid_h=2, grid_w=2, neurons_per_column=40, seed=1, stdp=True)
+    jcfg = JCfg(stdp_cfg=JSTDP(lr=lr, **STDP_KW), **kw)
+    scfg = STDPConfig(lr=lr, **STDP_KW)
+    c, n = jcfg.n_columns, jcfg.neurons_per_column
+    w_max = scfg.w_max_factor * jcfg.conn.j_exc
+    rng = np.random.default_rng(k * 10 + len(frame))
+    table, idx, w, spikes, x_post = _remote_inputs(rng, c, n, k, 9 * n,
+                                                   frame, w_max)
+    jparams = JParams(w_local=jnp.zeros((c, n, n), jnp.float32),
+                      rem_flat=jnp.asarray(idx), rem_w=jnp.asarray(w),
+                      local_outdeg=jnp.zeros((c, n), jnp.float32))
+    traces = jplast.STDPState(jnp.zeros((c, n), jnp.float32),
+                              jnp.asarray(x_post))
+    jinh = jneuron_types(jcfg)
+
+    @jax.jit
+    def jrule(p, tbl, spk):
+        return jplast.stdp_update(jcfg, jcfg.stdp_cfg, p, traces, spk, jinh,
+                                  pre_trace_table=tbl, rem_flat=p.rem_flat,
+                                  impl="ref", new_traces=traces)[0].rem_w
+
+    want = jrule(jparams, jnp.asarray(table), jnp.asarray(spikes))
+    args = (_t(table), _t(idx), _t(w), _t(spikes), _t(x_post))
+    rule = dict(a_plus=scfg.a_plus, a_minus=scfg.a_minus, lr=lr, w_max=w_max)
+    got = ref.stdp_remote_update_ref(*args, **rule)
+    _equal(got, want)
+    _equal(ops.stdp_remote_update(*args, **rule), want)
+    pos = w > 0
+    assert (got.numpy()[~pos] == w[~pos]).all()
+    if frame == "spiking":
+        assert (got.numpy()[pos] == np.float32(w_max)).any()
+    if frame == "silent":
+        assert (got.numpy()[pos] == 0.0).any()
+
+
+@pytest.mark.parametrize("impl", ["ref", "cuda", "cuda_fused"])
+def test_stdp_update_remote_rule_takes_its_wrapper(monkeypatch, impl):
+    """Under 'cuda' and 'cuda_fused' the remote rule goes through
+    ``ops.stdp_remote_update`` (on the card, its kernel); under 'ref' the
+    plain version is called directly."""
+    calls = []
+    wrapper = ops.stdp_remote_update
+
+    def spy(*args, **kw):
+        calls.append(args[1].dtype)
+        return wrapper(*args, **kw)
+    monkeypatch.setattr(ops, "stdp_remote_update", spy)
+    cfg = DPSNNConfig(grid_h=3, grid_w=3, neurons_per_column=24, seed=2,
+                      stdp=True, stdp_cfg=STDPConfig(**STDP_KW))
+    params, _state = sim.build(cfg, device="cpu")
+    x_pre, x_post, spikes = (_t(x) for x in _plastic_inputs(cfg))
+    st = plast.STDPState(x_pre, x_post)
+    table = plast.pre_trace_table(x_pre, build_stencil(cfg), (3, 3))
+    p1, _st1 = plast.stdp_update(cfg, cfg.stdp_cfg, params, st, spikes,
+                                 neuron_types(cfg), pre_trace_table=table,
+                                 rem_flat=params.rem_flat, impl=impl)
+    assert calls == ([] if impl == "ref" else [torch.int32])
+    assert not torch.equal(p1.rem_w, params.rem_w)
 
 
 @pytest.fixture(scope="module")
