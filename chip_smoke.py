@@ -51,7 +51,22 @@ then, on the card:
 4. drives the plastic guarded path on the same grid (STDP and the
    integrity guard on) in the same way under ``cuda_fused``, ``cuda``
    and ``ref``, checks rates, weights and the guard, and shows that the
-   guard leaves 50 plastic steps bitwise as they were without it.
+   guard leaves 50 plastic steps bitwise as they were without it;
+5. drives the multi-rank static step (``core/exchange.py``) on the same
+   grid and steps: (a) in-process shard grids of 1x1, 2x2, 4x4, 12x12
+   (one halo ring) and 24x24 (two chained rings) under ``cuda_fused``,
+   2x2 under ``cuda`` and pipelined, and 24x24 with float32 strips, each
+   with one ``fused_step`` (or one of each staged kernel) and one
+   ``keyed_drive`` launch per step for all its shards, timed and
+   profiled (device time outside the kernels, its largest item); (b) 2
+   and 4 ranks as OS processes on gloo through
+   ``repro_torch.launch.launch_distributed``, every rank on this card
+   (time-sliced: their ms/step is no scaling figure). Every run is held
+   to phase 3's single-shard run, or to ``single_process_reference``:
+   spikes, per-step spike counts and v to the bit, events to the bit
+   while float32 holds them exactly and within 1e-6 past 2**24 (how a
+   total is split over shards then sets its rounding), and the ISI
+   totals the same way across runs.
 
 Every phase raises on failure and the script exits non-zero. Without a
 card, or without the rest of the repository beside it, it exits
@@ -103,6 +118,9 @@ SOURCES = {name: f"src/repro_torch/csrc/{name}.cu"
            for name in (*TPU_KERNELS, *PORT_KERNELS)}
 SOURCES["stdp_dense_update"] = "src/repro_torch/csrc/stdp_update.cu"
 SOURCES["stdp_remote_update"] = "src/repro_torch/csrc/stdp_remote.cu"
+# the device-side names of the port's kernels, in a profile
+PORT_KERNEL_RE = re.compile(
+    "(" + "|".join((*TPU_KERNELS, *PORT_KERNELS)) + ")_kernel")
 # rtol = atol = 1e-5; the relative part of a sum's error is taken against
 # the sum of its absolute terms (Smoke.close)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -120,6 +138,11 @@ RANDINT_KAT = dict(seed=42, col=7, row=0, idx=[
     245, 820])
 MAIN_STEPS = 200
 WARMUP_STEPS = 20
+# phase 5: the in-process meshes (rows x cols of shards) under cuda_fused,
+# and the rank counts launched as processes
+MESHES = ((1, 1), (2, 2), (4, 4), (12, 12), (24, 24))
+RANKS = (2, 4)
+RANK_TIMEOUT_S = 300
 NEUTRAL_STEPS = 50        # guard on against off, plastic, bitwise
 PLASTIC_TOL = dict(rtol=1e-6, atol=1e-6)   # weights across impls
 
@@ -183,6 +206,15 @@ class Smoke:
         self.ops, self.ref = ops, ref
         self.STDPConfig, self.GuardConfig = base.STDPConfig, base.GuardConfig
         self.neuron_types = connectivity.neuron_types
+        from repro_torch.core import exchange, partition
+        from repro_torch.launch import launch_distributed
+        from repro_torch.runtime import compression, multiprocess, transport
+        self.ex, self.part, self.ld, self.mp = (exchange, partition,
+                                                launch_distributed,
+                                                multiprocess)
+        self.LocalMesh = transport.LocalMesh
+        self.ExchangeConfig = base.ExchangeConfig
+        self.payload_bytes = compression.halo_payload_bytes
         self.dev = torch.device(device)
         self.report = {"kernels": {}, "checks": []}
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -336,13 +368,22 @@ class Smoke:
         self.check_small_plastic_run()
 
         # 3. the main path at full width, then the staged path
-        self.main_path(cfg, params, state)
+        fused = self.main_path(cfg, params, state)
         del state, real
 
         # 4. the plastic guarded path at full width, and the guard's
         # neutrality on it
         self.plastic_path(pcfg, params, pwarm)
         self.guard_neutrality(pcfg, pwarm)
+        del pwarm, pstate0
+        torch.cuda.empty_cache()
+
+        # 5. the multi-rank static step: in-process meshes, then ranks as
+        # processes, each held against phase 3's single-shard run
+        isi_runs = self.mesh_path(cfg, params, fused)
+        del params
+        torch.cuda.empty_cache()
+        self.rank_path(cfg, fused, isi_runs)
 
         kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                         replaces={**TPU_KERNELS, **PORT_KERNELS}[name],
@@ -1389,18 +1430,20 @@ class Smoke:
         spikes = float(res.spikes - state.spike_count)
         return spikes / (cfg.n_neurons * MAIN_STEPS * cfg.neuron.dt_ms * 1e-3)
 
-    def profile(self, cfg, params, state, impl, ms_per_step, steps=20):
-        """Device time by kernel over ``steps`` steps (torch.profiler), and
-        the device's busy share: of the profiled wall time, and of
-        ``ms_per_step``, the same path's step time with the profiler off."""
+    def profile(self, label, run, ms_per_step, steps=20):
+        """Device time by kernel over ``steps`` steps of ``run(k)`` (which
+        runs k steps; torch.profiler), the device's busy share (of the
+        profiled wall time, and of ``ms_per_step``, the same path's step
+        time with the profiler off), and the device time outside the
+        port's kernels with its largest item."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
-        self.sim.run(cfg, params, state, 2, impl=impl)
+        run(2)
         self.sync()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             w0 = time.perf_counter()
-            self.sim.run(cfg, params, state, steps, impl=impl)
+            run(steps)
             self.sync()
             wall_us = (time.perf_counter() - w0) * 1e6
         by_name = {}     # device-side events only: the kernels themselves
@@ -1408,19 +1451,40 @@ class Smoke:
             if ev.device_type == torch.autograd.DeviceType.CUDA:
                 by_name[ev.key] = (by_name.get(ev.key, 0.0)
                                    + ev.self_device_time_total)
+        # the PyTorch op behind each launch (the port's kernels launch
+        # through ctypes, outside any op)
+        by_op = {ev.key: ev.self_device_time_total
+                 for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CPU
+                 and ev.self_device_time_total > 0}
+        op = max(by_op.items(), key=lambda kv: kv[1], default=("none", 0.0))
         device_us = sum(by_name.values())
+        outside = {k: us for k, us in by_name.items()
+                   if not PORT_KERNEL_RE.search(k)}
+        largest = max(outside.items(), key=lambda kv: kv[1],
+                      default=("none", 0.0))
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        out = dict(impl=impl, steps=steps,
+        out = dict(impl=label, steps=steps,
                    wall_ms_per_step=wall_us / steps / 1e3,
                    device_ms_per_step=device_us / steps / 1e3,
+                   outside_ms_per_step=sum(outside.values()) / steps / 1e3,
+                   largest_outside=(largest[0][:60], largest[1] / steps),
+                   largest_op=(op[0], op[1] / steps),
+                   top_ops_us_per_step={k: v / steps for k, v in sorted(
+                       by_op.items(), key=lambda kv: -kv[1])[:6]},
                    busy_share=device_us / wall_us,
                    busy_share_unprofiled=device_us / steps / 1e3
                    / ms_per_step,
                    top_us_per_step={k[:60]: v / steps for k, v in top})
         self.report.setdefault("profiles", []).append(out)
-        log(f"  profile {impl} ({steps} steps, profiler on): wall "
+        log(f"  profile {label} ({steps} steps, profiler on): wall "
             f"{out['wall_ms_per_step']:.4f} ms/step, device "
-            f"{out['device_ms_per_step']:.4f} ms/step, busy share "
+            f"{out['device_ms_per_step']:.4f} ms/step (outside the port's "
+            f"kernels {out['outside_ms_per_step']:.4f}; largest kernel "
+            f"{largest[0][:50]} {largest[1] / steps:.1f} us; by op: "
+            + ", ".join(f"{k} {v:.1f} us"
+                        for k, v in out["top_ops_us_per_step"].items())
+            + f"), busy share "
             f"{out['busy_share']:.3f} (of {ms_per_step:.4f} ms/step with "
             f"the profiler off: {out['busy_share_unprofiled']:.3f}); per "
             f"step: "
@@ -1471,7 +1535,8 @@ class Smoke:
             f"{silent:.4f}, peak memory {peak_gb:.2f} GB, launches "
             f"{launches}")
 
-        self.profile(cfg, params, fused.state, "cuda_fused", ms)
+        self.profile("cuda_fused", lambda k: self.sim.run(
+            cfg, params, fused.state, k, impl="cuda_fused"), ms)
 
         plain, ms_ref, wall_ref, launches_ref = self.timed_run(
             cfg, params, state, "ref")
@@ -1519,7 +1584,8 @@ class Smoke:
             raise AssertionError(f"cuda launches {launches_st}")
         for name in ("lif_step", "synapse_matmul", "ell_gather"):
             self.report["kernels"][name]["launches"] = launches_st[name]
-        self.profile(cfg, params, fused.state, "cuda", ms_st)
+        self.profile("cuda", lambda k: self.sim.run(
+            cfg, params, fused.state, k, impl="cuda"), ms_st)
         rate_st = self.run_rate(cfg, staged, state)
         if abs(rate_st - rate_ref) > 0.05 * rate_ref:
             raise AssertionError(f"staged path rate {rate_st} Hz vs plain "
@@ -1530,6 +1596,7 @@ class Smoke:
         log(f"  staged path (impl=cuda) same steps: rate {rate_st:.4f} Hz, "
             f"{ms_st:.4f} ms/step (device), wall {wall_st:.3f} s, launches "
             f"{launches_st}")
+        return fused
 
 
     def plastic_path(self, pcfg, params0, pwarm):
@@ -1594,7 +1661,8 @@ class Smoke:
                 f"{out[impl]['max_abs_dw']:.3e}; no trip; launches "
                 f"{launches}")
             if impl == "cuda_fused":
-                self.profile(pcfg, res.params, res.state, impl, ms)
+                self.profile(f"plastic {impl}", lambda k: self.sim.run(
+                    pcfg, res.params, res.state, k, impl=impl), ms)
         fused = out["cuda_fused"]
         n_sblk = -(-pcfg.neurons_per_column // 128)
         fused.update(
@@ -1641,6 +1709,259 @@ class Smoke:
         self.note(f"  guard on vs off, {steps} plastic steps under "
                   f"cuda_fused: hist, spikes ({float(on.spikes):.0f}), events "
                   f"and weights equal to the bit; no trip")
+
+    # ------------------------------------------------------------ phase 5
+    def hold_against_single(self, name, spec, res, final, fused):
+        """A multi-rank run of the main path against phase 3's single-shard
+        ``cuda_fused`` run (same seed, same 220 steps): spikes, the
+        per-step spike counts, v and the last spike frame to the bit;
+        events to the bit while float32 holds them exactly, else within
+        EVENTS_RTOL (a total past 2**24 rounds by how it was split over
+        shards). Returns the run's ISI totals and whether every shard's
+        ISI accumulators stayed exact."""
+        ld = self.ld
+        if float(res.spikes) != float(fused.spikes):
+            raise AssertionError(f"{name}: {float(res.spikes)} spikes, "
+                                 f"single shard {float(fused.spikes)}")
+        self.equal(f"{name} per-step spikes", res.rate_trace,
+                   fused.rate_trace)
+        self.equal(f"{name} v", self.part.columns_to_global(final.lif.v,
+                                                            spec),
+                   fused.state.lif.v)
+        t, d = int(fused.state.t), fused.state.hist.shape[0]
+        self.equal(f"{name} last spike frame",
+                   self.part.tiles_to_global(final.pending, spec).reshape(
+                       fused.state.hist[0].shape),
+                   fused.state.hist[(t - 1) % d])
+        if not ld.events_agree(float(res.events), float(fused.events)):
+            raise AssertionError(f"{name}: events {float(res.events)} vs "
+                                 f"single shard {float(fused.events)}")
+        leaves = (final.isi_sum, final.isi_sumsq, final.isi_count)
+        return (tuple(float(x.double().sum()) for x in leaves),
+                tuple(float(x.max()) < ld.EXACT for x in leaves))
+
+    def hold_isi(self, runs):
+        """ISI totals over runs, ``(name, (sum, sum of squares, count),
+        (exact, exact, exact))``: each total equal to the bit among the
+        runs whose per-shard float32 accumulators of it stayed exact
+        integers (below 2**24), the others within EVENTS_RTOL of them.
+        Returns, per total, its value and how many runs held it bitwise."""
+        held = []
+        for i, label in enumerate(("ISI sum", "ISI sum of squares",
+                                   "ISI count")):
+            exact = [isi[i] for _name, isi, ok in runs if ok[i]]
+            want = exact[0] if exact else runs[0][1][i]
+            for name, isi, ok in runs:
+                got = isi[i]
+                if (got != want if ok[i] and exact else
+                        abs(got - want) > self.ld.EVENTS_RTOL * want):
+                    raise AssertionError(f"{name}: {label} {got}, held "
+                                         f"against {want}")
+            held.append((label, want, len(exact), len(runs)))
+        return held
+
+    def mesh_run(self, cfg, mesh, params, impl):
+        """WARMUP_STEPS untimed steps from the seed, then MAIN_STEPS timed
+        from there, the launch counts set to 0 just before and read just
+        after; device time by CUDA events, host time by the wall clock."""
+        torch, ex = self.torch, self.ex
+        kw = dict(impl=impl, with_state=True, params=params)
+        warm, spec = ex.make_distributed_run(cfg, mesh,
+                                             n_steps=WARMUP_STEPS, **kw)
+        timed, _ = ex.make_distributed_run(cfg, mesh, n_steps=MAIN_STEPS,
+                                           **kw)
+        _, state = warm()
+        self.sync()
+        self.ops.reset_launches()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        w0 = time.perf_counter()
+        e0.record()
+        res, final = timed(state)
+        e1.record()
+        self.sync()
+        wall = time.perf_counter() - w0
+        launches = dict(self.ops.LAUNCHES)
+
+        def run_k(k):
+            return ex.make_distributed_run(cfg, mesh, n_steps=k,
+                                           **kw)[0](final)
+        return (res, final, spec, e0.elapsed_time(e1) / MAIN_STEPS, wall,
+                launches, run_k)
+
+    def mesh_path(self, cfg, params, fused):
+        """Phase 5a: the main path's grid over in-process shard grids from
+        1x1 to 24x24 (all shards stacked into each launch), under
+        ``cuda_fused``, and 2x2 under ``cuda`` and pipelined. Each mesh
+        takes the single shard's network (``params``) in its own column
+        order; on the finest mesh ``exchange.build_shard`` builds it from
+        the seed as well, and the two must agree to the bit."""
+        torch = self.torch
+        per_step = {"cuda_fused": dict(fused_step=MAIN_STEPS,
+                                       keyed_drive=MAIN_STEPS),
+                    "cuda": dict(lif_step=MAIN_STEPS,
+                                 synapse_matmul=MAIN_STEPS,
+                                 ell_gather=MAIN_STEPS,
+                                 keyed_drive=MAIN_STEPS)}
+        # (shape, impl, pipelined, compress); the last packs every strip
+        # on the finest mesh as a process rank does, to show what the
+        # packed wire costs there
+        cases = [(shape, "cuda_fused", False, False) for shape in MESHES]
+        cases[2:2] = [((2, 2), "cuda", False, False),
+                      ((2, 2), "cuda_fused", True, False)]
+        cases.append((MESHES[-1], "cuda_fused", False, True))
+        out, isi_runs, built = [], [], {}
+        for shape, impl, pipelined, compress in cases:
+            name = (f"mesh {shape[0]}x{shape[1]} {impl}"
+                    f"{' pipelined' if pipelined else ''}"
+                    f"{' packed wire' if compress else ''}")
+            mesh = self.LocalMesh(*shape, self.dev, compress=compress)
+            build_s = None
+            if shape not in built:
+                built.clear()
+                spec = self.part.make_tile_spec(cfg, *shape)
+                ids = self.ex.shard_col_ids(cfg, spec, mesh, self.dev).long()
+                built[shape] = self.net.NetworkParams(*(x[ids]
+                                                        for x in params))
+                if shape == MESHES[-1]:
+                    t0 = time.perf_counter()
+                    seeded = self.ex.build_shard(cfg, spec, mesh)
+                    self.sync()
+                    build_s = time.perf_counter() - t0
+                    for leaf, a, b in zip(seeded._fields, seeded,
+                                          built[shape]):
+                        self.equal(f"{name} build_shard {leaf}", a, b)
+                    del seeded
+            run_cfg = dataclasses.replace(
+                cfg, exchange=self.ExchangeConfig(pipelined=pipelined))
+            res, final, spec, ms, wall, launches, run_k = self.mesh_run(
+                run_cfg, mesh, built[shape], impl)
+            # every launch on the staged path: the .wide counts stay at 0
+            if launches != self.expected_launches(**per_step[impl]):
+                raise AssertionError(f"{name} launches {launches}")
+            isi, exact = self.hold_against_single(name, spec, res, final,
+                                                  fused)
+            isi_runs.append((name, isi, exact))
+            prof = self.profile(name, run_k, ms, steps=10)
+            payload = self.payload_bytes(run_cfg, spec)["bytes_per_step"]
+            row = dict(mesh=list(shape), impl=impl, pipelined=pipelined,
+                       compress=compress,
+                       tile=f"{spec.tile_h}x{spec.tile_w}",
+                       rings=[spec.rings_y, spec.rings_x],
+                       shifts_per_step=spec.permutes_per_step,
+                       ms_per_step=ms, wall_s=wall, build_s=build_s,
+                       device_ms_per_step=prof["device_ms_per_step"],
+                       outside_kernels_ms_per_step=prof[
+                           "outside_ms_per_step"],
+                       largest_outside=prof["largest_outside"],
+                       largest_outside_op=prof["largest_op"],
+                       halo_payload_bytes_per_step=payload,
+                       ring_mb=final.hist_ext.numel() * 4 / 1e6,
+                       launches=launches, isi_exact=exact)
+            out.append(row)
+            log(f"phase 5 {name}: tiles {row['tile']}, rings "
+                f"{spec.rings_y}+{spec.rings_x}, {ms:.4f} ms/step (device "
+                f"events), wall {wall:.3f} s, device time "
+                f"{row['device_ms_per_step']:.4f} ms/step of which outside "
+                f"the kernels {row['outside_kernels_ms_per_step']:.4f}, "
+                f"halo {payload} B/step per interior shard on the packed "
+                f"wire, ring {row['ring_mb']:.1f} MB"
+                + ("" if build_s is None else
+                   f", build_shard from the seed in {build_s:.2f} s, equal "
+                   f"to the single shard's network to the bit")
+                + "; "
+                f"spikes, per-step spikes, v, last frame bitwise, events "
+                f"{float(res.events):.6e} (single "
+                f"{float(fused.events):.6e}); launches {launches}")
+            del res, final
+        built.clear()
+        isi = self.hold_isi(isi_runs)
+        self.report["mesh_path"] = out
+        big = out[-2]
+        first, last = ("x".join(map(str, m)) for m in (MESHES[0],
+                                                       MESHES[-1]))
+        self.note(f"phase 5a: every mesh {first}..{last} one "
+                  f"fused_step and one keyed_drive launch per step (all "
+                  f"staged), 2x2 cuda one of each staged kernel; each held "
+                  f"to phase 3 (spikes, per-step spikes, v bitwise; events "
+                  f"within {self.ld.EVENTS_RTOL:g} past 2**24); "
+                  + "; ".join(f"{label} {v:.9g} bitwise in {n} of {m} runs "
+                              f"(the rest past 2**24, within "
+                              f"{self.ld.EVENTS_RTOL:g})"
+                              for label, v, n, m in isi)
+                  + f"; largest item outside the kernels at "
+                  f"{last}: kernel {big['largest_outside'][0]} "
+                  f"{big['largest_outside'][1]:.1f} us/step, op "
+                  f"{big['largest_outside_op'][0]} "
+                  f"{big['largest_outside_op'][1]:.1f} us/step")
+        torch.cuda.empty_cache()
+        return isi_runs
+
+    def rank_path(self, cfg, fused, isi_runs):
+        """Phase 5b: 2 and 4 ranks as OS processes on gloo, each on this
+        card, through the launcher, against its single_process_reference
+        (and that against phase 3), their ISI totals with phase 5a's
+        ``isi_runs``. Ranks sharing one card time-slice it: their ms/step
+        is no scaling figure."""
+        import tempfile
+
+        import numpy as np
+        ld = self.ld
+        common = ["--grid", f"{cfg.grid_h}x{cfg.grid_w}",
+                  "--neurons", str(cfg.neurons_per_column),
+                  "--steps", str(WARMUP_STEPS + MAIN_STEPS),
+                  "--seed", str(cfg.seed), "--impl", "cuda_fused",
+                  "--device", self.dev.type, "--timeout", str(RANK_TIMEOUT_S)]
+        single, out = None, []
+        for ranks in RANKS:
+            with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+                args = ld.make_parser().parse_args(
+                    ["--ranks", str(ranks), *common, "--state-dir", d])
+                w0 = time.perf_counter()
+                row = ld.launch(args)
+                row["launch_wall_s"] = time.perf_counter() - w0
+                states = self.mp.load_states(d, ranks)
+            if single is None:
+                single = ld.single_process_reference(args)
+                if (single["spikes"] != float(fused.spikes)
+                        or not np.array_equal(
+                            single["v"], fused.state.lif.v.cpu().numpy())):
+                    raise AssertionError("single_process_reference differs "
+                                         "from phase 3's run")
+            spec = self.part.make_rank_tile_spec(cfg, ranks)
+            v = self.part.columns_to_global(states["v"], spec)
+            if (row["spikes"] != single["spikes"]
+                    or not np.array_equal(v, single["v"])):
+                raise AssertionError(f"{ranks} ranks: spikes or v differ "
+                                     f"from single_process_reference")
+            if not ld.events_agree(row["events"], single["events"]):
+                raise AssertionError(f"{ranks} ranks: events {row['events']}"
+                                     f" vs {single['events']}")
+            if row["library_build_s_max"] != 0.0:
+                raise AssertionError(f"{ranks} ranks: a rank rebuilt the "
+                                     f"kernel library")
+            isi = tuple(float(states[k].astype(np.float64).sum())
+                        for k in ("isi_sum", "isi_sumsq", "isi_count"))
+            exact = tuple(float(states[k].max()) < ld.EXACT
+                          for k in ("isi_sum", "isi_sumsq", "isi_count"))
+            isi_runs.append((f"{ranks} ranks", isi, exact))
+            out.append(row)
+            log(f"phase 5 {ranks} ranks as processes (gloo, every rank on "
+                f"this card, time-sliced: no scaling figure): process grid "
+                f"{row['process_grid']}, tiles {row['tile']}, "
+                f"{row['step_ms']:.4f} ms/step (wall, {row['steps']} steps), "
+                f"halo {row['halo_payload_bytes_per_step']} B/step per "
+                f"interior rank, launch {row['launch_wall_s']:.1f} s; spikes "
+                f"and v bitwise, events {row['events']:.6e} vs "
+                f"{single['events']:.6e}; no rank rebuilt the library; row "
+                f"{json.dumps(row, sort_keys=True)}")
+        self.report["isi"] = self.hold_isi(isi_runs)
+        self.report["rank_path"] = out
+        self.note(f"phase 5b: {' and '.join(map(str, RANKS))} ranks equal "
+                  f"to single_process_reference (spikes, v bitwise; events "
+                  f"within {ld.EVENTS_RTOL:g} past 2**24), which equals "
+                  f"phase 3's run; over every phase-5 run: "
+                  + "; ".join(f"{label} {v:.9g} bitwise in {n} of {m}"
+                              for label, v, n, m in self.report["isi"]))
 
 
 if __name__ == "__main__":

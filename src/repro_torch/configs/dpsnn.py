@@ -4,8 +4,8 @@ families as selectable configs (the port's copy of
 
 The 2015 scaling paper runs a short-range Gaussian lateral stencil; its
 direct follow-ups (arXiv:1512.05264, arXiv:1803.08833) add an
-exponential long-range decay. ``with_ranks`` waits for the port of the
-partition module.
+exponential long-range decay. ``with_ranks`` scales a per-rank tile to
+a rank count (the paper's weak-scaling protocol).
 """
 import dataclasses
 
@@ -49,6 +49,32 @@ def with_family(cfg: DPSNNConfig, family: str) -> DPSNNConfig:
     else unchanged)."""
     conn = FAMILIES[family]
     return dataclasses.replace(cfg, name=f"{cfg.name}-{family}", conn=conn)
+
+
+def with_ranks(cfg: DPSNNConfig, n_ranks: int) -> DPSNNConfig:
+    """Weak-scaling config generator: treat ``cfg`` as the **per-rank
+    tile** (its grid is one rank's share of columns) and scale the global
+    grid to ``n_ranks`` processes on the closest-to-square process grid,
+    so every rank owns ``cfg.n_columns`` columns at every ``n_ranks`` —
+    the paper's Fig 3 protocol. ``with_ranks(RANK_TILE_PAPER, 1024)`` is
+    the paper's largest run: 96x96 columns, ~11.4M neurons, ~20G
+    equivalent synapses over 1024 software processes.
+    """
+    from repro_torch.core.partition import process_grid
+
+    ry, rx = process_grid(n_ranks)
+    return dataclasses.replace(
+        cfg,
+        name=f"{cfg.name}-r{n_ranks}",
+        grid_h=cfg.grid_h * ry,
+        grid_w=cfg.grid_w * rx,
+    )
+
+
+#: One rank's tile of the paper's largest configuration (Table 1/2
+#: geometry): 3x3 columns of 1240 neurons per process.
+RANK_TILE_PAPER = DPSNNConfig(name="dpsnn-rank-tile", grid_h=3, grid_w=3,
+                              neurons_per_column=1240)
 
 
 def reduced(grid_h=4, grid_w=4, neurons=64, **kw) -> DPSNNConfig:

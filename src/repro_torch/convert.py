@@ -6,14 +6,18 @@ given device with the same dtypes and shapes, so that both sides hold
 the same bytes (``metrics.bytes_per_synapse`` agrees). The inverse
 functions give the port's leaves back as numpy arrays under the same
 names. The STDP traces (``x_pre``, ``x_post``) and the five
-``GuardState`` leaves come across when the state has them. This module
-imports neither JAX nor the reference: the caller hands it arrays.
+``GuardState`` leaves come across when the state has them. The stacked
+distributed state (``DistState``, the layout of the reference's
+``stacked_state_template``: every leaf with a leading shard axis) comes
+across by leaf name too (``DIST_LEAVES``). This module imports neither
+JAX nor the reference: the caller hands it arrays.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.exchange import DistState
 from repro_torch.core.network import NetworkParams, NetworkState
 from repro_torch.core.neuron import LIFState
 from repro_torch.core.plasticity import STDPState
@@ -24,6 +28,11 @@ STATE_LEAVES = ("v", "c", "refrac", "hist", "t", "spike_count",
                 "event_count")
 STDP_LEAVES = STDPState._fields
 GUARD_LEAVES = GuardState._fields
+# DistState's leaves of the static dense path (``v``, ``c``, ``refrac`` are
+# its LIFState's); ``ext_pending`` only under ExchangeConfig.pipelined
+DIST_LEAVES = ("v", "c", "refrac", "hist_ext", "pending", "t",
+               "spike_count", "event_count", "aer_sat", "ext_pending",
+               "last_spike_t", "isi_sum", "isi_sumsq", "isi_count")
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -75,3 +84,29 @@ def state_to_numpy(state: NetworkState) -> dict:
         if sub is not None:
             out[key] = {k: getattr(sub, k).cpu().numpy() for k in sub._fields}
     return out
+
+
+def dist_state_from_numpy(leaves, device="cuda") -> DistState:
+    """The stacked ``DistState`` from its leaves (a mapping with the
+    names of ``DIST_LEAVES``, each (S, ...) in process-major shard order,
+    e.g. the reference's stacked state as numpy). ``t`` stays on the
+    host; ``ext_pending`` may be absent (unpipelined)."""
+    def get(name, dev=device):
+        return _tensor(leaves[name], dev) if name in leaves else None
+
+    return DistState(
+        lif=LIFState(v=get("v"), c=get("c"), refrac=get("refrac")),
+        hist_ext=get("hist_ext"), pending=get("pending"),
+        t=get("t", "cpu"), spike_count=get("spike_count"),
+        event_count=get("event_count"), aer_sat=get("aer_sat"),
+        ext_pending=get("ext_pending"), last_spike_t=get("last_spike_t"),
+        isi_sum=get("isi_sum"), isi_sumsq=get("isi_sumsq"),
+        isi_count=get("isi_count"))
+
+
+def dist_state_to_numpy(state: DistState) -> dict:
+    """The leaves of ``DIST_LEAVES`` that the state has, as numpy."""
+    leaves = dict(state._asdict(), v=state.lif.v, c=state.lif.c,
+                  refrac=state.lif.refrac)
+    return {name: leaves[name].cpu().numpy() for name in DIST_LEAVES
+            if leaves[name] is not None}

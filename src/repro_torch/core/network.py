@@ -75,17 +75,34 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def check_supported(cfg: DPSNNConfig, impl: str) -> None:
-    """Raise for what this slice of the port does not run yet, rather
-    than running without it."""
+def check_supported(cfg: DPSNNConfig, impl: str, *,
+                    mesh: bool = False) -> None:
+    """Raise for what the port does not run yet, rather than running
+    without it: on a single shard, or with ``mesh`` on the multi-rank
+    step (``core/exchange.py``)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r} (expected one of {IMPLS})")
     if (cfg.conn.exchange_mode != "dense_packed"
-            or cfg.exchange.exchange_mode != "inherit"
-            or cfg.exchange.pipelined):
+            or cfg.exchange.exchange_mode != "inherit"):
         raise NotImplementedError(
-            "exchange_mode / pipelined: halo-exchange options wait for the "
-            "multi-rank slice of the port (ROADMAP queue 1 items 3-4)")
+            f"exchange_mode {cfg.conn.exchange_mode!r} / "
+            f"{cfg.exchange.exchange_mode!r}: the AER and per-ring 'auto' "
+            f"halo wire formats wait for ROADMAP queue 1 item 3; the port "
+            f"exchanges dense bit-packed halos")
+    if cfg.exchange.pipelined and not mesh:
+        raise NotImplementedError(
+            "pipelined: the cross-step pipelined halo exchange belongs to "
+            "the multi-rank step (core/exchange.py); a single shard has no "
+            "halo to pipeline")
+    if mesh and cfg.stdp:
+        raise NotImplementedError(
+            "stdp: multi-rank STDP (the pre-trace halo) waits for ROADMAP "
+            "queue 1 item 4; the single-shard step runs it")
+    if mesh and cfg.guard.enabled:
+        raise NotImplementedError(
+            "guard: the multi-rank guard (HaloGuard, checksummed halo "
+            "frames) waits for ROADMAP queue 1 item 6; the single-shard "
+            "step runs it")
     if cfg.dtype != "float32" or cfg.weight_dtype != "float32":
         raise NotImplementedError(
             f"dtype {cfg.dtype} / weight_dtype {cfg.weight_dtype}: this "
@@ -190,10 +207,11 @@ def _stage_fns(impl: str):
 
 def offset_slice(g_ext: torch.Tensor, dy: int, dx: int, r: int,
                  h: int, w: int, n: int) -> torch.Tensor:
-    """(h+2r, w+2r, N) halo-extended frame -> the (h, w, N) block seen
-    from the neighbour at stencil offset (dy, dx): THE shift convention
-    of the reference, shared by every table builder."""
-    return g_ext[r + dy:r + dy + h, r + dx:r + dx + w, :n]
+    """(..., h+2r, w+2r, N) halo-extended frames -> the (..., h, w, N)
+    blocks seen from the neighbour at stencil offset (dy, dx): THE shift
+    convention of the reference, shared by every neighbour table (a
+    leading shard axis passes through)."""
+    return g_ext[..., r + dy:r + dy + h, r + dx:r + dx + w, :n]
 
 
 def neighbour_table_single(hist: torch.Tensor, t: int, stencil: StencilSpec,

@@ -1,16 +1,22 @@
-"""DPSNN simulation entry point on one card (the paper's workload, one shard).
+"""DPSNN simulation entry point on one card (the paper's workload).
 
     PYTHONPATH=src python -m repro_torch.launch.sim --grid 24x24 \
         --neurons 1240 --steps 200 [--impl cuda_fused|cuda|ref] \
-        [--stdp] [--device cuda|cpu] [--seed 42]
+        [--stdp] [--device cuda|cpu] [--seed 42] \
+        [--mesh RxC [--pipelined]]
 
 The network is built on the device from the seed, keyed as the JAX
 reference builds it, and the kernels from the sources,
 both before the clock starts; ``WARMUP_STEPS`` steps run untimed, and
 the timed steps end in ``torch.cuda.synchronize()``. The rate and the
 events count the timed steps alone. ``--stdp`` turns plasticity on and
-prints the weights' drift over the whole run; ``--mesh`` waits for the
-multi-rank slice of the port.
+prints the weights' drift over the whole run. ``--mesh RxC`` tiles the
+grid over an R x C shard grid in this process, all shards stacked into
+each kernel launch, with the halo exchange between them
+(``core/exchange.py``; ``--pipelined`` defers each exchanged frame by a
+step). The halo bytes it prints are those an interior rank of that
+grid sends on the packed wire (``runtime/compression.py``); in one
+process the strips move as slices on the card.
 """
 from __future__ import annotations
 
@@ -19,11 +25,14 @@ import time
 
 import torch
 
-from repro_torch.configs.base import DPSNNConfig
+from repro_torch.configs.base import DPSNNConfig, ExchangeConfig
+from repro_torch.core import exchange
 from repro_torch.core import metrics as M
 from repro_torch.core import network as net
 from repro_torch.core import simulation as sim
 from repro_torch.kernels import ops
+from repro_torch.runtime.compression import halo_payload_bytes
+from repro_torch.runtime.transport import LocalMesh
 
 # untimed steps before the clock starts: the first steps on a card pay
 # for the CUDA context and the library's loading
@@ -44,12 +53,17 @@ def main(argv=None):
     ap.add_argument("--stdp", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--mesh", default="",
+                    help="e.g. 2x2 (rows x cols of shards); empty = one shard")
+    ap.add_argument("--pipelined", action="store_true",
+                    help="cross-step pipelined halo exchange (mesh runs)")
     args = ap.parse_args(argv)
 
     gh, gw = parse_grid(args.grid)
     cfg = DPSNNConfig(grid_h=gh, grid_w=gw, neurons_per_column=args.neurons,
-                      stdp=args.stdp, seed=args.seed)
-    net.check_supported(cfg, args.impl)
+                      stdp=args.stdp, seed=args.seed,
+                      exchange=ExchangeConfig(pipelined=args.pipelined))
+    net.check_supported(cfg, args.impl, mesh=bool(args.mesh))
     device = net.resolve_device(args.device)
     print(f"grid {gh}x{gw}, {cfg.n_neurons} neurons, "
           f"{cfg.recurrent_synapses/1e6:.1f}M recurrent synapses "
@@ -57,8 +71,10 @@ def main(argv=None):
           f"plasticity {'ON (STDP)' if cfg.stdp else 'off'}, impl "
           f"{args.impl} on {device}")
 
-    if device.type == "cuda" and args.impl != "ref":
+    if device.type == "cuda":
         ops.library()
+    if args.mesh:
+        return run_mesh(cfg, args, LocalMesh(*parse_grid(args.mesh), device))
     params0, state = sim.build(cfg, device=device)
     warm = sim.run(cfg, params0, state, WARMUP_STEPS, impl=args.impl)
     params, state = warm.params, warm.state
@@ -82,6 +98,47 @@ def main(argv=None):
         print(f"STDP weight drift: mean |dw| "
               f"{float(dw.sum() / (params0.w_local != 0).sum()):.3e}, "
               f"max {float(dw.max()):.3e}")
+    print(f"{args.steps} steps in {dt:.2f}s "
+          f"(after {WARMUP_STEPS} warm-up steps) | rate {rate:.2f} Hz | "
+          f"{events:.3e} synaptic events | "
+          f"{M.time_per_synaptic_event(dt, events):.3e} s/event | "
+          f"{dt/sim_s:.1f}x slower than real time")
+    return res
+
+
+def run_mesh(cfg: DPSNNConfig, args, mesh):
+    """``--mesh``: the same protocol over the in-process shard grid."""
+    dev = mesh.device
+    spec = exchange.make_tile_spec(cfg, *mesh.shape)
+    params = exchange.build_shard(cfg, spec, mesh)
+    kw = dict(impl=args.impl, with_state=True, params=params)
+    warm, _ = exchange.make_distributed_run(cfg, mesh,
+                                            n_steps=WARMUP_STEPS, **kw)
+    timed, _ = exchange.make_distributed_run(cfg, mesh, n_steps=args.steps,
+                                             **kw)
+    _, state = warm()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = time.perf_counter()
+    res, final = timed(state)
+    sync()
+    dt = time.perf_counter() - t0
+    sim_s = args.steps * cfg.neuron.dt_ms * 1e-3
+    events = float(final.event_count.double().sum()
+                   - state.event_count.double().sum())
+    spikes = float(final.spike_count.double().sum()
+                   - state.spike_count.double().sum())
+    rate = spikes / (cfg.n_neurons * sim_s)
+    payload = halo_payload_bytes(cfg, spec)
+    print(f"mesh {mesh.shape[0]}x{mesh.shape[1]} shards of "
+          f"{spec.tile_h}x{spec.tile_w} columns, {spec.rings_y}+"
+          f"{spec.rings_x} rings, {spec.permutes_per_step} shifts and "
+          f"{payload['bytes_per_step']} halo bytes per step per interior "
+          f"shard{', pipelined' if cfg.exchange.pipelined else ''}")
     print(f"{args.steps} steps in {dt:.2f}s "
           f"(after {WARMUP_STEPS} warm-up steps) | rate {rate:.2f} Hz | "
           f"{events:.3e} synaptic events | "

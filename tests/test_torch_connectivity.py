@@ -29,6 +29,12 @@ def _pairs():
         yield dpsnn.reduced_family(fam), jdpsnn.reduced_family(fam)
         yield (dpsnn.with_family(dpsnn.GRID_24, fam),
                jdpsnn.with_family(jdpsnn.GRID_24, fam))
+    yield dpsnn.RANK_TILE_PAPER, jdpsnn.RANK_TILE_PAPER
+    for n_ranks in (1, 6, 1024):
+        yield (dpsnn.with_ranks(dpsnn.RANK_TILE_PAPER, n_ranks),
+               jdpsnn.with_ranks(jdpsnn.RANK_TILE_PAPER, n_ranks))
+    yield (dpsnn.with_ranks(dpsnn.reduced(), 8),
+           jdpsnn.with_ranks(jdpsnn.reduced(), 8))
 
 
 @pytest.mark.parametrize("pair", list(_pairs()), ids=lambda p: p[0].name)

@@ -228,3 +228,60 @@ def test_small_plastic_guarded_run_impls_agree(cuda_device):
                                    rtol=1e-6, atol=1e-6)
     for res in runs.values():
         assert not bool(res.state.guard.tripped)
+
+
+@pytest.mark.cuda
+def test_mesh_run_equals_single_shard_on_the_card(cuda_device):
+    """A 4x4x64 grid over an in-process 2x2 mesh under cuda_fused: one
+    fused_step and one keyed_drive launch per step for all four shards,
+    and spikes, events, the rate trace and v equal to the single-shard
+    card run to the bit."""
+    from repro_torch.core import exchange
+    from repro_torch.core.partition import columns_to_global
+    from repro_torch.runtime.transport import LocalMesh
+    cfg = DPSNNConfig(grid_h=4, grid_w=4, neurons_per_column=64, seed=0)
+    params, state = sim.build(cfg, device=cuda_device)
+    single = sim.run(cfg, params, state, 60, impl="cuda_fused")
+    run, spec = exchange.make_distributed_run(
+        cfg, LocalMesh(2, 2, cuda_device), n_steps=60, impl="cuda_fused",
+        with_state=True)
+    _build.reset_launches()
+    res, st = run()
+    assert _build.LAUNCHES["fused_step"] == 60
+    assert _build.LAUNCHES["keyed_drive"] == 60
+    assert float(res.spikes) == float(single.spikes) > 0
+    assert float(res.events) == float(single.events)
+    assert torch.equal(res.rate_trace, single.rate_trace)
+    assert torch.equal(columns_to_global(st.lif.v, spec), single.state.lif.v)
+
+
+@pytest.mark.cuda
+def test_fused_step_stacked_equals_per_shard_launches(cuda_device):
+    """fused_step over four shards' columns stacked into one launch equals
+    four launches of one shard's columns each, column by column to the
+    bit: a column's arithmetic does not depend on the launch's plan."""
+    from repro_torch.configs import dpsnn
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    shards, c, n, k, t = 4, 9, 1240, 248, 20 * 1240
+    ncfg = dpsnn.GRID_24.neuron
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device)
+
+    v, cc = rnd(shards * c, n) * 8 + 10, rnd(shards * c, n).abs()
+    refrac = (torch.rand(shards * c, n, generator=g, device=cuda_device)
+              < 0.05).int() * 2
+    s_loc = (torch.rand(shards * c, n, generator=g, device=cuda_device)
+             < 0.02).float()
+    s_flat = (torch.rand(shards * c, t, generator=g, device=cuda_device)
+              < 0.01).float()
+    w, rw, ext = rnd(shards * c, n, n) * 0.4, rnd(shards * c, n, k) * 0.4, \
+        rnd(shards * c, n).abs()
+    idx = torch.randint(0, t, (shards * c, n, k), generator=g,
+                        device=cuda_device, dtype=torch.int32)
+    args = (v, cc, refrac, s_loc, w, s_flat, idx, rw, ext)
+    whole = ops.fused_step(ncfg, *args)
+    for s in range(shards):
+        part = ops.fused_step(ncfg, *(a[s * c:(s + 1) * c] for a in args))
+        for got, want in zip(part, whole):
+            assert torch.equal(got, want[s * c:(s + 1) * c])
