@@ -66,7 +66,16 @@ then, on the card:
    spikes, per-step spike counts and v to the bit, events to the bit
    while float32 holds them exactly and within 1e-6 past 2**24 (how a
    total is split over shards then sets its rounding), and the ISI
-   totals the same way across runs.
+   totals the same way across runs; (c) the paper's AER event-list
+   wire, the per-ring ``auto`` wire and the hierarchical two-level
+   exchange on in-process meshes (2x2 and 24x24, the latter also in
+   nodes of 1x4): AER at a bound that cannot overflow and the
+   hierarchical runs equal phase 3 to the bit, AER and ``auto`` at the
+   default bound print their saturated steps and equal phase 3 before
+   the first, ``auto``'s ring table is the accounting's; then 4 ranks
+   in nodes of 2 against phase 3, and 2 ranks on AER at a 1 Hz bound
+   (which overflows) against an in-process 1x2 mesh, saturation flags
+   included.
 
 Every phase raises on failure and the script exits non-zero. Without a
 card, or without the rest of the repository beside it, it exits
@@ -143,6 +152,10 @@ WARMUP_STEPS = 20
 MESHES = ((1, 1), (2, 2), (4, 4), (12, 12), (24, 24))
 RANKS = (2, 4)
 RANK_TIMEOUT_S = 300
+# phase 5c: an AER rate bound whose capacity, at factor 2, reaches every
+# strip's units (no list can overflow), and the ranks' overflowing bound
+AER_FREE_HZ = 500.0
+RANK_AER_HZ = 1.0
 NEUTRAL_STEPS = 50        # guard on against off, plastic, bitwise
 PLASTIC_TOL = dict(rtol=1e-6, atol=1e-6)   # weights across impls
 
@@ -215,6 +228,7 @@ class Smoke:
         self.LocalMesh = transport.LocalMesh
         self.ExchangeConfig = base.ExchangeConfig
         self.payload_bytes = compression.halo_payload_bytes
+        self.comp = compression
         self.dev = torch.device(device)
         self.report = {"kernels": {}, "checks": []}
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -344,8 +358,9 @@ class Smoke:
             f"{cfg.total_equivalent_synapses/1e9:.3f}G equivalent synapses) "
             f"from seed {cfg.seed} with the reference's keys, on the card "
             f"in {self.report['build_seconds']:.4f} s")
-        state = self.sim.run(cfg, params, state0, WARMUP_STEPS,
-                             impl="cuda_fused").state
+        warm = self.sim.run(cfg, params, state0, WARMUP_STEPS,
+                            impl="cuda_fused")
+        state, self.warm_trace = warm.state, warm.rate_trace
         self.check_keyed_drive(cfg, int(state.t))
         real = self.step_inputs(cfg, params, state)
         self.check_kernels_real(cfg, params, real)
@@ -381,9 +396,12 @@ class Smoke:
         # 5. the multi-rank static step: in-process meshes, then ranks as
         # processes, each held against phase 3's single-shard run
         isi_runs = self.mesh_path(cfg, params, fused)
+        # 5c. the AER and per-ring auto wires and the hierarchical exchange
+        self.wire_path(cfg, params, fused)
         del params
         torch.cuda.empty_cache()
         self.rank_path(cfg, fused, isi_runs)
+        self.wire_rank_path(cfg, fused)
 
         kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                         replaces={**TPU_KERNELS, **PORT_KERNELS}[name],
@@ -1770,7 +1788,7 @@ class Smoke:
                                              n_steps=WARMUP_STEPS, **kw)
         timed, _ = ex.make_distributed_run(cfg, mesh, n_steps=MAIN_STEPS,
                                            **kw)
-        _, state = warm()
+        warm_res, state = warm()
         self.sync()
         self.ops.reset_launches()
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1786,7 +1804,7 @@ class Smoke:
             return ex.make_distributed_run(cfg, mesh, n_steps=k,
                                            **kw)[0](final)
         return (res, final, spec, e0.elapsed_time(e1) / MAIN_STEPS, wall,
-                launches, run_k)
+                launches, run_k, warm_res)
 
     def mesh_path(self, cfg, params, fused):
         """Phase 5a: the main path's grid over in-process shard grids from
@@ -1833,7 +1851,7 @@ class Smoke:
                     del seeded
             run_cfg = dataclasses.replace(
                 cfg, exchange=self.ExchangeConfig(pipelined=pipelined))
-            res, final, spec, ms, wall, launches, run_k = self.mesh_run(
+            res, final, spec, ms, wall, launches, run_k, _ = self.mesh_run(
                 run_cfg, mesh, built[shape], impl)
             # every launch on the staged path: the .wide counts stay at 0
             if launches != self.expected_launches(**per_step[impl]):
@@ -1962,6 +1980,254 @@ class Smoke:
                   f"phase 3's run; over every phase-5 run: "
                   + "; ".join(f"{label} {v:.9g} bitwise in {n} of {m}"
                               for label, v, n, m in self.report["isi"]))
+
+    # ----------------------------------------------------------- phase 5c
+    def wire_cfg(self, cfg, mode="dense_packed", rate=None, auto=False):
+        """``cfg`` with the halo's wire format, AER rate bound and per-ring
+        policy set."""
+        conn = dataclasses.replace(
+            cfg.conn, exchange_mode=mode,
+            aer_rate_bound_hz=rate or cfg.conn.aer_rate_bound_hz)
+        return dataclasses.replace(cfg, conn=conn, exchange=self.ExchangeConfig(
+            exchange_mode="auto" if auto else "inherit"))
+
+    def hold_prefix(self, name, res, warm, fused):
+        """A run whose event lists overflowed: its per-step spike counts
+        (warm-up and timed) equal phase 3's on every step before the first
+        flagged one. Returns the flagged steps and the first's index."""
+        torch = self.torch
+        sat = torch.cat([warm.aer_saturated, res.aer_saturated]).cpu()
+        flagged = sat.nonzero().flatten().tolist()
+        first = flagged[0] if flagged else len(sat)
+        got = torch.cat([warm.rate_trace, res.rate_trace])[:first]
+        want = torch.cat([self.warm_trace, fused.rate_trace])[:first]
+        self.equal(f"{name} per-step spikes before the first flagged step",
+                   got, want)
+        return flagged, first
+
+    def wire_path(self, cfg, params, fused):
+        """Phase 5c: the AER event-list wire, the per-ring auto wire and
+        the hierarchical two-level exchange on in-process meshes, each
+        WARMUP_STEPS + MAIN_STEPS from the seed as phase 5a. AER at a bound
+        whose capacity reaches every strip's units, and the hierarchical
+        mesh (24x24 shards in nodes of 1x4, dense and AER), equal phase 3
+        to the bit; AER and auto at the default bound print their
+        saturated steps and equal phase 3 up to the first of them."""
+        torch, comp = self.torch, self.comp
+        per_step = self.expected_launches(fused_step=MAIN_STEPS,
+                                          keyed_drive=MAIN_STEPS)
+        free = AER_FREE_HZ
+        node24 = self.part.make_node_spec(24, 24, 4)
+        cases = [  # (name, shape, cfg, node, saturation allowed)
+            ("aer 2x2 at the free bound", (2, 2),
+             self.wire_cfg(cfg, "aer_sparse", free), None, False),
+            ("aer 2x2 at the default bound", (2, 2),
+             self.wire_cfg(cfg, "aer_sparse"), None, True),
+            ("aer 24x24 at the free bound", (24, 24),
+             self.wire_cfg(cfg, "aer_sparse", free), None, False),
+            ("aer 24x24 at the default bound", (24, 24),
+             self.wire_cfg(cfg, "aer_sparse"), None, True),
+            ("auto 24x24 at the default bound", (24, 24),
+             self.wire_cfg(cfg, auto=True), None, True),
+            ("hier 24x24 nodes of 1x4 dense", (24, 24), cfg, node24, False),
+            ("hier 24x24 nodes of 1x4 aer at the free bound", (24, 24),
+             self.wire_cfg(cfg, "aer_sparse", free), node24, False),
+        ]
+        out, built, sat_runs = [], {}, {}
+        for name, shape, run_cfg, node, may_saturate in cases:
+            mesh = self.LocalMesh(*shape, self.dev, node=node)
+            spec = self.part.make_tile_spec(cfg, *shape)
+            if shape not in built:
+                built.clear()
+                ids = self.ex.shard_col_ids(cfg, spec, mesh, self.dev).long()
+                built[shape] = self.net.NetworkParams(*(x[ids]
+                                                        for x in params))
+            res, final, spec, ms, wall, launches, run_k, warm = \
+                self.mesh_run(run_cfg, mesh, built[shape], "cuda_fused")
+            if launches != per_step:
+                raise AssertionError(f"{name} launches {launches}")
+            mode = ("auto" if run_cfg.exchange.exchange_mode == "auto"
+                    else run_cfg.conn.exchange_mode)
+            row = dict(case=name, mesh=list(shape), mode=mode,
+                       rate_bound_hz=run_cfg.conn.aer_rate_bound_hz,
+                       node=None if node is None else list(node),
+                       tile=f"{spec.tile_h}x{spec.tile_w}")
+            if node is None:
+                pay = comp.halo_payload_bytes(run_cfg, spec, mode=mode)
+                row["aer_capacities"] = sorted(set(pay["aer_capacities"]))
+            else:
+                pay = comp.hier_payload_bytes(run_cfg, spec, node, mode=mode)
+                row["inter_node_bytes_per_node"] = pay[
+                    "inter_node_bytes_per_node"]
+                row["intra_node_bytes_per_rank"] = pay[
+                    "intra_node_bytes_per_rank"]
+            row["halo_payload_bytes_per_step"] = pay["bytes_per_step"]
+            if mode == "auto":
+                table = comp.ring_mode_table(run_cfg, spec)
+                want = {(e["phase"], e["ring"]): e["mode"] for e in table}
+                got = self.ex.resolve_ring_modes(
+                    run_cfg, spec, compress=mesh.priced_compress)
+                if got != want:
+                    raise AssertionError(f"{name}: ring modes {got}, "
+                                         f"ring_mode_table {want}")
+                row["per_ring"] = [
+                    {k: e[k] for k in ("phase", "ring", "rows", "cols",
+                                       "dense_bytes", "aer_bytes",
+                                       "aer_capacity", "mode")}
+                    for e in table]
+            flagged, first = self.hold_prefix(name, res, warm, fused)
+            row.update(saturated_steps=len(flagged),
+                       first_saturated_step=flagged[0] if flagged else None)
+            if not may_saturate:
+                if flagged:
+                    raise AssertionError(f"{name}: {len(flagged)} saturated "
+                                         f"steps at a bound that cannot "
+                                         f"saturate")
+                self.hold_against_single(name, spec, res, final, fused)
+                held = "spikes, per-step spikes, v, last frame bitwise"
+            elif flagged:
+                held = (f"per-step spikes bitwise on the {first} steps "
+                        f"before the first flagged one")
+            else:
+                self.hold_against_single(name, spec, res, final, fused)
+                # why not: the largest count of one strip's units that
+                # the ring's last frames hold (a horizontal strip on 1x1
+                # tiles is one column)
+                r = spec.radius
+                inner = final.hist_ext[:, :, r:r + spec.tile_h,
+                                       r:r + spec.tile_w]
+                row["largest_column_count"] = float(inner.sum(-1).max())
+                held = (f"no step flagged (largest column count in the "
+                        f"ring's last frames {row['largest_column_count']:.0f}"
+                        f"); spikes, per-step spikes, v bitwise")
+            if may_saturate:
+                sat_runs[name] = (float(res.spikes), res.aer_saturated)
+            prof = self.profile(name, run_k, ms, steps=10)
+            row.update(ms_per_step=ms, wall_s=wall,
+                       device_ms_per_step=prof["device_ms_per_step"],
+                       outside_kernels_ms_per_step=prof[
+                           "outside_ms_per_step"],
+                       largest_outside=prof["largest_outside"],
+                       largest_outside_op=prof["largest_op"],
+                       launches=launches)
+            out.append(row)
+            log(f"phase 5c {name}: tiles {row['tile']}, {ms:.4f} ms/step "
+                f"(device events), wall {wall:.3f} s, device time "
+                f"{row['device_ms_per_step']:.4f} ms/step of which outside "
+                f"the kernels {row['outside_kernels_ms_per_step']:.4f} "
+                f"(largest op {row['largest_outside_op'][0]} "
+                f"{row['largest_outside_op'][1]:.1f} us/step), halo "
+                f"{row['halo_payload_bytes_per_step']} B/step per interior "
+                f"{'shard' if node is None else 'rank (hierarchical)'} "
+                f"({mode}), saturated steps {len(flagged)} of "
+                f"{WARMUP_STEPS + MAIN_STEPS}"
+                + (f" (first at step {flagged[0]})" if flagged else "")
+                + f"; {held}; launches {launches}"
+                + (f"; per-ring table {row['per_ring']}"
+                   if mode == "auto" else ""))
+            del res, final
+        built.clear()
+        # auto resolves every ring to AER at 24x24 and the default bound:
+        # the same run as the uniform AER one, overflows included
+        aer, auto = (sat_runs[f"{m} 24x24 at the default bound"]
+                     for m in ("aer", "auto"))
+        if all(e["mode"] == "aer_sparse" for e in out[4]["per_ring"]):
+            if aer[0] != auto[0]:
+                raise AssertionError(f"auto 24x24: {auto[0]} spikes, aer "
+                                     f"{aer[0]}")
+            self.equal("auto 24x24 saturation flags", auto[1], aer[1])
+        self.report["wire_path"] = out
+        self.note(f"phase 5c: AER at {free:g} Hz (2x2, 24x24) and the "
+                  f"hierarchical 24x24 mesh in nodes of 1x4 (dense, AER) "
+                  f"equal phase 3 to the bit with no saturated step; at the "
+                  f"default {cfg.conn.aer_rate_bound_hz:g} Hz bound AER 2x2 "
+                  f"saturated {out[1]['saturated_steps']}, AER 24x24 "
+                  f"{out[3]['saturated_steps']}, auto 24x24 "
+                  f"{out[4]['saturated_steps']} of "
+                  f"{WARMUP_STEPS + MAIN_STEPS} steps, each equal to phase 3 "
+                  f"before its first flagged step")
+        torch.cuda.empty_cache()
+
+    def launch_ranks(self, cfg, ranks, flags, d):
+        """``ranks`` gloo ranks on this card through the launcher, from the
+        seed for WARMUP_STEPS + MAIN_STEPS steps, states written to
+        ``d``."""
+        args = self.ld.make_parser().parse_args(
+            ["--ranks", str(ranks), "--grid", f"{cfg.grid_h}x{cfg.grid_w}",
+             "--neurons", str(cfg.neurons_per_column),
+             "--steps", str(WARMUP_STEPS + MAIN_STEPS),
+             "--seed", str(cfg.seed), "--impl", "cuda_fused",
+             "--device", self.dev.type, "--timeout", str(RANK_TIMEOUT_S),
+             "--state-dir", d, *flags])
+        w0 = time.perf_counter()
+        row = self.ld.launch(args)
+        row["launch_wall_s"] = time.perf_counter() - w0
+        return row, self.mp.load_states(d, ranks)
+
+    def wire_rank_path(self, cfg, fused):
+        """Phase 5c, ranks: 4 gloo ranks in nodes of 2 (dense), held to
+        phase 3's run (which phase 5b holds to single_process_reference);
+        and 2 ranks on AER at a 1 Hz bound, which overflows, held to an
+        in-process 1x2 mesh of the same config: spikes, v and the
+        per-step saturation flags to the bit, across transports."""
+        import tempfile
+
+        import numpy as np
+        torch = self.torch
+        out = []
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            row, states = self.launch_ranks(cfg, 4,
+                                            ["--ranks-per-node", "2"], d)
+        spec = self.part.make_rank_tile_spec(cfg, 4)
+        v = self.part.columns_to_global(states["v"], spec)
+        if (row["spikes"] != float(fused.spikes)
+                or not np.array_equal(v, fused.state.lif.v.cpu().numpy())):
+            raise AssertionError("4 ranks in nodes of 2: spikes or v differ "
+                                 "from phase 3")
+        if not self.ld.events_agree(row["events"], float(fused.events)):
+            raise AssertionError(f"4 ranks in nodes of 2: events "
+                                 f"{row['events']}")
+        out.append(row)
+        log(f"phase 5c 4 ranks in nodes of 2 (dense, gloo, every rank on "
+            f"this card): node grid {row['node_grid']}, "
+            f"{row['step_ms']:.4f} ms/step (wall), halo "
+            f"{row['halo_payload_bytes_per_step']} B/step per rank "
+            f"(inter-node {row['inter_node_bytes_per_node']} B per node, "
+            f"intra-node {row['intra_node_bytes_per_rank']} B per rank), "
+            f"saturated steps {row['aer_saturated_steps']}, launch "
+            f"{row['launch_wall_s']:.1f} s; spikes and v equal phase 3 to "
+            f"the bit; device time not measured (other processes)")
+        low = self.wire_cfg(cfg, "aer_sparse", RANK_AER_HZ)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            row, states = self.launch_ranks(
+                cfg, 2, ["--exchange-mode", "aer_sparse", "--aer-rate-bound",
+                         str(RANK_AER_HZ)], d)
+        mesh = self.LocalMesh(1, 2, self.dev)
+        run, spec = self.ex.make_distributed_run(
+            low, mesh, n_steps=WARMUP_STEPS + MAIN_STEPS, impl="cuda_fused",
+            with_state=True)
+        res, final = run()
+        sat = res.aer_saturated.cpu()
+        if (row["spikes"] != float(res.spikes)
+                or row["aer_saturated_per_step"] != sat.tolist()
+                or not np.array_equal(states["v"],
+                                      final.lif.v.cpu().numpy())):
+            raise AssertionError("2 AER ranks: spikes, saturation flags or "
+                                 "v differ from the in-process 1x2 mesh")
+        if not int(sat.sum()):
+            raise AssertionError(f"2 AER ranks at {RANK_AER_HZ} Hz: no step "
+                                 f"saturated")
+        out.append(row)
+        log(f"phase 5c 2 ranks on AER at {RANK_AER_HZ:g} Hz (gloo): "
+            f"{row['step_ms']:.4f} ms/step (wall), halo "
+            f"{row['halo_payload_bytes_per_step']} B/step per interior rank, "
+            f"saturated steps {row['aer_saturated_steps']} of "
+            f"{row['steps']}, launch {row['launch_wall_s']:.1f} s; spikes "
+            f"({row['spikes']:.0f}), v and every step's saturation flag "
+            f"equal the in-process 1x2 mesh to the bit")
+        del res, final
+        torch.cuda.empty_cache()
+        self.report["wire_rank_path"] = out
 
 
 if __name__ == "__main__":

@@ -82,13 +82,6 @@ def check_supported(cfg: DPSNNConfig, impl: str, *,
     step (``core/exchange.py``)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r} (expected one of {IMPLS})")
-    if (cfg.conn.exchange_mode != "dense_packed"
-            or cfg.exchange.exchange_mode != "inherit"):
-        raise NotImplementedError(
-            f"exchange_mode {cfg.conn.exchange_mode!r} / "
-            f"{cfg.exchange.exchange_mode!r}: the AER and per-ring 'auto' "
-            f"halo wire formats wait for ROADMAP queue 1 item 3; the port "
-            f"exchanges dense bit-packed halos")
     if cfg.exchange.pipelined and not mesh:
         raise NotImplementedError(
             "pipelined: the cross-step pipelined halo exchange belongs to "

@@ -19,9 +19,12 @@ Invariants the exchange builds on:
   (connectivity cutoff applied); ring counts and the payload accounting
   (``runtime/compression.py``) derive from it.
 
+* **Node groups.** :func:`make_node_spec` factors the process grid into
+  node groups of consecutive ranks (:class:`NodeSpec`), the grid the
+  hierarchical two-level exchange runs its node-level rings over.
+
 The helpers between stacked tiles and the global frame work on numpy
-arrays and on torch tensors alike. ``NodeSpec`` (the hierarchical
-exchange) waits for ROADMAP queue 1 item 3.
+arrays and on torch tensors alike.
 """
 from __future__ import annotations
 
@@ -102,6 +105,73 @@ def make_rank_tile_spec(cfg: DPSNNConfig, n_ranks: int) -> TileSpec:
     grid (:func:`process_grid`)."""
     ry, rx = process_grid(n_ranks)
     return make_tile_spec(cfg, ry, rx)
+
+
+class NodeSpec(NamedTuple):
+    """Two-level factoring of the process grid into a grid of node groups.
+
+    The (ry, rx) process grid factors as ry = nodes_y * group_h and
+    rx = nodes_x * group_w: node (a, j) owns the group_h x group_w block
+    of ranks whose tiles start at row a*group_h, col j*group_w. Because
+    placement is process-major and groups are built from consecutive
+    ranks (see :func:`make_node_spec`), node membership matches the
+    physical `--ranks-per-node` packing of an MPI launcher.
+    """
+    nodes_y: int     # node-grid rows
+    nodes_x: int     # node-grid cols
+    group_h: int     # process-grid rows per node
+    group_w: int     # process-grid cols per node
+
+    @property
+    def ranks_per_node(self) -> int:
+        return self.group_h * self.group_w
+
+    @property
+    def n_nodes(self) -> int:
+        return self.nodes_y * self.nodes_x
+
+
+def make_node_spec(ry: int, rx: int, ranks_per_node: int) -> NodeSpec:
+    """Factor the (ry, rx) process grid into node groups of
+    ``ranks_per_node`` *consecutive* process-major ranks.
+
+    Consecutive ranks must form a rectangle, which forces the group
+    shape: ``ranks_per_node <= rx`` gives a (1, ranks_per_node) slice of
+    one process-grid row; ``ranks_per_node`` a multiple of ``rx`` gives
+    a (ranks_per_node/rx, rx) band of whole rows. Anything else cannot
+    be contiguous and is rejected with the node-group shape named.
+    """
+    if ranks_per_node < 1:
+        raise ValueError(
+            f"ranks_per_node must be >= 1, got {ranks_per_node}")
+    if ranks_per_node <= rx:
+        if rx % ranks_per_node:
+            raise ValueError(
+                f"--ranks-per-node {ranks_per_node} groups consecutive "
+                f"process-major ranks into 1x{ranks_per_node} node groups, "
+                f"but the {ry}x{rx} process grid's rows of {rx} ranks are "
+                f"not divisible by {ranks_per_node} "
+                f"(rx={rx} % {ranks_per_node} = {rx % ranks_per_node}). "
+                f"Choose a ranks-per-node that divides {rx}, or a rank "
+                f"count whose process_grid() factorization it divides.")
+        return NodeSpec(ry, rx // ranks_per_node, 1, ranks_per_node)
+    if ranks_per_node % rx:
+        raise ValueError(
+            f"--ranks-per-node {ranks_per_node} exceeds the process-grid "
+            f"row width rx={rx}, so each node group must span whole rows "
+            f"of the {ry}x{rx} process grid — impossible: {ranks_per_node} "
+            f"% rx={rx} = {ranks_per_node % rx}, which would make a ragged "
+            f"{ranks_per_node / rx:g}x{rx} node group. Use a multiple of "
+            f"{rx} (whole rows) or a divisor of {rx} (a row slice).")
+    group_h = ranks_per_node // rx
+    if ry % group_h:
+        raise ValueError(
+            f"--ranks-per-node {ranks_per_node} makes {group_h}x{rx} node "
+            f"groups ({group_h} whole rows of the {ry}x{rx} process grid), "
+            f"but ry={ry} is not divisible by {group_h} "
+            f"(ry={ry} % {group_h} = {ry % group_h}). Choose a rank count "
+            f"or ranks-per-node whose row-band height divides ry.")
+    return NodeSpec(ry // group_h, 1, group_h, rx)
 
 
 # ---------------------------------------------------------------------------

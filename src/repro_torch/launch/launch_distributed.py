@@ -9,14 +9,18 @@ that the totals are bitwise equal (the determinism per column
 id that makes every scaling measurement trustworthy).
 
     PYTHONPATH=src python -m repro_torch.launch.launch_distributed \
-        --ranks 4 [--device cpu] [--state-dir DIR]
+        --ranks 4 [--device cpu] [--state-dir DIR] \
+        [--exchange-mode aer_sparse|auto] [--ranks-per-node 2]
 
 Events compare bitwise while every float32 accumulator holds an exact
 integer (a total below 2**24); past that, how the total was split over
 shards sets its rounding, and they are held to a relative 1e-6. With
 ``--state-dir`` the ranks write their final states there and the
-membrane potentials are compared bitwise too. The exit status is
-non-zero on a worker failure, a timeout or a mismatch.
+membrane potentials are compared bitwise too. An AER run whose event
+lists overflowed says so first (it is expected to differ). A node group
+shape that ``partition.make_node_spec`` rejects fails before any rank
+spawns. The exit status is non-zero on a worker failure, a timeout or a
+mismatch.
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ import time
 
 import numpy as np
 
-from repro_torch.core.partition import columns_to_global, make_rank_tile_spec
+from repro_torch.core.partition import (columns_to_global, make_node_spec,
+                                        make_rank_tile_spec, process_grid)
 from repro_torch.runtime.multiprocess import (RESULT_TAG, add_workload_args,
                                               build_cfg, load_states)
 
@@ -52,7 +57,16 @@ def worker_argv(args) -> list:
     argv = ["--grid", args.grid, "--neurons", str(args.neurons),
             "--steps", str(args.steps), "--seed", str(args.seed),
             "--family", args.family, "--impl", args.impl,
-            "--device", args.device, "--timeout", str(args.timeout)]
+            "--device", args.device, "--timeout", str(args.timeout),
+            "--exchange-mode", args.exchange_mode]
+    if args.radius:
+        argv += ["--radius", str(args.radius)]
+    if args.aer_rate_bound:
+        argv += ["--aer-rate-bound", str(args.aer_rate_bound)]
+    if args.aer_capacity_factor:
+        argv += ["--aer-capacity-factor", str(args.aer_capacity_factor)]
+    if args.ranks_per_node:
+        argv += ["--ranks-per-node", str(args.ranks_per_node)]
     if args.pipelined:
         argv.append("--pipelined")
     if not args.compress:
@@ -172,9 +186,6 @@ def make_parser() -> argparse.ArgumentParser:
                     help="append the metrics row to this JSON-lines file "
                          "('-' prints the row to stdout)")
     # the reference launcher's flags for what this port does not run yet
-    ap.add_argument("--ranks-per-node", type=int, default=0,
-                    help="refused: the hierarchical exchange waits for "
-                         "ROADMAP queue 1 item 3")
     ap.add_argument("--batch", type=int, default=0,
                     help="refused: the batched service waits for ROADMAP "
                          "queue 1 item 5")
@@ -189,15 +200,20 @@ def make_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
-    if args.ranks_per_node:
-        raise SystemExit("--ranks-per-node: the hierarchical two-level "
-                         "exchange waits for ROADMAP queue 1 item 3")
+    if args.ranks_per_node and (args.batch or args.checkpoint_every):
+        raise SystemExit("--ranks-per-node applies to the plain distributed "
+                         "run only (not --batch / supervised mode)")
     if args.batch:
         raise SystemExit("--batch: the batched service waits for ROADMAP "
                          "queue 1 item 5")
     if args.supervise or args.checkpoint_every:
         raise SystemExit("--supervise / --checkpoint-every: supervise and "
                          "resume from disk wait for ROADMAP queue 1 item 6")
+    if args.ranks_per_node:
+        try:
+            make_node_spec(*process_grid(args.ranks), args.ranks_per_node)
+        except ValueError as err:
+            raise SystemExit(str(err)) from None
     row = launch(args)
     print(f"ranks={row['rank_count']} grid={row['grid']} "
           f"tile={row['tile']} neurons={row['neurons']} "
@@ -205,7 +221,15 @@ def main(argv=None) -> int:
           f"events/s={row['events_per_s']:.3e} "
           f"spikes={row['spikes']:.0f} device={row['device']} "
           f"wire={row['exchange_mode']} "
-          f"({row['halo_payload_bytes_per_step']} B/step/rank)")
+          f"({row['halo_payload_bytes_per_step']} B/step/rank)"
+          + (f" node_grid={row['node_grid']}x{row['ranks_per_node']}"
+             if args.ranks_per_node else ""))
+    if row["aer_saturated_steps"]:
+        # truncated but flagged sends: the run is degraded and the check
+        # below is expected to fail; say why first
+        print(f"AER-SATURATED on {row['aer_saturated_steps']}/"
+              f"{row['steps']} steps: event lists overflowed the "
+              f"capacity bound (raise --aer-rate-bound)")
 
     ref = single_process_reference(args)
     ok = (row["spikes"] == ref["spikes"]

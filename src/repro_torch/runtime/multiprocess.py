@@ -14,6 +14,13 @@ processes (the port of ``repro/runtime/multiprocess.py``).
   in-process mesh, over a ``ProcessGroupMesh``. Determinism per column
   id makes the trajectory bitwise equal to the single-process one (the
   launcher checks it).
+* ``--exchange-mode`` picks the halo's wire format (``dense_packed``,
+  the paper's ``aer_sparse`` event lists, or ``auto`` per ring), and
+  ``--ranks-per-node g`` groups g consecutive ranks into nodes and runs
+  the hierarchical two-level exchange (``partition.make_node_spec``):
+  the node's ranks all-gather their tiles, the lane-(0,0) corner ranks
+  of neighbouring nodes exchange the node strips, and each corner
+  broadcasts what it received to its node.
 
 With ``--device cuda`` (the default) every rank runs its shard's kernels
 on ``cuda:0``: ranks that share one card time-slice it, so their step
@@ -76,9 +83,12 @@ def load_states(state_dir: str, n_ranks: int) -> dict:
 
 def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
                compress: bool = True, device="cuda",
-               state_dir: str = "") -> dict:
-    """Build and run this rank's shard on the process grid; return the
-    paper's metrics (totals all-reduced, so every rank returns the same).
+               state_dir: str = "", ranks_per_node: int = 0) -> dict:
+    """Build and run this rank's shard on the process grid (with
+    ``ranks_per_node``, in node groups under the hierarchical exchange);
+    return the paper's metrics (totals all-reduced, so every rank returns
+    the same), with the byte split of the node level under
+    ``ranks_per_node`` (``compression.hier_payload_bytes``).
 
     Timing: one untimed run warms the card and the connections; then one
     run is timed end to end (every rank waits for the all-reduced
@@ -89,10 +99,12 @@ def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
 
     from repro_torch.core import exchange
     from repro_torch.kernels import ops
-    from repro_torch.runtime.compression import halo_payload_bytes
+    from repro_torch.runtime.compression import (halo_payload_bytes,
+                                                 hier_payload_bytes)
     from repro_torch.runtime.transport import ProcessGroupMesh
 
-    mesh = ProcessGroupMesh(device, compress=compress)
+    mesh = ProcessGroupMesh(device, compress=compress,
+                            ranks_per_node=ranks_per_node)
     dev = mesh.device
     if dev.type == "cpu":      # the ranks share the host's cores
         torch.set_num_threads(
@@ -119,10 +131,34 @@ def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
     if state_dir:
         save_state(state_dir, mesh.rank, final)
     events = float(res.events)
-    payload = halo_payload_bytes(cfg, spec, compress=compress)
+    policy_auto = cfg.exchange.exchange_mode == "auto"
+    acct_mode = "auto" if policy_auto else cfg.conn.exchange_mode
+    hier_row = {}
+    if mesh.node is not None:
+        payload = hier_payload_bytes(cfg, spec, mesh.node, mode=acct_mode,
+                                     compress=compress)
+        hier_row = {
+            "ranks_per_node": mesh.node.ranks_per_node,
+            "node_grid": payload["node_grid"],
+            "inter_node_bytes_per_node": payload[
+                "inter_node_bytes_per_node"],
+            "inter_node_messages_per_node": payload[
+                "inter_node_messages_per_node"],
+            "intra_node_bytes_per_rank": payload[
+                "intra_node_bytes_per_rank"],
+            "per_ring_modes": [
+                {"phase": e["phase"], "ring": e["ring"],
+                 "mode": e["mode"] if policy_auto else acct_mode}
+                for e in payload["per_ring"]],
+        }
+    else:
+        payload = halo_payload_bytes(cfg, spec, mode=acct_mode,
+                                     compress=compress)
+    sat = res.aer_saturated.cpu()
     return {
         "rank_count": dist.get_world_size(),
         "process_grid": list(mesh.shape),
+        **hier_row,
         "grid": f"{cfg.grid_h}x{cfg.grid_w}",
         "neurons": cfg.n_neurons,
         "syn_equiv": cfg.total_equivalent_synapses,
@@ -139,9 +175,13 @@ def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
         "compress": compress,
         "guard": cfg.guard.enabled,
         "pipelined": cfg.exchange.pipelined,
-        "exchange_mode": cfg.conn.exchange_mode,
+        # "auto" marks the per-ring policy, else the uniform wire format
+        "exchange_mode": acct_mode,
         "halo_payload_bytes_per_step": payload["bytes_per_step"],
-        "aer_saturated_steps": int(res.aer_saturated.sum()),
+        # steps on which a send of some rank overflowed its event list
+        # (spikes truncated from the wire, flagged); 0 under dense_packed
+        "aer_saturated_steps": int(sat.sum()),
+        "aer_saturated_per_step": sat.tolist(),
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "library_build_s_max": float(most),
@@ -158,16 +198,34 @@ def build_cfg(args):
                       neurons_per_column=args.neurons, seed=args.seed)
     if args.family != "gauss":
         cfg = with_family(cfg, args.family)
-    if args.pipelined:
-        cfg = dataclasses.replace(cfg,
-                                  exchange=ExchangeConfig(pipelined=True))
+    if args.radius:
+        cfg = dataclasses.replace(
+            cfg, conn=dataclasses.replace(cfg.conn, radius=args.radius))
+    # "auto" is a selection policy (ExchangeConfig), not a wire format:
+    # conn.exchange_mode keeps its uniform meaning, and the rate bound
+    # still sizes the capacities of the rings auto sends as AER
+    if args.exchange_mode == "aer_sparse" or args.aer_rate_bound:
+        conn_kw = {}
+        if args.exchange_mode == "aer_sparse":
+            conn_kw["exchange_mode"] = args.exchange_mode
+        if args.aer_rate_bound:
+            conn_kw["aer_rate_bound_hz"] = args.aer_rate_bound
+        if args.aer_capacity_factor:
+            conn_kw["aer_capacity_factor"] = args.aer_capacity_factor
+        cfg = dataclasses.replace(
+            cfg, conn=dataclasses.replace(cfg.conn, **conn_kw))
+    if args.pipelined or args.exchange_mode == "auto":
+        cfg = dataclasses.replace(cfg, exchange=ExchangeConfig(
+            pipelined=args.pipelined,
+            exchange_mode=("auto" if args.exchange_mode == "auto"
+                           else "inherit")))
     return cfg
 
 
 def add_workload_args(ap: argparse.ArgumentParser) -> None:
     """Workload flags shared by the worker and the launcher CLIs (the
-    static flat dense path: STDP, the guard and the other wire formats
-    wait for ROADMAP queue 1 items 3, 4 and 6)."""
+    static step: STDP and the guard wait for ROADMAP queue 1 items 4 and
+    6)."""
     from repro_torch.core.network import IMPLS
 
     ap.add_argument("--grid", default="8x8", help="column grid HxW")
@@ -176,6 +234,8 @@ def add_workload_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--family", default="gauss",
                     choices=["gauss", "exp", "gauss_exp"])
+    ap.add_argument("--radius", type=int, default=0,
+                    help="override the family's stencil bound (0 = keep)")
     ap.add_argument("--impl", default="cuda_fused", choices=IMPLS)
     ap.add_argument("--device", default="cuda",
                     help="cuda (every rank on the current card) or cpu "
@@ -185,6 +245,19 @@ def add_workload_args(ap: argparse.ArgumentParser) -> None:
                          "(ExchangeConfig.pipelined)")
     ap.add_argument("--no-compress", dest="compress", action="store_false",
                     help="send float32 strips, not packed words")
+    ap.add_argument("--exchange-mode", default="dense_packed",
+                    choices=["dense_packed", "aer_sparse", "auto"],
+                    help="spike-halo wire format; 'auto' picks per ring "
+                         "from the exact byte accounting")
+    ap.add_argument("--aer-rate-bound", type=float, default=0.0,
+                    help="AER capacity rate bound in Hz "
+                         "(0 = config default)")
+    ap.add_argument("--aer-capacity-factor", type=float, default=0.0,
+                    help="AER capacity safety factor (0 = config default)")
+    ap.add_argument("--ranks-per-node", type=int, default=0,
+                    help="group this many consecutive ranks into node "
+                         "groups and run the hierarchical two-level halo "
+                         "exchange (0 = flat)")
     ap.add_argument("--state-dir", default="",
                     help="write each rank's final state to "
                          "STATE_DIR/rank<r>.npz")
@@ -214,7 +287,8 @@ def main(argv=None) -> int:
     try:
         out = worker_run(cfg, args.steps, impl=args.impl,
                          compress=args.compress, device=args.device,
-                         state_dir=args.state_dir)
+                         state_dir=args.state_dir,
+                         ranks_per_node=args.ranks_per_node)
     finally:
         dist.destroy_process_group()
     if args.rank == 0:

@@ -1,34 +1,49 @@
 """The halo exchange's transport: one shift of a stacked spike payload
 along a shard-grid axis (the reference's ``ppermute``-based ``_shift``,
-``repro/core/exchange.py``), and the wire format it crosses in.
+``repro/core/exchange.py``), the wire format it crosses in, and the node
+level of the hierarchical exchange.
 
 A transport holds ``shape``, the global (rows, cols) shard grid, and
 ``local``, the (rows, cols) block of it stacked in this process, with
-the process-major shard ids of that block in ``shards``. Its one
-exchange method is :meth:`shift`: ``x`` is a payload with the stacked
-tile axes in front, ``(*local, ...)``; shard (ty, tx) receives the
-payload of shard (ty, tx) + ``direction`` along ``axis`` (0 = rows,
-the reference's ``'data'``; 1 = cols, ``'model'``), and a shard at the
-open sheet edge receives zeros (the cortical sheet's edge, paper
-Sec. 2).
+the process-major shard ids of that block in ``shards``. A payload has
+the stacked tile axes in front, ``(*local, ...)``; :meth:`move` ships it
+as it is: shard (ty, tx) receives the payload of shard (ty, tx) +
+``direction`` along ``axis`` (0 = rows, the reference's ``'data'``; 1 =
+cols, ``'model'``), and a shard at the open sheet edge receives zeros
+(the cortical sheet's edge, paper Sec. 2). :meth:`shift` is the same
+move of a spike strip in the transport's wire format: with ``compress``
+every strip is packed into 32-bit words (:func:`pack_spikes`, the
+``dense_packed`` wire) before the move and unpacked after. AER event
+lists are moved raw, never packed.
 
-With ``compress`` a transport packs every strip into 32-bit words
-(:func:`pack_spikes`, the ``dense_packed`` wire) before it moves it and
-unpacks it after; without, the float32 strip moves as it is.
+With a :class:`~repro_torch.core.partition.NodeSpec` (``node``) a
+transport also runs the node level of the two-level exchange
+(``exchange.exchange_halo_hier``): :meth:`gather_node` coalesces the
+tiles of each node group into one node frame, stacked as
+``(*node_local, ...)``; :meth:`node_move` / :meth:`node_shift` move a
+node payload between neighbouring nodes; :meth:`node_window` cuts each
+local shard's halo window out of the extended node frames.
 
 * :class:`LocalMesh` runs every shard of the grid in this process on
-  one device: a shift is a slice of the stacked tile axis and a block
-  of zeros. No byte crosses a wire, so it does not pack by default.
+  one device: a move is a slice of the stacked tile axis and a block of
+  zeros, a node gather a reshape, a node move the same slice over the
+  node grid. No byte crosses a wire, so it does not pack by default.
 * :class:`ProcessGroupMesh` runs one shard per process of the default
   ``torch.distributed`` group, rank ``r`` owning tile
-  ``(r // cols, r % cols)``. A shift pairs ``isend``/``irecv`` with the
+  ``(r // cols, r % cols)``. A move pairs ``isend``/``irecv`` with the
   two neighbours through ``batch_isend_irecv``; gloo carries CPU
-  tensors, so CUDA payloads are packed on the card, then copied to the
-  host and back. It packs by default. The backend is whatever the
+  tensors, so CUDA payloads are copied to the host and back. It packs
+  by default. With ``ranks_per_node`` each node group gets its own
+  process group: the node frame is an all-gather within it, a node move
+  a send between the lane-(0,0) corner ranks of neighbouring nodes and
+  a broadcast from the corner to its node. The backend is whatever the
   group was initialised with: nothing picks another one.
 
-Both reduce run totals with :meth:`all_sum`. Nothing here initialises a
-process group or touches a device at import.
+Both reduce run totals with :meth:`all_sum` and the saturation flags
+with :meth:`all_max`. ``priced_compress`` is the wire the byte
+accounting prices (``exchange.resolve_ring_modes``): a ``LocalMesh``
+stands for the packed rank wire whatever it moves in-process. Nothing
+here initialises a process group or touches a device at import.
 """
 from __future__ import annotations
 
@@ -37,7 +52,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core.network import resolve_device
-from repro_torch.core.partition import TileSpec, process_grid
+from repro_torch.core.partition import (NodeSpec, TileSpec, make_node_spec,
+                                        process_grid)
 
 AXIS_NAMES = ("data", "model")    # rows, cols: the reference's mesh axes
 
@@ -86,35 +102,72 @@ def assert_axis_sizes(spec: TileSpec, mesh) -> None:
         )
 
 
+def _node_frames(tiles: torch.Tensor, node_local, node: NodeSpec
+                 ) -> torch.Tensor:
+    """(ny*gy, nx*gx, th, tw, W) stacked tiles -> (ny, nx, gy*th, gx*tw,
+    W) node frames, ``(ny, nx) = node_local``."""
+    ny, nx = node_local
+    gy, gx = node.group_h, node.group_w
+    _, _, th, tw, w = tiles.shape
+    t = tiles.reshape(ny, gy, nx, gx, th, tw, w).permute(0, 2, 1, 4, 3, 5, 6)
+    return t.reshape(ny, nx, gy * th, gx * tw, w)
+
+
 class _Transport:
-    """:meth:`shift` is the transport's ``_move`` in its wire format."""
+    """:meth:`shift` and :meth:`node_shift` are :meth:`move` and
+    :meth:`node_move` in the transport's wire format."""
     compress: bool
+    node: NodeSpec | None = None
+
+    def _wire(self, move, x, axis, direction):
+        if not self.compress:
+            return move(x, axis, direction)
+        words = move(pack_spikes(x), axis, direction)
+        return unpack_spikes(words, x.shape[-1], x.dtype)
 
     def shift(self, x: torch.Tensor, axis: int, direction: int
               ) -> torch.Tensor:
-        if not self.compress:
-            return self._move(x, axis, direction)
-        words = self._move(pack_spikes(x), axis, direction)
-        return unpack_spikes(words, x.shape[-1], x.dtype)
+        return self._wire(self.move, x, axis, direction)
+
+    def node_shift(self, x: torch.Tensor, axis: int, direction: int
+                   ) -> torch.Tensor:
+        return self._wire(self.node_move, x, axis, direction)
+
+    def gather_node(self, x: torch.Tensor) -> torch.Tensor:
+        """(*local, th, tw, N) spike tiles -> (*node_local, gy*th, gx*tw,
+        N) node frames, in the wire format."""
+        y = pack_spikes(x) if self.compress else x
+        g = _node_frames(self._lane_tiles(y), self.node_local, self.node)
+        return unpack_spikes(g, x.shape[-1], x.dtype) if self.compress else g
 
 
 class LocalMesh(_Transport):
     """All ``rows x cols`` shards in this process, stacked on ``device``
     (CUDA by default; raises when there is no card). ``compress`` packs
-    every strip as the process transport does, on the same card."""
+    every strip as the process transport does, on the same card;
+    ``node`` groups the shards into the node grid of a hierarchical
+    exchange."""
+    priced_compress = True
 
     def __init__(self, rows: int, cols: int, device="cuda",
-                 compress: bool = False):
+                 compress: bool = False, node: NodeSpec | None = None):
         if rows < 1 or cols < 1:
             raise ValueError(f"mesh {rows}x{cols}: both sides must be >= 1")
+        if node is not None and (node.nodes_y * node.group_h,
+                                 node.nodes_x * node.group_w) != (rows, cols):
+            raise ValueError(
+                f"{node} does not factor the {rows}x{cols} shard grid")
         self.shape = (rows, cols)
         self.local = (rows, cols)
         self.shards = tuple(range(rows * cols))
         self.device = resolve_device(device)
         self.compress = compress
+        self.node = node
+        if node is not None:
+            self.node_local = (node.nodes_y, node.nodes_x)
 
-    def _move(self, x: torch.Tensor, axis: int, direction: int
-              ) -> torch.Tensor:
+    def move(self, x: torch.Tensor, axis: int, direction: int
+             ) -> torch.Tensor:
         size = x.shape[axis]
         if size == 1:
             return torch.zeros_like(x)
@@ -123,7 +176,27 @@ class LocalMesh(_Transport):
             return torch.cat([x.narrow(axis, 1, size - 1), edge], axis)
         return torch.cat([edge, x.narrow(axis, 0, size - 1)], axis)
 
+    # the node grid is stacked as the shard grid is
+    node_move = move
+
+    def _lane_tiles(self, y: torch.Tensor) -> torch.Tensor:
+        return y
+
+    def node_window(self, ext: torch.Tensor, th: int, tw: int, r: int
+                    ) -> torch.Tensor:
+        """(ny, nx, gy*th+2r, gx*tw+2r, N) -> (rows, cols, th+2r, tw+2r,
+        N): every lane's window, one slice each."""
+        ny, nx = self.node_local
+        win = ext.unfold(2, th + 2 * r, th).unfold(3, tw + 2 * r, tw)
+        # (ny, nx, gy, gx, N, th+2r, tw+2r) -> (ny, gy, nx, gx, ...)
+        win = win.permute(0, 2, 1, 3, 5, 6, 4)
+        return win.reshape(*self.shape, th + 2 * r, tw + 2 * r,
+                           ext.shape[-1])
+
     def all_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def all_max(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
 
@@ -131,9 +204,13 @@ class ProcessGroupMesh(_Transport):
     """One shard per process of the initialised default process group, on
     the closest-to-square process grid (``partition.process_grid``).
     Payloads live on ``device`` (CUDA by default; raises when there is
-    no card); with ``compress`` (the default) strips cross packed."""
+    no card); with ``compress`` (the default) strips cross packed. With
+    ``ranks_per_node`` consecutive ranks form node groups
+    (``partition.make_node_spec``, whose error names a bad shape) and
+    every rank creates every node's process group, in the same order."""
 
-    def __init__(self, device="cuda", compress: bool = True):
+    def __init__(self, device="cuda", compress: bool = True,
+                 ranks_per_node: int = 0):
         if not dist.is_initialized():
             raise RuntimeError(
                 "ProcessGroupMesh needs an initialised torch.distributed "
@@ -146,6 +223,29 @@ class ProcessGroupMesh(_Transport):
         self.coords = divmod(self.rank, cols)
         self.device = resolve_device(device)
         self.compress = compress
+        self.priced_compress = compress
+        if ranks_per_node:
+            self._join_node(make_node_spec(rows, cols, ranks_per_node))
+
+    def _join_node(self, node: NodeSpec) -> None:
+        gy, gx = node.group_h, node.group_w
+        ty, tx = self.coords
+        self.node = node
+        self.node_local = (1, 1)
+        self.node_coords = (ty // gy, tx // gx)
+        self.lane = (ty % gy, tx % gx)
+        for a in range(node.nodes_y):
+            for j in range(node.nodes_x):
+                ranks = [self._node_corner_rank(a, j) + b * self.shape[1] + l
+                         for b in range(gy) for l in range(gx)]  # noqa: E741
+                group = dist.new_group(ranks)
+                if (a, j) == self.node_coords:
+                    self.node_group = group
+        self.corner = self._node_corner_rank(*self.node_coords)
+
+    def _node_corner_rank(self, a: int, j: int) -> int:
+        """The lane-(0,0) rank of node (a, j)."""
+        return a * self.node.group_h * self.shape[1] + j * self.node.group_w
 
     def _peer(self, axis: int, step: int) -> int | None:
         """Rank of the neighbour ``step`` tiles away along ``axis``, or
@@ -157,11 +257,20 @@ class ProcessGroupMesh(_Transport):
             return ty * cols + tx
         return None
 
-    def _move(self, x: torch.Tensor, axis: int, direction: int
-              ) -> torch.Tensor:
-        if self.shape[axis] == 1:
-            return torch.zeros_like(x)
-        dst, src = self._peer(axis, -direction), self._peer(axis, direction)
+    def _node_peer(self, axis: int, step: int) -> int | None:
+        """Corner rank of the node ``step`` nodes away along ``axis``, or
+        None beyond the sheet's edge."""
+        a, j = self.node_coords
+        a, j = (a + step, j) if axis == 0 else (a, j + step)
+        if 0 <= a < self.node.nodes_y and 0 <= j < self.node.nodes_x:
+            return self._node_corner_rank(a, j)
+        return None
+
+    @staticmethod
+    def _send_recv(x: torch.Tensor, dst: int | None, src: int | None
+                   ) -> torch.Tensor:
+        """Send ``x`` to ``dst`` and receive the same shape from ``src``
+        (either None: no message), through the host."""
         ops = []
         if dst is not None:
             ops.append(dist.P2POp(dist.isend, x.cpu().contiguous(), dst))
@@ -170,9 +279,55 @@ class ProcessGroupMesh(_Transport):
             ops.append(dist.P2POp(dist.irecv, recv, src))
         for work in dist.batch_isend_irecv(ops):
             work.wait()
+        return recv
+
+    def move(self, x: torch.Tensor, axis: int, direction: int
+             ) -> torch.Tensor:
+        if self.shape[axis] == 1:
+            return torch.zeros_like(x)
+        recv = self._send_recv(x, self._peer(axis, -direction),
+                               self._peer(axis, direction))
         return recv.to(x.device)
+
+    def node_move(self, x: torch.Tensor, axis: int, direction: int
+                  ) -> torch.Tensor:
+        """The corner ranks exchange the node payload with the
+        neighbouring nodes' corners; each corner then broadcasts what it
+        received to its node (every lane holds the same node frame)."""
+        if (self.node.nodes_y, self.node.nodes_x)[axis] == 1:
+            return torch.zeros_like(x)
+        if self.rank == self.corner:
+            buf = self._send_recv(x, self._node_peer(axis, -direction),
+                                  self._node_peer(axis, direction))
+        else:
+            buf = torch.zeros(x.shape, dtype=x.dtype)
+        dist.broadcast(buf, src=self.corner, group=self.node_group)
+        return buf.to(x.device)
+
+    def _lane_tiles(self, y: torch.Tensor) -> torch.Tensor:
+        """This node's tiles (gy, gx, ...), all-gathered in lane order."""
+        host = y.cpu().contiguous()
+        parts = [torch.empty_like(host)
+                 for _ in range(self.node.ranks_per_node)]
+        dist.all_gather(parts, host, group=self.node_group)
+        g = torch.cat(parts).reshape(self.node.group_h, self.node.group_w,
+                                     *y.shape[2:])
+        return g.to(y.device)
+
+    def node_window(self, ext: torch.Tensor, th: int, tw: int, r: int
+                    ) -> torch.Tensor:
+        """(1, 1, gy*th+2r, gx*tw+2r, N) -> this lane's (1, 1, th+2r,
+        tw+2r, N) window."""
+        ly, lx = self.lane
+        return ext.narrow(2, ly * th, th + 2 * r).narrow(3, lx * tw,
+                                                          tw + 2 * r)
 
     def all_sum(self, x: torch.Tensor) -> torch.Tensor:
         host = x.cpu().clone()
         dist.all_reduce(host, op=dist.ReduceOp.SUM)
+        return host.to(x.device)
+
+    def all_max(self, x: torch.Tensor) -> torch.Tensor:
+        host = x.cpu().clone()
+        dist.all_reduce(host, op=dist.ReduceOp.MAX)
         return host.to(x.device)

@@ -285,3 +285,67 @@ def test_fused_step_stacked_equals_per_shard_launches(cuda_device):
         part = ops.fused_step(ncfg, *(a[s * c:(s + 1) * c] for a in args))
         for got, want in zip(part, whole):
             assert torch.equal(got, want[s * c:(s + 1) * c])
+
+
+@pytest.mark.cuda
+def test_aer_codec_on_the_card_equals_the_cpu(cuda_device):
+    """The AER codec on the card against its CPU result on the same
+    frames: stacked event lists (sentinel fill and truncation at overflow
+    included), the overflow flags, the decoded frames, the gathered and
+    scattered side payload, and a zero-filled list decoding to
+    silence."""
+    from repro_torch.core import exchange as ex
+    g = torch.Generator().manual_seed(11)
+    frames = (torch.rand(6, 3, 5, 40, generator=g) < 0.1).float()
+    frames[0] = 0.0
+    frames[1] = 1.0
+    vals = torch.rand(frames.shape, generator=g)
+    for cap in (1, 7, 60, 600):
+        cpu = ex.aer_encode_stack(frames, cap)
+        card = ex.aer_encode_stack(frames.to(cuda_device), cap)
+        for a, b in zip(cpu, card):
+            assert torch.equal(a, b.cpu())
+        assert torch.equal(
+            ex.aer_decode_stack(card[0], frames.shape[1:]).cpu(),
+            ex.aer_decode_stack(cpu[0], frames.shape[1:]))
+        got = ex.aer_gather_values(vals.to(cuda_device), card[0])
+        assert torch.equal(got.cpu(), ex.aer_gather_values(vals, cpu[0]))
+        assert torch.equal(
+            ex.aer_scatter_values(card[0], got, frames.shape[1:]).cpu(),
+            ex.aer_scatter_values(cpu[0], got.cpu(), frames.shape[1:]))
+    silent = torch.zeros(4, 9, dtype=torch.int32, device=cuda_device)
+    assert not bool(ex.aer_decode_stack(silent, (2, 3, 5)).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["aer_sparse", "auto", "hier_aer"])
+def test_wire_steps_never_wait_for_the_card(cuda_device, wire):
+    """AER, per-ring auto and hierarchical AER steps on an in-process
+    2x2 mesh under sync debug mode "error": no encode, decode, move or
+    saturation flag makes the host wait for the card. The run saturates
+    (bound 0.5 Hz), so the overflow path runs too."""
+    import dataclasses
+
+    from repro_torch.configs.base import ExchangeConfig
+    from repro_torch.core import exchange
+    from repro_torch.core.partition import NodeSpec
+    from repro_torch.runtime.transport import LocalMesh
+    base = DPSNNConfig(grid_h=4, grid_w=4, neurons_per_column=48, seed=3)
+    cfg = dataclasses.replace(
+        base, conn=dataclasses.replace(
+            base.conn, aer_rate_bound_hz=0.5,
+            exchange_mode="dense_packed" if wire == "auto" else "aer_sparse"),
+        exchange=ExchangeConfig(
+            exchange_mode="auto" if wire == "auto" else "inherit"))
+    node = NodeSpec(2, 1, 1, 2) if wire == "hier_aer" else None
+    run, _ = exchange.make_distributed_run(
+        cfg, LocalMesh(2, 2, cuda_device, node=node), n_steps=4,
+        impl="cuda_fused", with_state=True)
+    _, state = run()                     # builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res, _ = run(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(res.aer_saturated.sum()) > 0

@@ -4,8 +4,8 @@ bit-packing (``runtime/transport.py``) bitwise against
 as the port's int32 bits), the two-phase chained-ring exchange on an
 in-process mesh, with and without the packed wire, against the window
 of the zero-padded global frame, the ring widths and payload
-accounting against the reference's, and the schedule checks with the
-reference's text."""
+accounting against the reference's, and the schedule and wire checks
+with the reference's text."""
 import dataclasses
 
 import jax
@@ -150,8 +150,8 @@ def test_schedule_checks_raise_the_reference_text():
                                          (12, 6, 6, 6), (6, 12, 1, 12)])
 @pytest.mark.parametrize("compress", [True, False])
 def test_payload_accounting_equals_reference(gh, gw, ry, rx, compress):
-    """Static dense_packed bytes equal the reference's; the STDP trace
-    strips (item 4) and the other wire formats (item 3) are refused."""
+    """Static bytes under dense_packed, aer_sparse and auto equal the
+    reference's; the STDP trace strips (item 4) are refused."""
     mine = dpsnn.reduced_family("exp", gh, gw, 1240, radius=3)
     theirs = jdpsnn.reduced_family("exp", gh, gw, 1240, radius=3)
     spec = part.make_tile_spec(mine, ry, rx)
@@ -159,26 +159,38 @@ def test_payload_accounting_equals_reference(gh, gw, ry, rx, compress):
     assert comp.halo_send_shapes(spec) == jcomp.halo_send_shapes(jspec)
     assert comp.halo_payload_bytes(mine, spec, compress=compress) == \
         jcomp.halo_payload_bytes(theirs, jspec, compress=compress)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        comp.halo_payload_bytes(mine, spec, mode="aer_sparse")
+    for mode in ("aer_sparse", "auto"):
+        assert comp.halo_payload_bytes(mine, spec, mode=mode,
+                                       compress=compress) == \
+            jcomp.halo_payload_bytes(theirs, jspec, mode=mode,
+                                     compress=compress)
     with pytest.raises(NotImplementedError, match="item 4"):
         comp.halo_payload_bytes(dataclasses.replace(mine, stdp=True), spec)
 
 
 def test_mesh_refusals_name_their_roadmap_items():
+    """STDP (item 4) and the guard (item 6) are refused on a mesh; an
+    unknown wire format or policy raises the reference's text."""
     from repro_torch.configs.base import GuardConfig
     base = dpsnn.reduced(4, 4, 16)
     mesh = LocalMesh(2, 2, "cpu")
     for change, item in [(dict(stdp=True), "item 4"),
-                         (dict(guard=GuardConfig(enabled=True)), "item 6"),
-                         (dict(conn=dataclasses.replace(
-                             base.conn, exchange_mode="aer_sparse")),
-                          "item 3"),
-                         (dict(exchange=ExchangeConfig(exchange_mode="auto")),
-                          "item 3")]:
+                         (dict(guard=GuardConfig(enabled=True)), "item 6")]:
         with pytest.raises(NotImplementedError, match=item):
             ex.make_distributed_run(dataclasses.replace(base, **change),
                                     mesh, n_steps=1)
+    for change, text in [
+            (dict(conn=dataclasses.replace(base.conn,
+                                           exchange_mode="morse_code")),
+             "unknown exchange_mode 'morse_code' (expected 'dense_packed' "
+             "or 'aer_sparse')"),
+            (dict(exchange=ExchangeConfig(exchange_mode="sometimes")),
+             "unknown ExchangeConfig.exchange_mode 'sometimes' (expected "
+             "'inherit' or 'auto')")]:
+        with pytest.raises(ValueError) as err:
+            ex.make_distributed_run(dataclasses.replace(base, **change),
+                                    mesh, n_steps=1)
+        assert str(err.value) == text
 
 
 def test_step_matches_the_reference_step_on_a_mesh():
