@@ -75,7 +75,20 @@ then, on the card:
    the first, ``auto``'s ring table is the accounting's; then 4 ranks
    in nodes of 2 against phase 3, and 2 ranks on AER at a 1 Hz bound
    (which overflows) against an in-process 1x2 mesh, saturation flags
-   included.
+   included; (d) the multi-rank plastic step (STDP on, guard off) on the
+   same grid and steps, the pre-trace halo on every wire beside the
+   spikes: 2x2 shards under ``cuda_fused`` and ``cuda``, 24x24 shards
+   (two chained rings) and 24x24 in nodes of 1x4 under ``cuda_fused``,
+   2x2 AER at the bound that cannot overflow, and 2 ranks as processes
+   with ``--stdp``, each held to a single-shard plastic run of the same
+   impl from the same seed: spikes, per-step spikes, v, the live weights
+   ``w_local`` and ``rem_w`` and the traces ``x_pre`` and ``x_post`` to
+   the bit, events as in (a); each in-process mesh with one launch of
+   each of its kernels per step for all its shards (``fused_step`` with
+   its STDP epilogue, ``stdp_dense_update``, ``stdp_remote_update``,
+   ``keyed_drive``; or the staged kernels), its device time and largest
+   op outside the kernels, halo bytes with the trace strips, and peak
+   memory.
 
 Every phase raises on failure and the script exits non-zero. Without a
 card, or without the rest of the repository beside it, it exits
@@ -157,6 +170,8 @@ RANK_TIMEOUT_S = 300
 AER_FREE_HZ = 500.0
 RANK_AER_HZ = 1.0
 NEUTRAL_STEPS = 50        # guard on against off, plastic, bitwise
+# phase 5d: the final leaves a plastic mesh or rank run is held to, bitwise
+PLASTIC_LEAVES = ("v", "w_local", "rem_w", "x_pre", "x_post")
 PLASTIC_TOL = dict(rtol=1e-6, atol=1e-6)   # weights across impls
 
 
@@ -398,10 +413,14 @@ class Smoke:
         isi_runs = self.mesh_path(cfg, params, fused)
         # 5c. the AER and per-ring auto wires and the hierarchical exchange
         self.wire_path(cfg, params, fused)
+        # 5d. the plastic meshes, held to a single-shard plastic run
+        plastic_one = self.plastic_mesh_path(cfg, params)
         del params
         torch.cuda.empty_cache()
         self.rank_path(cfg, fused, isi_runs)
         self.wire_rank_path(cfg, fused)
+        self.plastic_rank_path(cfg, plastic_one)
+        del plastic_one
 
         kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                         replaces={**TPU_KERNELS, **PORT_KERNELS}[name],
@@ -2228,6 +2247,202 @@ class Smoke:
         del res, final
         torch.cuda.empty_cache()
         self.report["wire_rank_path"] = out
+
+    # ----------------------------------------------------------- phase 5d
+    def plastic_single(self, pcfg, params, impl):
+        """The oracle of phase 5d: the single-shard plastic run (guard off)
+        from the seed, WARMUP_STEPS + MAIN_STEPS under ``impl``: per-step
+        spikes, totals, and the final v, weights and traces in global
+        column order."""
+        state0 = self.net.init_state(pcfg, range(pcfg.n_columns),
+                                     device=self.dev)
+        warm = self.sim.run(pcfg, params, state0, WARMUP_STEPS, impl=impl)
+        res = self.sim.run(pcfg, warm.params, warm.state, MAIN_STEPS,
+                           impl=impl)
+        return dict(trace=self.torch.cat([warm.rate_trace, res.rate_trace]),
+                    spikes=float(res.spikes), events=float(res.events),
+                    v=res.state.lif.v, w_local=res.params.w_local,
+                    rem_w=res.params.rem_w, x_pre=res.state.stdp.x_pre,
+                    x_post=res.state.stdp.x_post)
+
+    def hold_plastic(self, name, spec, got, one):
+        """A plastic run's totals and final leaves (``got``: the keys of
+        :meth:`plastic_single`, leaves stacked by shard) against the
+        single shard's: all to the bit, events within EVENTS_RTOL past
+        2**24."""
+        if got["spikes"] != one["spikes"]:
+            raise AssertionError(f"{name}: {got['spikes']} spikes, single "
+                                 f"shard {one['spikes']}")
+        self.equal(f"{name} per-step spikes", got["trace"], one["trace"])
+        for leaf in PLASTIC_LEAVES:
+            self.equal(f"{name} {leaf}",
+                       self.part.columns_to_global(got[leaf], spec),
+                       one[leaf])
+        if not self.ld.events_agree(got["events"], one["events"]):
+            raise AssertionError(f"{name}: events {got['events']} vs single "
+                                 f"shard {one['events']}")
+
+    def plastic_mesh_path(self, cfg, params):
+        """Phase 5d: the plastic step (STDPConfig() defaults, guard off) on
+        in-process meshes of the main path's grid, WARMUP_STEPS +
+        MAIN_STEPS from the seed as phase 5a, each held to the single-shard
+        plastic run of its impl. Returns the ``cuda_fused`` oracle's
+        leaves on the host, for the plastic ranks."""
+        torch, comp = self.torch, self.comp
+        pcfg = dataclasses.replace(cfg, stdp=True)
+        node24 = self.part.make_node_spec(24, 24, 4)
+        aer = self.wire_cfg(pcfg, "aer_sparse", AER_FREE_HZ)
+        per_step = {
+            "cuda_fused": dict(fused_step=MAIN_STEPS),
+            "cuda": dict(lif_step=MAIN_STEPS, synapse_matmul=MAIN_STEPS,
+                         ell_gather=MAIN_STEPS)}
+        for counts in per_step.values():
+            counts.update(keyed_drive=MAIN_STEPS,
+                          stdp_dense_update=MAIN_STEPS,
+                          stdp_remote_update=MAIN_STEPS)
+        cases = [  # (name, shape, cfg, node, impl), grouped by impl
+            ("2x2 cuda_fused", (2, 2), pcfg, None, "cuda_fused"),
+            (f"2x2 aer at {AER_FREE_HZ:g} Hz", (2, 2), aer, None,
+             "cuda_fused"),
+            ("24x24 cuda_fused", (24, 24), pcfg, None, "cuda_fused"),
+            ("24x24 nodes of 1x4", (24, 24), pcfg, node24, "cuda_fused"),
+            ("2x2 cuda", (2, 2), pcfg, None, "cuda")]
+        out, built, oracle, host = [], {}, {}, None
+        for name, shape, run_cfg, node, impl in cases:
+            name = f"plastic mesh {name}"
+            if impl not in oracle:
+                oracle.clear()
+                torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                oracle[impl] = self.plastic_single(pcfg, params, impl)
+                self.sync()
+                log(f"phase 5d single-shard plastic {impl} oracle, "
+                    f"{WARMUP_STEPS + MAIN_STEPS} steps from seed "
+                    f"{pcfg.seed} in {time.perf_counter() - t0:.2f} s: "
+                    f"{oracle[impl]['spikes']:.0f} spikes")
+                if impl == "cuda_fused":
+                    host = {k: (x.cpu().numpy() if k in PLASTIC_LEAVES
+                                else x) for k, x in oracle[impl].items()}
+            one = oracle[impl]
+            mesh = self.LocalMesh(*shape, self.dev, node=node)
+            spec = self.part.make_tile_spec(cfg, *shape)
+            if shape not in built:
+                built.clear()
+                torch.cuda.empty_cache()
+                ids = self.ex.shard_col_ids(cfg, spec, mesh, self.dev).long()
+                built[shape] = self.net.NetworkParams(*(x[ids]
+                                                        for x in params))
+            torch.cuda.reset_peak_memory_stats(self.dev)
+            res, final, spec, ms, wall, launches, run_k, warm = \
+                self.mesh_run(run_cfg, mesh, built[shape], impl)
+            peak_gb = torch.cuda.max_memory_allocated(self.dev) / 1e9
+            if launches != self.expected_launches(**per_step[impl]):
+                raise AssertionError(f"{name} launches {launches}")
+            if int(warm.aer_saturated.sum() + res.aer_saturated.sum()):
+                raise AssertionError(f"{name}: an event list overflowed")
+            pl = final.plastic
+            self.hold_plastic(name, spec, dict(
+                trace=torch.cat([warm.rate_trace, res.rate_trace]),
+                spikes=float(res.spikes), events=float(res.events),
+                v=final.lif.v, w_local=pl.w_local, rem_w=pl.rem_w,
+                x_pre=pl.traces.x_pre, x_post=pl.traces.x_post), one)
+            del pl
+            prof = self.profile(name, run_k, ms, steps=10)
+            mode = run_cfg.conn.exchange_mode
+            if node is None:
+                pay = comp.halo_payload_bytes(run_cfg, spec)
+                static = comp.halo_payload_bytes(run_cfg, spec, stdp=False)
+            else:
+                pay = comp.hier_payload_bytes(run_cfg, spec, node)
+                static = comp.hier_payload_bytes(run_cfg, spec, node,
+                                                 stdp=False)
+            row = dict(case=name, mesh=list(shape), impl=impl, mode=mode,
+                       node=None if node is None else list(node),
+                       tile=f"{spec.tile_h}x{spec.tile_w}",
+                       ms_per_step=ms, wall_s=wall,
+                       device_ms_per_step=prof["device_ms_per_step"],
+                       outside_kernels_ms_per_step=prof[
+                           "outside_ms_per_step"],
+                       largest_outside=prof["largest_outside"],
+                       largest_outside_op=prof["largest_op"],
+                       halo_payload_bytes_per_step=pay["bytes_per_step"],
+                       static_halo_payload_bytes_per_step=static[
+                           "bytes_per_step"],
+                       peak_memory_gb=peak_gb,
+                       launches_per_step={k: v / MAIN_STEPS
+                                          for k, v in launches.items() if v})
+            out.append(row)
+            log(f"phase 5d {name}: tiles {row['tile']}, {ms:.4f} ms/step "
+                f"(device events), wall {wall:.3f} s, device time "
+                f"{row['device_ms_per_step']:.4f} ms/step of which outside "
+                f"the kernels {row['outside_kernels_ms_per_step']:.4f} "
+                f"(largest op {row['largest_outside_op'][0]} "
+                f"{row['largest_outside_op'][1]:.1f} us/step), halo "
+                f"{row['halo_payload_bytes_per_step']} B/step per interior "
+                f"{'shard' if node is None else 'rank (hierarchical)'} with "
+                f"the trace strips ({row['static_halo_payload_bytes_per_step']}"
+                f" without), peak memory {peak_gb:.2f} GB, launches per step "
+                f"{row['launches_per_step']}; spikes, per-step spikes, v, "
+                f"w_local, rem_w, x_pre, x_post bitwise against the "
+                f"single-shard plastic {impl} run, events "
+                f"{float(res.events):.6e} (single {one['events']:.6e})")
+            del res, final, run_k, warm
+        built.clear()
+        oracle.clear()
+        torch.cuda.empty_cache()
+        self.report["plastic_mesh_path"] = out
+        self.note(f"phase 5d: {len(out)} plastic meshes (2x2 and 24x24 "
+                  f"cuda_fused, 2x2 AER at {AER_FREE_HZ:g} Hz, 24x24 in nodes "
+                  f"of 1x4, 2x2 cuda) equal the single-shard plastic run to "
+                  f"the bit (spikes, per-step spikes, v, weights, traces), "
+                  f"one launch of each kernel per step for all shards")
+        return host
+
+    def plastic_rank_path(self, cfg, one):
+        """Phase 5d, ranks: 2 gloo ranks with ``--stdp`` on this card,
+        through the launcher, their saved states held to the single-shard
+        plastic ``cuda_fused`` run (``one``, on the host)."""
+        import tempfile
+
+        import numpy as np
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            row, states = self.launch_ranks(cfg, 2, ["--stdp"], d)
+        spec = self.part.make_rank_tile_spec(cfg, 2)
+        got = {k: states[k] for k in PLASTIC_LEAVES}
+        del states
+        if row["spikes"] != one["spikes"]:
+            raise AssertionError(f"2 plastic ranks: {row['spikes']} spikes, "
+                                 f"single shard {one['spikes']}")
+        for leaf in PLASTIC_LEAVES:
+            if not np.array_equal(self.part.columns_to_global(got[leaf],
+                                                              spec),
+                                  one[leaf]):
+                raise AssertionError(f"2 plastic ranks: {leaf} differs from "
+                                     f"the single-shard plastic run")
+        if not self.ld.events_agree(row["events"], one["events"]):
+            raise AssertionError(f"2 plastic ranks: events {row['events']}")
+        if not row["stdp"] or row["library_build_s_max"] != 0.0:
+            raise AssertionError(f"2 plastic ranks: stdp {row['stdp']}, "
+                                 f"build {row['library_build_s_max']} s")
+        per_step = {k: v / row["steps"] for k, v in row["launches"].items()
+                    if v}
+        if per_step != {k: 1.0 for k in ("fused_step", "keyed_drive",
+                                          "stdp_dense_update",
+                                          "stdp_remote_update")}:
+            raise AssertionError(f"2 plastic ranks: rank 0 launches "
+                                 f"{row['launches']}")
+        self.report["plastic_rank_path"] = row
+        log(f"phase 5d 2 plastic ranks as processes (gloo, every rank on "
+            f"this card, time-sliced: no scaling figure): tiles "
+            f"{row['tile']}, {row['step_ms']:.4f} ms/step (wall, "
+            f"{row['steps']} steps), halo {row['halo_payload_bytes_per_step']}"
+            f" B/step per interior rank with the trace strips, rank 0 peak "
+            f"memory {row['peak_memory_gb']:.2f} GB, rank 0 launches per "
+            f"step {per_step}, launch {row['launch_wall_s']:.1f} s; spikes, "
+            f"v, w_local, rem_w, x_pre, x_post equal the single-shard plastic "
+            f"cuda_fused run to the bit, events {row['events']:.6e} vs "
+            f"{one['events']:.6e}; device time not measured (other "
+            f"processes)")
 
 
 if __name__ == "__main__":

@@ -9,15 +9,18 @@ names. The STDP traces (``x_pre``, ``x_post``) and the five
 ``GuardState`` leaves come across when the state has them. The stacked
 distributed state (``DistState``, the layout of the reference's
 ``stacked_state_template``: every leaf with a leading shard axis) comes
-across by leaf name too (``DIST_LEAVES``). This module imports neither
-JAX nor the reference: the caller hands it arrays.
+across by leaf name too (``DIST_LEAVES``), its ``PlasticState`` under
+STDP included (the reference's ``plastic`` leaves ``w_local``, ``rem_w``,
+``traces.x_pre``, ``traces.x_post`` and ``trace_ext``, named by their
+last part). This module imports neither JAX nor the reference: the
+caller hands it arrays.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.exchange import DistState
+from repro_torch.core.exchange import DistState, PlasticState
 from repro_torch.core.network import NetworkParams, NetworkState
 from repro_torch.core.neuron import LIFState
 from repro_torch.core.plasticity import STDPState
@@ -28,11 +31,15 @@ STATE_LEAVES = ("v", "c", "refrac", "hist", "t", "spike_count",
                 "event_count")
 STDP_LEAVES = STDPState._fields
 GUARD_LEAVES = GuardState._fields
-# DistState's leaves of the static dense path (``v``, ``c``, ``refrac`` are
-# its LIFState's); ``ext_pending`` only under ExchangeConfig.pipelined
+# DistState's leaves (``v``, ``c``, ``refrac`` are its LIFState's);
+# ``ext_pending`` only under ExchangeConfig.pipelined, the PlasticState's
+# only under STDP (``x_pre``, ``x_post`` its traces'; ``trace_ext`` under
+# aer_sparse)
+PLASTIC_LEAVES = ("w_local", "rem_w", "x_pre", "x_post", "trace_ext")
 DIST_LEAVES = ("v", "c", "refrac", "hist_ext", "pending", "t",
                "spike_count", "event_count", "aer_sat", "ext_pending",
-               "last_spike_t", "isi_sum", "isi_sumsq", "isi_count")
+               "last_spike_t", "isi_sum", "isi_sumsq",
+               "isi_count") + PLASTIC_LEAVES
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -90,15 +97,23 @@ def dist_state_from_numpy(leaves, device="cuda") -> DistState:
     """The stacked ``DistState`` from its leaves (a mapping with the
     names of ``DIST_LEAVES``, each (S, ...) in process-major shard order,
     e.g. the reference's stacked state as numpy). ``t`` stays on the
-    host; ``ext_pending`` may be absent (unpipelined)."""
+    host; ``ext_pending`` may be absent (unpipelined), and so may the
+    plastic leaves (a static state)."""
     def get(name, dev=device):
         return _tensor(leaves[name], dev) if name in leaves else None
 
+    plastic = None
+    if "w_local" in leaves:
+        plastic = PlasticState(
+            w_local=get("w_local"), rem_w=get("rem_w"),
+            traces=STDPState(x_pre=get("x_pre"), x_post=get("x_post")),
+            trace_ext=get("trace_ext"))
     return DistState(
         lif=LIFState(v=get("v"), c=get("c"), refrac=get("refrac")),
         hist_ext=get("hist_ext"), pending=get("pending"),
         t=get("t", "cpu"), spike_count=get("spike_count"),
-        event_count=get("event_count"), aer_sat=get("aer_sat"),
+        event_count=get("event_count"), plastic=plastic,
+        aer_sat=get("aer_sat"),
         ext_pending=get("ext_pending"), last_spike_t=get("last_spike_t"),
         isi_sum=get("isi_sum"), isi_sumsq=get("isi_sumsq"),
         isi_count=get("isi_count"))
@@ -108,5 +123,8 @@ def dist_state_to_numpy(state: DistState) -> dict:
     """The leaves of ``DIST_LEAVES`` that the state has, as numpy."""
     leaves = dict(state._asdict(), v=state.lif.v, c=state.lif.c,
                   refrac=state.lif.refrac)
+    if state.plastic is not None:
+        leaves.update(state.plastic._asdict(),
+                      **state.plastic.traces._asdict())
     return {name: leaves[name].cpu().numpy() for name in DIST_LEAVES
-            if leaves[name] is not None}
+            if leaves.get(name) is not None}

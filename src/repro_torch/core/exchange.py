@@ -1,5 +1,6 @@
 """Distributed DPSNN step: stacked shards and the two-phase halo
-exchange (the port of the static path of ``repro/core/exchange.py``).
+exchange (the port of ``repro/core/exchange.py``'s multi-rank step,
+static and plastic).
 
 * Columns are tiled 2-D over a shard grid (``core/partition.py``). A
   process holds a stack of shards: every :class:`DistState` leaf carries
@@ -28,6 +29,15 @@ exchange (the port of the static path of ``repro/core/exchange.py``).
   node frame, the rings run between nodes, and each shard cuts its
   window out of the extended node frame. Every format and topology is
   bitwise-equal to the flat dense exchange while no list saturates.
+* Under ``cfg.stdp`` the live weights and the traces are state
+  (:class:`PlasticState`), and each step's exchange carries the shards'
+  pre-synaptic traces beside their spikes, raw float32 on every wire
+  (never packed): dense strips on the dense, per-ring and hierarchical
+  wires, and on the flat AER wire the trace values at the send's own
+  event addresses, from which the receiver rebuilds the halo (decaying
+  its previous halo frame everywhere else, ``PlasticState.trace_ext``).
+  The pre-trace table of the remote rule is cut from the extended trace
+  frame as the spike table is from the ring.
 * Axonal delays are served from a halo-extended history ring buffer, so
   every delayed read is shard-local; the neighbour table is built from
   it with ``network.offset_slice``.
@@ -40,10 +50,10 @@ The step follows the reference's schedule (``dist_step``): the exchange
 of step t-1's spikes is issued first and its frame written into the
 ring only after the compute (every remote delay >= 2, checked), or,
 with ``ExchangeConfig.pipelined``, carried a full step in
-``DistState.ext_pending`` and written before the next step's reads.
-Multi-rank STDP (ROADMAP queue 1 item 4) and the guard's checksummed
-frames (item 6) are refused by ``network.check_supported(...,
-mesh=True)``.
+``DistState.ext_pending`` and written before the next step's reads;
+the trace halo is consumed on arrival under both schedules. The guard's
+checksummed frames (ROADMAP queue 1 item 6) are refused by
+``network.check_supported(..., mesh=True)``.
 
 The ring buffer is the one large leaf (286 MB at 24x24 shards of the
 24x24x1240 grid): :func:`dist_step` writes it in place, and the runners
@@ -59,12 +69,16 @@ import torch
 
 from repro_torch.configs.base import DPSNNConfig
 from repro_torch.core import network as net
-from repro_torch.core.connectivity import StencilSpec, build_stencil
+from repro_torch.core import plasticity as plast
+from repro_torch.core.connectivity import (StencilSpec, build_stencil,
+                                           neuron_types)
 from repro_torch.core.network import NetworkParams
 from repro_torch.core.neuron import LIFState
 from repro_torch.core.partition import (TileSpec, make_tile_spec,
                                         shard_tile_coords, tile_column_ids)
+from repro_torch.core.plasticity import STDPState
 from repro_torch.core.simulation import _recip
+from repro_torch.kernels.ref import stdp_constants
 from repro_torch.runtime.transport import assert_axis_sizes
 
 # ---------------------------------------------------------------------------
@@ -85,51 +99,76 @@ def halo_ring_widths(radius: int, tile_dim: int) -> list:
     return widths
 
 
-def _collect_rings(f: torch.Tensor, axis: int, direction: int, radius: int,
-                   send_fn) -> torch.Tensor:
-    """The radius-deep halo beyond one face of the stacked tiles ``f``
-    (``(*local, h, w, N)``) along shard-grid ``axis``, by chained rings:
-    round k forwards the strip received in round k-1, so ring-k data
-    crosses k hops with nearest-neighbour sends only. ``direction=+1``
+def _collect_rings(f: tuple, axis: int, direction: int, radius: int,
+                   send_fn) -> tuple:
+    """The radius-deep halo beyond one face of the stacked tiles ``f`` (a
+    tuple of ``(*local, h, w, N)`` payloads: the spike frame, and the
+    trace frame under STDP) along shard-grid ``axis``, by chained rings:
+    round k forwards the strips received in round k-1, so ring-k data
+    crosses k hops with nearest-neighbour sends only. The payloads slice
+    and travel in lockstep (``send_fn`` takes and returns the tuple), so
+    a trace can reuse its spikes' event addresses. ``direction=+1``
     collects toward increasing coordinate (each ring contributes its
     leading rows/cols), ``-1`` the mirror. Shards at the open boundary
     receive zeros and forward them on."""
     dim = 2 + axis                      # the tile axis behind the mesh axes
     parts = []
     cur = f
-    for w in halo_ring_widths(radius, f.shape[dim]):
-        start = 0 if direction > 0 else cur.shape[dim] - w
-        cur = send_fn(cur.narrow(dim, start, w), axis, direction)
+    for w in halo_ring_widths(radius, f[0].shape[dim]):
+        start = 0 if direction > 0 else cur[0].shape[dim] - w
+        cur = send_fn(tuple(x.narrow(dim, start, w) for x in cur), axis,
+                      direction)
         parts.append(cur)
     if direction < 0:
         parts = parts[::-1]
-    return torch.cat(parts, dim)
+    return tuple(torch.cat(xs, dim) for xs in zip(*parts))
 
 
-def _extend_tree(payload: torch.Tensor, send_fn, r: int) -> torch.Tensor:
+def _extend_tree(payload: tuple, send_fn, r: int) -> tuple:
     """Two-phase (horizontal rings, then vertical rings of the
-    horizontally-extended strips) halo extension: each (h, w, N) tile
-    becomes (h+2r, w+2r, N). Corners ride the vertical phase."""
+    horizontally-extended strips) halo extension of each payload of the
+    tuple: each (h, w, N) tile becomes (h+2r, w+2r, N). Corners ride
+    the vertical phase."""
     if r == 0:
         return payload
     east = _collect_rings(payload, 1, +1, r, send_fn)
     west = _collect_rings(payload, 1, -1, r, send_fn)
-    wide = torch.cat([west, payload, east], 3)
+    wide = tuple(torch.cat(xs, 3) for xs in zip(west, payload, east))
     south = _collect_rings(wide, 0, +1, r, send_fn)
     north = _collect_rings(wide, 0, -1, r, send_fn)
-    return torch.cat([north, wide, south], 2)
+    return tuple(torch.cat(xs, 2) for xs in zip(north, wide, south))
 
 
-def exchange_halo(frame: torch.Tensor, spec: TileSpec, mesh
-                  ) -> torch.Tensor:
+def _payload(mesh, frame: torch.Tensor, trace) -> tuple:
+    """The stacked ``(spikes,)`` or ``(spikes, traces)`` tiles."""
+    s_local, th, tw, n = frame.shape
+    return tuple(x.reshape(*mesh.local, th, tw, n)
+                 for x in (frame, trace) if x is not None)
+
+
+def _unstack(ext: tuple, s_local: int) -> tuple:
+    """Extended ``(*local, ...)`` payloads -> ``(ext_frame, ext_trace or
+    None)``, each (S_local, th+2r, tw+2r, N)."""
+    out = tuple(x.reshape(s_local, *x.shape[2:]) for x in ext)
+    return out if len(out) == 2 else (out[0], None)
+
+
+def exchange_halo(frame: torch.Tensor, spec: TileSpec, mesh,
+                  trace: torch.Tensor | None = None):
     """(S_local, th, tw, N) interior spike frames -> (S_local, th+2r,
     tw+2r, N) extended frames, over ``mesh``'s shifts. Each direction
     runs ``ceil(r / tile_dim)`` chained rounds; with ``r`` inside one
-    tile that is 4 shifts per step."""
-    r = spec.radius
-    s_local, th, tw, n = frame.shape
-    ext = _extend_tree(frame.reshape(*mesh.local, th, tw, n), mesh.shift, r)
-    return ext.reshape(s_local, th + 2 * r, tw + 2 * r, n)
+    tile that is 4 shifts per step. With ``trace`` (the (S_local, th,
+    tw, N) pre-synaptic traces) its strips ride the same rounds, moved
+    raw (``mesh.move``: a packing wire would round every trace to 0/1),
+    and the function returns ``(ext_frame, ext_trace)``."""
+    def send(p, axis, direction):
+        return (mesh.shift(p[0], axis, direction),
+                *(mesh.move(x, axis, direction) for x in p[1:]))
+
+    ext = _extend_tree(_payload(mesh, frame, trace), send, spec.radius)
+    ext_frame, ext_trace = _unstack(ext, frame.shape[0])
+    return ext_frame if trace is None else (ext_frame, ext_trace)
 
 
 # ---------------------------------------------------------------------------
@@ -269,28 +308,42 @@ def _uniform_modes(mode: str, rows: int, cols: int, r: int) -> dict:
 
 
 def _make_mode_send(modes: dict, shift, move, *, rate_bound_hz: float,
-                    capacity_factor: float, dt_ms: float):
-    """A ``send_fn`` for :func:`_collect_rings` that picks the wire format
-    per (phase, ring) from ``modes``: ``shift`` moves a dense strip in
-    the transport's format, ``move`` an event list raw. Axis 1 is the
-    horizontal phase, 0 the vertical one. Returns ``(send_fn, flags)``,
-    ``flags`` the list of each AER send's (*local,) overflow flags."""
+                    capacity_factor: float, dt_ms: float,
+                    sparse_trace: bool = False):
+    """A ``send_fn`` for :func:`_collect_rings` that picks the spike
+    strip's wire format per (phase, ring) from ``modes``: ``shift``
+    moves a dense strip in the transport's format, ``move`` an event
+    list raw. A trace strip (the payload's second member) is moved raw
+    and dense on every ring, or, with ``sparse_trace`` (the flat AER
+    wire), as its values at the send's own event addresses (zeros
+    elsewhere on arrival). Axis 1 is the horizontal phase, 0 the
+    vertical one. Returns ``(send_fn, flags)``, ``flags`` the list of
+    each AER send's (*local,) overflow flags."""
     flags = []
     rings: dict = {}
 
-    def send(x, axis, direction):
+    def send(p, axis, direction):
+        x = p[0]
         key = ("h" if axis == 1 else "v", direction)
         k = rings[key] = rings.get(key, 0) + 1
         if modes[(key[0], k)] != "aer_sparse":
-            return shift(x, axis, direction)
+            return (shift(x, axis, direction),
+                    *(move(y, axis, direction) for y in p[1:]))
         local, strip = x.shape[:2], x.shape[2:]
         cap = aer_capacity(math.prod(strip), rate_bound_hz, capacity_factor,
                            dt_ms)
         events, over = aer_encode_stack(x.reshape(-1, *strip), cap)
         flags.append(over.reshape(local))
-        events = move(events.reshape(*local, cap + 1), axis, direction)
-        return aer_decode_stack(events.reshape(-1, cap + 1), strip,
-                                x.dtype).reshape(x.shape)
+        events = events.reshape(*local, cap + 1)
+        got = move(events, axis, direction)
+        out = aer_decode_stack(got.reshape(-1, cap + 1), strip,
+                               x.dtype).reshape(x.shape)
+        if len(p) == 1:
+            return (out,)
+        if not sparse_trace:
+            return out, move(p[1], axis, direction)
+        vals = move(aer_gather_values(p[1], events), axis, direction)
+        return out, aer_scatter_values(got, vals, strip)
 
     return send, flags
 
@@ -302,44 +355,53 @@ def _saturated(flags: list):
 
 def exchange_halo_modes(frame: torch.Tensor, spec: TileSpec, mesh, *,
                         modes: dict, rate_bound_hz: float,
-                        capacity_factor: float, dt_ms: float):
+                        capacity_factor: float, dt_ms: float,
+                        trace: torch.Tensor | None = None,
+                        sparse_trace: bool = False):
     """Flat halo exchange with a per-ring wire format (``modes``, from
     :func:`resolve_ring_modes`): the schedule of :func:`exchange_halo`,
-    each (phase, ring) send dense or AER. Returns ``(ext_frame,
+    each (phase, ring) send dense or AER; the ``trace`` frame, when
+    given, rides raw f32 on every ring (see :func:`_make_mode_send` for
+    ``sparse_trace``). Returns ``(ext_frame, ext_trace or None,
     saturated)``, ``saturated`` the (S_local,) bool flags (None without
     an AER ring)."""
-    r = spec.radius
-    s_local, th, tw, n = frame.shape
+    s_local = frame.shape[0]
     send, flags = _make_mode_send(
         modes, mesh.shift, mesh.move, rate_bound_hz=rate_bound_hz,
-        capacity_factor=capacity_factor, dt_ms=dt_ms)
-    ext = _extend_tree(frame.reshape(*mesh.local, th, tw, n), send, r)
+        capacity_factor=capacity_factor, dt_ms=dt_ms,
+        sparse_trace=sparse_trace)
+    ext = _extend_tree(_payload(mesh, frame, trace), send, spec.radius)
     sat = _saturated(flags)
-    return (ext.reshape(s_local, th + 2 * r, tw + 2 * r, n),
+    return (*_unstack(ext, s_local),
             None if sat is None else sat.reshape(s_local))
 
 
 def exchange_halo_aer(frame: torch.Tensor, spec: TileSpec, mesh, *,
                       rate_bound_hz: float, capacity_factor: float,
-                      dt_ms: float):
+                      dt_ms: float, trace: torch.Tensor | None = None):
     """AER halo exchange: the schedule of :func:`exchange_halo`, every
     strip crossing as an ``int32[1 + cap]`` event list, decoded back to a
     dense strip that equals the dense one whenever ``count <= cap``.
-    Forwarded rings re-encode the decoded strip. Returns ``(ext_frame,
-    saturated)``, ``saturated`` True for a shard any of whose sends this
-    step overflowed."""
+    Forwarded rings re-encode the decoded strip. With ``trace`` a
+    ``f32[cap]`` side payload rides each send: the trace at the list's
+    own addresses, scattered back on arrival (zeros elsewhere; the step
+    rebuilds the rest by decay). Returns ``(ext_frame, sparse ext_trace
+    or None, saturated)``, ``saturated`` True for a shard any of whose
+    sends this step overflowed."""
     modes = _uniform_modes("aer_sparse", spec.tile_h, spec.tile_w,
                            spec.radius)
     return exchange_halo_modes(frame, spec, mesh, modes=modes,
                                rate_bound_hz=rate_bound_hz,
-                               capacity_factor=capacity_factor, dt_ms=dt_ms)
+                               capacity_factor=capacity_factor, dt_ms=dt_ms,
+                               trace=trace, sparse_trace=True)
 
 
 def exchange_halo_hier(frame: torch.Tensor, spec: TileSpec, mesh, *,
                        modes: dict | None = None,
                        mode: str = "dense_packed",
                        rate_bound_hz: float = 0.0,
-                       capacity_factor: float = 2.0, dt_ms: float = 1.0):
+                       capacity_factor: float = 2.0, dt_ms: float = 1.0,
+                       trace: torch.Tensor | None = None):
     """Hierarchical two-level halo exchange over ``mesh.node``. Three
     stages, all value-exact: the node group's tiles coalesce into one
     ``(group_h*tile_h, group_w*tile_w, N)`` node frame
@@ -351,7 +413,10 @@ def exchange_halo_hier(frame: torch.Tensor, spec: TileSpec, mesh, *,
     node frame is the global frame's radius-r window of the node, so
     every window is what the flat exchange delivers. Every lane of a
     node encodes the same node frame, so all carry the node's
-    saturation flag. Returns ``(ext_frame, saturated)``."""
+    saturation flag. The ``trace`` frame, when given, rides the same
+    stages raw: gathered unpacked, moved dense on every ring, cut by the
+    same window. Returns ``(ext_frame, ext_trace or None,
+    saturated)``."""
     r = spec.radius
     s_local, th, tw, n = frame.shape
     node = mesh.node
@@ -360,20 +425,26 @@ def exchange_halo_hier(frame: torch.Tensor, spec: TileSpec, mesh, *,
     send, flags = _make_mode_send(
         modes, mesh.node_shift, mesh.node_move, rate_bound_hz=rate_bound_hz,
         capacity_factor=capacity_factor, dt_ms=dt_ms)
-    nodes = mesh.gather_node(frame.reshape(*mesh.local, th, tw, n))
-    ext = mesh.node_window(_extend_tree(nodes, send, r), th, tw, r)
+    tiles = _payload(mesh, frame, trace)
+    nodes = (mesh.gather_node(tiles[0]),
+             *(mesh.gather_node(x, pack=False) for x in tiles[1:]))
+    ext = tuple(mesh.node_window(x, th, tw, r)
+                for x in _extend_tree(nodes, send, r))
     sat = _saturated(flags)
     if sat is not None:      # a node's flag on each of its local lanes
         (ly, lx), (ny, nx) = mesh.local, mesh.node_local
         sat = sat.repeat_interleave(ly // ny, 0).repeat_interleave(
             lx // nx, 1).reshape(s_local)
-    return ext.reshape(s_local, th + 2 * r, tw + 2 * r, n), sat
+    return (*_unstack(ext, s_local), sat)
 
 
 def make_exchange(cfg: DPSNNConfig, spec: TileSpec, mesh):
     """The step's halo exchange, resolved once from the config and the
-    mesh: ``exchange(frame) -> (ext_frame, saturated or None)``. Raises
-    the reference's errors for an unknown wire format or policy."""
+    mesh: ``exchange(frame, trace=None) -> (ext_frame, ext_trace or
+    None, saturated or None)``; ``ext_trace`` is sparse (the values at
+    the spikes' addresses only) on the flat AER wire
+    (:func:`sparse_trace_halo`). Raises the reference's errors for an
+    unknown wire format or policy."""
     mode = cfg.conn.exchange_mode
     if mode not in ("dense_packed", "aer_sparse"):
         raise ValueError(
@@ -385,19 +456,46 @@ def make_exchange(cfg: DPSNNConfig, spec: TileSpec, mesh):
                capacity_factor=cfg.conn.aer_capacity_factor,
                dt_ms=cfg.neuron.dt_ms)
     if mesh.node is not None:
-        return lambda f: exchange_halo_hier(f, spec, mesh, modes=ring_modes,
-                                            mode=mode, **aer)
+        return lambda f, trace=None: exchange_halo_hier(
+            f, spec, mesh, modes=ring_modes, mode=mode, trace=trace, **aer)
     if ring_modes is not None:
-        return lambda f: exchange_halo_modes(f, spec, mesh,
-                                             modes=ring_modes, **aer)
+        return lambda f, trace=None: exchange_halo_modes(
+            f, spec, mesh, modes=ring_modes, trace=trace, **aer)
     if mode == "aer_sparse":
-        return lambda f: exchange_halo_aer(f, spec, mesh, **aer)
-    return lambda f: (exchange_halo(f, spec, mesh), None)
+        return lambda f, trace=None: exchange_halo_aer(f, spec, mesh,
+                                                       trace=trace, **aer)
+
+    def dense(f, trace=None):
+        if trace is None:
+            return exchange_halo(f, spec, mesh), None, None
+        return (*exchange_halo(f, spec, mesh, trace=trace), None)
+    return dense
+
+
+def sparse_trace_halo(cfg: DPSNNConfig, mesh) -> bool:
+    """Whether the exchange ships the trace halo sparse (the flat, uniform
+    AER wire, :func:`exchange_halo_aer`), so that the step rebuilds it
+    from ``PlasticState.trace_ext``; every other wire ships it dense."""
+    return (cfg.conn.exchange_mode == "aer_sparse" and mesh.node is None
+            and cfg.exchange.exchange_mode != "auto")
 
 
 # ---------------------------------------------------------------------------
 # Distributed state
 # ---------------------------------------------------------------------------
+
+class PlasticState(NamedTuple):
+    """The stacked shards' synaptic state under ``cfg.stdp``: the live
+    weights leave the (regenerable) params and become state, as in the
+    reference. ``trace_ext`` is present under ``conn.exchange_mode ==
+    "aer_sparse"`` (None otherwise): the halo-extended pre-trace frame,
+    ext(x_pre(t-1)) after step t, which the flat AER wire rebuilds from
+    the shipped values and its own decay."""
+    w_local: torch.Tensor          # (S, C, N, N) live intra-column weights
+    rem_w: torch.Tensor            # (S, C, N, K) live remote ELL weights
+    traces: STDPState              # x_pre, x_post: (S, C, N) each
+    trace_ext: Optional[torch.Tensor] = None   # (S, th+2r, tw+2r, N)
+
 
 class DistState(NamedTuple):
     """Stacked per-shard state: every leaf has the leading local-shard
@@ -409,7 +507,7 @@ class DistState(NamedTuple):
     t: torch.Tensor          # (S,) int32, on the host
     spike_count: torch.Tensor   # (S,) f32
     event_count: torch.Tensor   # (S,) f32
-    plastic: Optional[object] = None        # multi-rank STDP: item 4
+    plastic: Optional[PlasticState] = None  # present iff cfg.stdp
     aer_sat: Optional[torch.Tensor] = None  # (S,) bool, this step's AER overflow
     # pipelined only: ext of spikes(t-2), written into the ring at step t
     ext_pending: Optional[torch.Tensor] = None  # (S, th+2r, tw+2r, N)
@@ -439,9 +537,11 @@ def build_shard(cfg: DPSNNConfig, spec: TileSpec, mesh) -> NetworkParams:
 
 
 def init_shard(cfg: DPSNNConfig, spec: TileSpec, stencil: StencilSpec,
-               mesh) -> DistState:
+               mesh, params: NetworkParams | None = None) -> DistState:
     """Initial stacked state, deterministic per global column id, so any
-    mesh starts where the single shard starts."""
+    mesh starts where the single shard starts. Under ``cfg.stdp`` the
+    live weights start as ``params``' (the mesh's :func:`build_shard`,
+    built here when not given), the traces at zero."""
     dev = mesh.device
     s_local = len(mesh.shards)
     c, n = spec.columns_per_tile, cfg.neurons_per_column
@@ -455,6 +555,17 @@ def init_shard(cfg: DPSNNConfig, spec: TileSpec, stencil: StencilSpec,
     def zeros(*shape, dt=torch.float32):
         return torch.zeros(shape, dtype=dt, device=dev)
 
+    plastic = None
+    if cfg.stdp:
+        if params is None:
+            params = build_shard(cfg, spec, mesh)
+        traces = plast.init_stdp(s_local * c, n, dtype, dev)
+        plastic = PlasticState(
+            w_local=params.w_local.reshape(s_local, c, n, n),
+            rem_w=params.rem_w.reshape(s_local, c, n, -1),
+            traces=STDPState(*(x.reshape(s_local, c, n) for x in traces)),
+            trace_ext=(zeros(*ext_shape, dt=dtype)
+                       if cfg.conn.exchange_mode == "aer_sparse" else None))
     return DistState(
         lif=LIFState(*(x.reshape(s_local, c, n) for x in lif)),
         hist_ext=zeros(s_local, d, *ext_shape[1:], dt=dtype),
@@ -462,6 +573,7 @@ def init_shard(cfg: DPSNNConfig, spec: TileSpec, stencil: StencilSpec,
         t=torch.zeros(s_local, dtype=torch.int32),
         spike_count=zeros(s_local),
         event_count=zeros(s_local),
+        plastic=plastic,
         aer_sat=zeros(s_local, dt=torch.bool),
         # a zero in-flight frame is the empty pre-t=0 history, so the
         # pipelined schedule starts bitwise-equal to the unpipelined one
@@ -503,8 +615,12 @@ def dist_step(cfg: DPSNNConfig, params: NetworkParams, state: DistState, *,
     other leaf of the new state is new, ``aer_sat`` this step's
     saturation flags. The mesh must match ``spec`` and the stencil pass
     :func:`check_delays`: :func:`make_distributed_run` checks both once,
-    where it binds them."""
+    where it binds them. Under ``cfg.stdp`` the step is the reference's
+    plastic one: the live weights of ``state.plastic`` replace
+    ``params``', the exchange carries the pre-trace halo, and one STDP
+    update runs over every local shard's columns."""
     r = spec.radius
+    th, tw = spec.tile_h, spec.tile_w
     n = cfg.neurons_per_column
     s_local = state.pending.shape[0]
     c_all = s_local * spec.columns_per_tile
@@ -512,11 +628,19 @@ def dist_step(cfg: DPSNNConfig, params: NetworkParams, state: DistState, *,
     t = int(state.t[0])
     pipelined = cfg.exchange.pipelined
     hist_ext = state.hist_ext
+    plastic = state.plastic
+    pre_frame = traces0 = None
+    if plastic is not None:
+        params = params._replace(w_local=plastic.w_local.reshape(c_all, n, n),
+                                 rem_w=plastic.rem_w.reshape(c_all, n, -1))
+        traces0 = STDPState(*(x.reshape(c_all, n) for x in plastic.traces))
+        pre_frame = plastic.traces.x_pre.reshape(s_local, th, tw, n)
 
-    # (1) the halo exchange of step t-1's spikes, first
+    # (1) the halo exchange of step t-1's spikes (and, under STDP, of the
+    # pre-traces x_pre(t-1)), first
     if exchange is None:
         exchange = make_exchange(cfg, spec, mesh)
-    ext_frame, aer_sat = exchange(state.pending)
+    ext_frame, pre_ext, aer_sat = exchange(state.pending, pre_frame)
     if aer_sat is None:
         aer_sat = torch.zeros_like(state.aer_sat)
 
@@ -539,15 +663,52 @@ def dist_step(cfg: DPSNNConfig, params: NetworkParams, state: DistState, *,
         c_all, stencil.n_offsets * n)
     ext_drive, ext_counts = net.external_drive(cfg, t, col_ids)
     lif0 = LIFState(*(x.reshape(c_all, n) for x in state.lif))
+    new_traces = None
     if impl == "cuda_fused":
-        lif, spikes, _, _ = net.fused_stage(cfg, params, lif0, None, s_loc,
-                                            s_flat, ext_drive)
+        lif, spikes, new_traces, _ = net.fused_stage(
+            cfg, params, lif0, traces0, s_loc, s_flat, ext_drive)
     else:
         deliver_local, deliver_remote, lif_update = net._stage_fns(impl)
         currents = deliver_local(s_loc, params.w_local)
         currents = currents + deliver_remote(s_flat, params.rem_flat,
                                              params.rem_w)
         lif, spikes = lif_update(cfg.neuron, lif0, currents + ext_drive)
+
+    # (3b) STDP over every local shard's columns at once: the local rule,
+    # and the remote rule through the pre-trace table cut from the
+    # extended trace frame (the single shard's one-step-lag table)
+    new_plastic = None
+    if plastic is not None:
+        trace_ext = None
+        if sparse_trace_halo(cfg, mesh):
+            # x_pre(t-1) = x_pre(t-2)*dp + spikes(t-1) at every neuron:
+            # fresh (shipped) values where a spike arrived, the previous
+            # halo decayed everywhere else (truncated spikes of a
+            # saturated list included, as in the reference), the shard's
+            # own traces inside
+            dp = stdp_constants(cfg.stdp_cfg, cfg.neuron.dt_ms,
+                                pre_frame.dtype)["dp"]
+            pre_ext = torch.where(ext_frame > 0, pre_ext,
+                                  plastic.trace_ext * dp)
+            pre_ext[:, r:r + th, r:r + tw] = pre_frame
+        if plastic.trace_ext is not None:
+            trace_ext = pre_ext
+        table = torch.stack([
+            net.offset_slice(pre_ext, dy, dx, r, th, tw, n)
+            for (dy, dx, _k, _delay, _p) in stencil.offsets], dim=3).reshape(
+                c_all, stencil.n_offsets * n)
+        new_params, traces = plast.stdp_update(
+            cfg, cfg.stdp_cfg, params, traces0, spikes,
+            neuron_types(cfg, spikes.device), pre_trace_table=table,
+            rem_flat=params.rem_flat, impl=impl,
+            # under cuda_fused the kernel advanced the traces
+            new_traces=new_traces if impl == "cuda_fused" else None)
+        new_plastic = PlasticState(
+            w_local=new_params.w_local.reshape(plastic.w_local.shape),
+            rem_w=new_params.rem_w.reshape(plastic.rem_w.shape),
+            traces=STDPState(*(x.reshape(plastic.traces.x_pre.shape)
+                               for x in traces)),
+            trace_ext=trace_ext)
 
     # (4) unpipelined: the exchanged frame t-1 goes into the ring after
     # the compute (first read at t+1)
@@ -572,6 +733,7 @@ def dist_step(cfg: DPSNNConfig, params: NetworkParams, state: DistState, *,
         t=state.t + 1,
         spike_count=state.spike_count + per_shard(spikes),
         event_count=state.event_count + events,
+        plastic=new_plastic,
         aer_sat=aer_sat,
         ext_pending=new_ext_pending,
         last_spike_t=torch.where(spiked, t, state.last_spike_t),
@@ -616,7 +778,9 @@ def make_distributed_run(cfg: DPSNNConfig, mesh, *, n_steps: int,
     It returns a :class:`DistResult`, with ``with_state`` followed by
     the final :class:`DistState`. The local shards' synapses are built
     here, once, from the seed (or taken from ``params``, a
-    :func:`build_shard` of the same mesh)."""
+    :func:`build_shard` of the same mesh). Under ``cfg.stdp`` a fresh
+    run starts its live weights from them; ``run(state)`` takes the
+    weights of ``state.plastic``."""
     net.check_supported(cfg, impl, mesh=True)
     spec = make_tile_spec(cfg, *mesh.shape)
     assert_axis_sizes(spec, mesh)
@@ -635,7 +799,7 @@ def make_distributed_run(cfg: DPSNNConfig, mesh, *, n_steps: int,
 
     def run(state: DistState | None = None):
         if state is None:
-            state = init_shard(cfg, spec, stencil, mesh)
+            state = init_shard(cfg, spec, stencil, mesh, params)
         else:      # the run writes its own copy of the ring
             state = state._replace(hist_ext=state.hist_ext.clone())
         step_spikes, step_sat = [], []

@@ -87,10 +87,6 @@ def check_supported(cfg: DPSNNConfig, impl: str, *,
             "pipelined: the cross-step pipelined halo exchange belongs to "
             "the multi-rank step (core/exchange.py); a single shard has no "
             "halo to pipeline")
-    if mesh and cfg.stdp:
-        raise NotImplementedError(
-            "stdp: multi-rank STDP (the pre-trace halo) waits for ROADMAP "
-            "queue 1 item 4; the single-shard step runs it")
     if mesh and cfg.guard.enabled:
         raise NotImplementedError(
             "guard: the multi-rank guard (HaloGuard, checksummed halo "

@@ -9,14 +9,16 @@ that the totals are bitwise equal (the determinism per column
 id that makes every scaling measurement trustworthy).
 
     PYTHONPATH=src python -m repro_torch.launch.launch_distributed \
-        --ranks 4 [--device cpu] [--state-dir DIR] \
+        --ranks 4 [--device cpu] [--state-dir DIR] [--stdp] \
         [--exchange-mode aer_sparse|auto] [--ranks-per-node 2]
 
 Events compare bitwise while every float32 accumulator holds an exact
 integer (a total below 2**24); past that, how the total was split over
 shards sets its rounding, and they are held to a relative 1e-6. With
 ``--state-dir`` the ranks write their final states there and the
-membrane potentials are compared bitwise too. An AER run whose event
+membrane potentials are compared bitwise too, and under ``--stdp`` the
+live weights and traces (``w_local``, ``rem_w``, ``x_pre``,
+``x_post``). An AER run whose event
 lists overflowed says so first (it is expected to differ). A node group
 shape that ``partition.make_node_spec`` rejects fails before any rank
 spawns. The exit status is non-zero on a worker failure, a timeout or a
@@ -45,6 +47,9 @@ SRC = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 EXACT = 2 ** 24          # float32 holds every integer below this
 EVENTS_RTOL = 1e-6
+# the final-state leaves the check compares bitwise (with --state-dir),
+# the last four under --stdp only
+STATE_LEAVES = ("v", "w_local", "rem_w", "x_pre", "x_post")
 
 
 def free_port() -> int:
@@ -69,6 +74,8 @@ def worker_argv(args) -> list:
         argv += ["--ranks-per-node", str(args.ranks_per_node)]
     if args.pipelined:
         argv.append("--pipelined")
+    if args.stdp:
+        argv.append("--stdp")
     if not args.compress:
         argv.append("--no-compress")
     if args.state_dir:
@@ -152,17 +159,25 @@ def launch(args) -> dict:
 def single_process_reference(args) -> dict:
     """The same workload on one shard in this process (the port's own
     ``simulation.run``): totals, and the final potentials ``v`` as numpy
-    (C, N) in global column order. The single shard has no halo, so a
-    ``--pipelined`` workload's reference is the plain one (the pipelined
-    schedule is bitwise-equal by construction)."""
+    (C, N) in global column order, under ``--stdp`` with the final
+    weights and traces (``STATE_LEAVES``) in the same order. The single
+    shard has no halo, so a ``--pipelined`` workload's reference is the
+    plain one (the pipelined schedule is bitwise-equal by
+    construction)."""
     from repro_torch.configs.base import ExchangeConfig
     from repro_torch.core import simulation as sim
 
     cfg = dataclasses.replace(build_cfg(args), exchange=ExchangeConfig())
     params, state = sim.build(cfg, device=args.device)
     res = sim.run(cfg, params, state, args.steps, impl=args.impl)
-    return {"spikes": float(res.spikes), "events": float(res.events),
-            "v": res.state.lif.v.cpu().numpy()}
+    out = {"spikes": float(res.spikes), "events": float(res.events),
+           "v": res.state.lif.v}
+    if cfg.stdp:
+        out.update(w_local=res.params.w_local, rem_w=res.params.rem_w,
+                   **res.state.stdp._asdict())
+    return {k: x.cpu().numpy() if k in STATE_LEAVES else x
+            for k, x in out.items()}
+
 
 
 def events_agree(multi: float, single: float) -> bool:
@@ -234,27 +249,28 @@ def main(argv=None) -> int:
     ref = single_process_reference(args)
     ok = (row["spikes"] == ref["spikes"]
           and events_agree(row["events"], ref["events"]))
-    if ok and args.state_dir:
+    leaves = [k for k in STATE_LEAVES if k in ref] if args.state_dir else []
+    if ok and leaves:
         spec = make_rank_tile_spec(build_cfg(args), args.ranks)
-        v = columns_to_global(
-            load_states(args.state_dir, args.ranks)["v"], spec)
-        ok = np.array_equal(v, ref["v"])
+        states = load_states(args.state_dir, args.ranks)
+        ok = all(np.array_equal(columns_to_global(states[k], spec), ref[k])
+                 for k in leaves)
     row["single_process_match"] = ok
     status = 0
     if ok and ref["events"] < EXACT:
         print(f"BITWISE-EQUAL vs single-process (spikes="
               f"{ref['spikes']:.0f}, events={ref['events']:.0f}"
-              f"{', v' if args.state_dir else ''})")
+              + "".join(f", {k}" for k in leaves) + ")")
     elif ok:
         print(f"EQUAL vs single-process: spikes={ref['spikes']:.0f}"
-              f"{' and v' if args.state_dir else ''} bitwise, events "
+              + "".join(f", {k}" for k in leaves) + " bitwise, events "
               f"{row['events']:.0f} vs {ref['events']:.0f} within "
               f"{EVENTS_RTOL:g} (float32 totals past 2**24)")
     else:
         print(f"MISMATCH vs single-process: multi "
               f"spikes={row['spikes']} events={row['events']} != "
               f"single spikes={ref['spikes']} events={ref['events']} "
-              f"(or v differs)")
+              f"(or {', '.join(leaves) or 'nothing else'} differs)")
         status = 1
 
     if args.json == "-":

@@ -14,7 +14,9 @@ prints the weights' drift over the whole run. ``--mesh RxC`` tiles the
 grid over an R x C shard grid in this process, all shards stacked into
 each kernel launch, with the halo exchange between them
 (``core/exchange.py``; ``--pipelined`` defers each exchanged frame by a
-step). The halo bytes it prints are those an interior rank of that
+step; with ``--stdp`` the pre-trace halo rides beside the spikes and
+the weights' drift is printed as on one shard). The halo bytes it
+prints are those an interior rank of that
 grid sends on the packed wire (``runtime/compression.py``); in one
 process the strips move as slices on the card.
 """
@@ -94,16 +96,21 @@ def main(argv=None):
     events = float(res.events - state.event_count)
     print(f"bytes/synapse: {M.bytes_per_synapse(cfg, params, res.state):.2f}")
     if cfg.stdp:
-        dw = (res.params.w_local - params0.w_local).abs()
-        print(f"STDP weight drift: mean |dw| "
-              f"{float(dw.sum() / (params0.w_local != 0).sum()):.3e}, "
-              f"max {float(dw.max()):.3e}")
+        print_drift(params0.w_local, res.params.w_local)
     print(f"{args.steps} steps in {dt:.2f}s "
           f"(after {WARMUP_STEPS} warm-up steps) | rate {rate:.2f} Hz | "
           f"{events:.3e} synaptic events | "
           f"{M.time_per_synaptic_event(dt, events):.3e} s/event | "
           f"{dt/sim_s:.1f}x slower than real time")
     return res
+
+
+def print_drift(w0: torch.Tensor, w: torch.Tensor) -> None:
+    """The local weights' drift over the whole run, warm-up included."""
+    dw = (w - w0).abs()
+    print(f"STDP weight drift: mean |dw| "
+          f"{float(dw.sum() / (w0 != 0).sum()):.3e}, "
+          f"max {float(dw.max()):.3e}")
 
 
 def run_mesh(cfg: DPSNNConfig, args, mesh):
@@ -139,6 +146,9 @@ def run_mesh(cfg: DPSNNConfig, args, mesh):
           f"{spec.rings_x} rings, {spec.permutes_per_step} shifts and "
           f"{payload['bytes_per_step']} halo bytes per step per interior "
           f"shard{', pipelined' if cfg.exchange.pipelined else ''}")
+    if cfg.stdp:
+        print_drift(params.w_local,
+                    final.plastic.w_local.reshape(params.w_local.shape))
     print(f"{args.steps} steps in {dt:.2f}s "
           f"(after {WARMUP_STEPS} warm-up steps) | rate {rate:.2f} Hz | "
           f"{events:.3e} synaptic events | "

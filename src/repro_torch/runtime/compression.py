@@ -20,9 +20,11 @@ over the horizontally-extended strips), so ``(phase, ring)`` keys index
 the sends ``core/exchange.py`` makes. Dense strips cross as
 ``ceil(N/32)`` 32-bit words per column unless ``compress=False``; an AER
 list is ``int32[1 + cap]`` with a capacity set by the configured rate
-bound, not by the realised activity. Integer math, so every number
-equals the reference's. The STDP trace strips' bytes wait for
-multi-rank STDP (ROADMAP queue 1 item 4).
+bound, not by the realised activity. Under STDP (``stdp``, default
+``cfg.stdp``) the pre-trace strips ride beside the spikes as raw
+float32: a dense ``a*b*N*4`` bytes per send, or on the flat AER wire
+``4*cap`` bytes of trace values at the list's addresses. Integer math,
+so every number equals the reference's.
 """
 from __future__ import annotations
 
@@ -32,11 +34,8 @@ from repro_torch.core.exchange import aer_capacity, halo_ring_widths
 from repro_torch.runtime.transport import packed_width
 
 
-def _static(cfg, stdp) -> None:
-    if cfg.stdp if stdp is None else stdp:
-        raise NotImplementedError(
-            "the STDP trace strips' bytes wait for multi-rank STDP "
-            "(ROADMAP queue 1 item 4)")
+def _plastic(cfg, stdp) -> bool:
+    return cfg.stdp if stdp is None else stdp
 
 
 def halo_send_shapes(spec) -> list:
@@ -64,8 +63,10 @@ def halo_payload_bytes(cfg, spec, *, mode: Optional[str] = None,
     strip is one ``int32[1 + cap]`` event list with ``cap =
     ceil(factor * a*b*N * rate_bound * dt)`` (``exchange.aer_capacity``).
     ``auto`` prices each send at the cheaper of the two (ties go
-    dense)."""
-    _static(cfg, stdp)
+    dense). Under STDP each send adds its trace strip: a*b*N*4 bytes
+    (dense and ``auto``, whose choice the trace never sways), or ``4 *
+    cap`` (AER: trace values at the list's addresses)."""
+    plastic = _plastic(cfg, stdp)
     mode = mode or cfg.conn.exchange_mode
     rate = (cfg.conn.aer_rate_bound_hz if rate_bound_hz is None
             else rate_bound_hz)
@@ -88,6 +89,8 @@ def halo_payload_bytes(cfg, spec, *, mode: Optional[str] = None,
             bytes_ = dense
         else:
             raise ValueError(f"unknown exchange mode {mode!r}")
+        if plastic:
+            bytes_ += 4 * cap if mode == "aer_sparse" else a * b * n * 4
         total += bytes_
     return {
         "mode": mode,
@@ -104,17 +107,20 @@ def aer_crossover_rate_hz(cfg, spec, *, stdp: Optional[bool] = None
     on the wire than 32x bit-packing for this tile geometry: equating
     ``4 * factor * nu * dt * M`` with the packed bytes over the summed
     strip units M, less the per-send count words and ceil slack, gives
-    ``nu* = (dense_bytes - overhead) / (4 * factor * dt * M)`` (the
-    static ``1 / (32 * factor * dt)`` up to that overhead)."""
-    _static(cfg, stdp)
+    ``nu* = (dense_bytes - overhead) / (4 * (1 + stdp) * factor * dt *
+    M)`` (the static ``1 / (32 * factor * dt)`` up to that overhead;
+    under STDP the dense side carries the float32 trace strips and each
+    event its trace value)."""
+    plastic = _plastic(cfg, stdp)
     dense = halo_payload_bytes(cfg, spec, mode="dense_packed",
-                               stdp=stdp)["bytes_per_step"]
+                               stdp=plastic)["bytes_per_step"]
     sends = halo_send_shapes(spec)
     m_units = sum(a * b for a, b in sends) * cfg.neurons_per_column
     overhead = 4 * len(sends) * 2            # count word + ceil slack bound
+    per_event = 4 * (2 if plastic else 1)
     dt_s = cfg.neuron.dt_ms * 1e-3
     return max(0.0, (dense - overhead) / (
-        4 * cfg.conn.aer_capacity_factor * dt_s * m_units))
+        per_event * cfg.conn.aer_capacity_factor * dt_s * m_units))
 
 
 def ring_send_entries(spec, node=None) -> list:
@@ -185,8 +191,10 @@ def hier_payload_bytes(cfg, spec, node, *, mode: Optional[str] = None,
     and direction, each strip priced by the node-level
     :func:`ring_mode_table` (``auto``) or uniformly. ``bytes_per_step``
     is the per-rank total (inter bytes shared by the g members), the
-    counterpart of :func:`halo_payload_bytes`."""
-    _static(cfg, stdp)
+    counterpart of :func:`halo_payload_bytes`. Under STDP every strip
+    adds its dense float32 trace, and the gathered frame the rank's raw
+    trace frame."""
+    plastic = _plastic(cfg, stdp)
     mode = mode or cfg.conn.exchange_mode
     n = cfg.neurons_per_column
     g = node.ranks_per_node
@@ -195,11 +203,16 @@ def hier_payload_bytes(cfg, spec, node, *, mode: Optional[str] = None,
     inter = 0
     caps = []
     for e in table:
-        inter += 2 * _ring_bytes(e, mode)             # both directions
+        bytes_ = _ring_bytes(e, mode)
+        if plastic:
+            bytes_ += e["rows"] * e["cols"] * n * 4   # dense f32 trace
+        inter += 2 * bytes_                           # both directions
         if (e["mode"] if mode == "auto" else mode) == "aer_sparse":
             caps.append(e["aer_capacity"])
     frame = spec.tile_h * spec.tile_w * (
         packed_width(n) * 4 if compress else n * 4)
+    if plastic:
+        frame += spec.tile_h * spec.tile_w * n * 4
     intra = (g - 1) * frame + inter                   # gather + broadcast rx
     return {
         "mode": mode,
@@ -225,11 +238,22 @@ def internode_totals(cfg, spec, node, *, hierarchical: bool,
     strips (and transposed for the horizontal seams), the vertical-phase
     strips' corner columns once per rank. Hierarchical: one message per
     neighbour-node pair and node-level ring, the corners once per
-    node."""
-    _static(cfg, stdp)
+    node. Under STDP each strip adds its trace: ``4 * cap`` on the flat
+    AER wire, dense float32 otherwise."""
+    plastic = _plastic(cfg, stdp)
     mode = mode or cfg.conn.exchange_mode
+    n = cfg.neurons_per_column
     table = ring_mode_table(cfg, spec, node if hierarchical else None,
                             rate_bound_hz=rate_bound_hz, compress=compress)
+
+    def strip_bytes(e):
+        b = _ring_bytes(e, mode)
+        if plastic:
+            if mode == "aer_sparse" and not hierarchical:
+                b += 4 * e["aer_capacity"]
+            else:
+                b += e["rows"] * e["cols"] * n * 4
+        return b
     if hierarchical:
         links_h = node.nodes_y * (node.nodes_x - 1)
         links_v = node.nodes_x * (node.nodes_y - 1)
@@ -239,7 +263,7 @@ def internode_totals(cfg, spec, node, *, hierarchical: bool,
     total = messages = 0
     for e in table:
         links = links_h if e["phase"] == "h" else links_v
-        total += 2 * links * _ring_bytes(e, mode)
+        total += 2 * links * strip_bytes(e)
         messages += 2 * links
     return {"bytes_per_step": total, "messages_per_step": messages,
             "mode": mode, "hierarchical": hierarchical}

@@ -21,6 +21,9 @@ processes (the port of ``repro/runtime/multiprocess.py``).
   the node's ranks all-gather their tiles, the lane-(0,0) corner ranks
   of neighbouring nodes exchange the node strips, and each corner
   broadcasts what it received to its node.
+* ``--stdp`` runs the plastic step: the pre-trace halo rides every wire
+  beside the spikes, and with ``--state-dir`` each rank saves its live
+  weights and traces with the rest of its state.
 
 With ``--device cuda`` (the default) every rank runs its shard's kernels
 on ``cuda:0``: ranks that share one card time-slice it, so their step
@@ -65,7 +68,8 @@ def init_worker(rank: int, n_ranks: int, coordinator: str,
 
 def save_state(state_dir: str, rank: int, state) -> None:
     """Write this rank's final stacked state to ``state_dir/rank<r>.npz``
-    (leaves of ``convert.dist_state_to_numpy``)."""
+    (leaves of ``convert.dist_state_to_numpy``, the plastic ones under
+    STDP)."""
     from repro_torch import convert
 
     os.makedirs(state_dir, exist_ok=True)
@@ -92,7 +96,9 @@ def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
 
     Timing: one untimed run warms the card and the connections; then one
     run is timed end to end (every rank waits for the all-reduced
-    totals, so the wall time holds every message of every step).
+    totals, so the wall time holds every message of every step). The
+    row also gives rank 0's kernel launches in the timed run and, on the
+    card, its peak memory.
     """
     import torch
     import torch.distributed as dist
@@ -107,8 +113,9 @@ def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
                             ranks_per_node=ranks_per_node)
     dev = mesh.device
     if dev.type == "cpu":      # the ranks share the host's cores
-        torch.set_num_threads(
-            max(1, (os.cpu_count() or 1) // dist.get_world_size()))
+        share = (os.cpu_count() or 1) // dist.get_world_size()
+        # at most what the environment allows (OMP_NUM_THREADS)
+        torch.set_num_threads(max(1, min(share, torch.get_num_threads())))
     build_s = ops.library().build_seconds if dev.type == "cuda" else 0.0
     run, spec = exchange.make_distributed_run(
         cfg, mesh, n_steps=n_steps, impl=impl, with_state=True)
@@ -120,10 +127,12 @@ def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
     run()                            # warm-up, untimed
     sync()
     dist.barrier()
+    ops.reset_launches()
     t0 = time.perf_counter()
     res, final = run()
     sync()
     wall_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
     # the kernel library is built once per checkout: a rank that had to
     # build it raised the maximum
     most = torch.tensor([build_s], dtype=torch.float64)
@@ -173,6 +182,7 @@ def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
         "state_checksum": float(res.state_checksum),
         "impl": impl,
         "compress": compress,
+        "stdp": cfg.stdp,
         "guard": cfg.guard.enabled,
         "pipelined": cfg.exchange.pipelined,
         # "auto" marks the per-ring policy, else the uniform wire format
@@ -184,6 +194,9 @@ def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
         "aer_saturated_per_step": sat.tolist(),
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
+        "launches": launches,
+        "peak_memory_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                           if dev.type == "cuda" else None),
         "library_build_s_max": float(most),
     }
 
@@ -214,6 +227,8 @@ def build_cfg(args):
             conn_kw["aer_capacity_factor"] = args.aer_capacity_factor
         cfg = dataclasses.replace(
             cfg, conn=dataclasses.replace(cfg.conn, **conn_kw))
+    if args.stdp:
+        cfg = dataclasses.replace(cfg, stdp=True)
     if args.pipelined or args.exchange_mode == "auto":
         cfg = dataclasses.replace(cfg, exchange=ExchangeConfig(
             pipelined=args.pipelined,
@@ -223,9 +238,9 @@ def build_cfg(args):
 
 
 def add_workload_args(ap: argparse.ArgumentParser) -> None:
-    """Workload flags shared by the worker and the launcher CLIs (the
-    static step: STDP and the guard wait for ROADMAP queue 1 items 4 and
-    6)."""
+    """Workload flags shared by the worker and the launcher CLIs (static
+    or, with ``--stdp``, plastic; the guard waits for ROADMAP queue 1
+    item 6)."""
     from repro_torch.core.network import IMPLS
 
     ap.add_argument("--grid", default="8x8", help="column grid HxW")
@@ -236,6 +251,8 @@ def add_workload_args(ap: argparse.ArgumentParser) -> None:
                     choices=["gauss", "exp", "gauss_exp"])
     ap.add_argument("--radius", type=int, default=0,
                     help="override the family's stencil bound (0 = keep)")
+    ap.add_argument("--stdp", action="store_true",
+                    help="plasticity on (STDPConfig defaults)")
     ap.add_argument("--impl", default="cuda_fused", choices=IMPLS)
     ap.add_argument("--device", default="cuda",
                     help="cuda (every rank on the current card) or cpu "

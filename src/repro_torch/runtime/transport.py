@@ -14,7 +14,7 @@ cols, ``'model'``), and a shard at the open sheet edge receives zeros
 move of a spike strip in the transport's wire format: with ``compress``
 every strip is packed into 32-bit words (:func:`pack_spikes`, the
 ``dense_packed`` wire) before the move and unpacked after. AER event
-lists are moved raw, never packed.
+lists and the STDP trace strips are moved raw, never packed.
 
 With a :class:`~repro_torch.core.partition.NodeSpec` (``node``) a
 transport also runs the node level of the two-level exchange
@@ -133,12 +133,16 @@ class _Transport:
                    ) -> torch.Tensor:
         return self._wire(self.node_move, x, axis, direction)
 
-    def gather_node(self, x: torch.Tensor) -> torch.Tensor:
-        """(*local, th, tw, N) spike tiles -> (*node_local, gy*th, gx*tw,
-        N) node frames, in the wire format."""
-        y = pack_spikes(x) if self.compress else x
+    def gather_node(self, x: torch.Tensor, pack: bool | None = None
+                    ) -> torch.Tensor:
+        """(*local, th, tw, N) tiles -> (*node_local, gy*th, gx*tw, N)
+        node frames, spikes in the wire format (packed when ``pack``,
+        which defaults to ``compress``); ``pack=False`` gathers the
+        STDP traces raw."""
+        pack = self.compress if pack is None else pack
+        y = pack_spikes(x) if pack else x
         g = _node_frames(self._lane_tiles(y), self.node_local, self.node)
-        return unpack_spikes(g, x.shape[-1], x.dtype) if self.compress else g
+        return unpack_spikes(g, x.shape[-1], x.dtype) if pack else g
 
 
 class LocalMesh(_Transport):

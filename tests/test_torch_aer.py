@@ -4,11 +4,12 @@ reference: the capacity, the event-list codec (``aer_encode`` /
 arrays against ``repro.core.exchange``'s, the stacked encode against one
 encode per shard, every function of the byte accounting against
 ``repro.runtime.compression``'s, AER and ``auto`` runs on an in-process
-mesh bitwise against the dense one and the port's single shard, and a
-saturating run against JAX's ``make_distributed_run`` on a forced 2x2
-mesh (one subprocess): spikes and per-step ``aer_saturated`` to the
-bit."""
+mesh bitwise against the dense one and the port's single shard, and
+saturating runs, flat and pipelined, against JAX's
+``make_distributed_run`` on a forced 2x2 mesh (one subprocess): spikes
+and per-step ``aer_saturated`` to the bit."""
 import dataclasses
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -117,22 +118,32 @@ GEOMETRIES = [(8, 8, 2, 2), (24, 24, 12, 12), (24, 24, 24, 24), (6, 6, 3, 3),
 @pytest.mark.parametrize("compress", [True, False])
 def test_byte_accounting_equals_reference(gh, gw, ry, rx, compress):
     """Every function of the accounting returns the reference's value
-    exactly, for the three modes at three rate bounds, and for every
-    node grouping of the process grid that ``make_node_spec`` accepts."""
+    exactly, for the three modes at three rate bounds, static and
+    plastic (the STDP trace strips counted), and for every node grouping
+    of the process grid that ``make_node_spec`` accepts."""
     mine = dpsnn.reduced_family("exp", gh, gw, 1240, radius=3)
     theirs = jdpsnn.reduced_family("exp", gh, gw, 1240, radius=3)
     spec = part.make_tile_spec(mine, ry, rx)
     jspec = jpart.make_tile_spec(theirs, ry, rx)
     assert comp.aer_crossover_rate_hz(mine, spec) == \
         jcomp.aer_crossover_rate_hz(theirs, jspec)
+    for stdp in (False, True):
+        assert comp.aer_crossover_rate_hz(mine, spec, stdp=stdp) == \
+            jcomp.aer_crossover_rate_hz(theirs, jspec, stdp=stdp)
+        assert comp.aer_crossover_rate_hz(
+            dataclasses.replace(mine, stdp=stdp), spec) == \
+            jcomp.aer_crossover_rate_hz(
+                dataclasses.replace(theirs, stdp=stdp), jspec)
     nodes = [(part.make_node_spec(ry, rx, g), jpart.make_node_spec(ry, rx, g))
              for g in range(1, ry * rx + 1) if (ry * rx) % g == 0
              and (g <= rx and rx % g == 0 or g % rx == 0 and ry % (g // rx)
                   == 0)]
     assert nodes
-    for mode in ("dense_packed", "aer_sparse", "auto"):
+    for mode, stdp in itertools.product(
+            ("dense_packed", "aer_sparse", "auto"), (False, True)):
         for rate in (None, 1.0, 500.0):
-            kw = dict(mode=mode, rate_bound_hz=rate, compress=compress)
+            kw = dict(mode=mode, rate_bound_hz=rate, compress=compress,
+                      stdp=stdp)
             assert comp.halo_payload_bytes(mine, spec, **kw) == \
                 jcomp.halo_payload_bytes(theirs, jspec, **kw)
             assert comp.ring_mode_table(mine, spec, rate_bound_hz=rate,
@@ -250,38 +261,44 @@ def test_auto_table_mixes_formats(shape):
 
 SATURATING = """
 import jax, numpy as np
-from repro.configs.base import DPSNNConfig, ConnectivityConfig
+from repro.configs.base import DPSNNConfig, ConnectivityConfig, ExchangeConfig
 from repro.core import exchange
 conn = ConnectivityConfig(exchange_mode='aer_sparse',
                           aer_rate_bound_hz=0.1, aer_capacity_factor=1.0)
-cfg = DPSNNConfig(grid_h=4, grid_w=4, neurons_per_column=32, seed=0,
-                  conn=conn)
 mesh = jax.make_mesh((2, 2), ('data', 'model'))
-run, _ = exchange.make_distributed_run(cfg, mesh, n_steps=%d,
-                                       with_state=True)
-res, st = run()
-np.savez('{out}/sat.npz', spikes=np.asarray(res.spikes),
-         events=np.asarray(res.events),
-         aer_saturated=np.asarray(res.aer_saturated),
-         hist_ext=np.asarray(st.hist_ext), pending=np.asarray(st.pending),
-         aer_sat=np.asarray(st.aer_sat), v=np.asarray(st.lif.v))
+for name, pipelined in (('sat', False), ('sat_pipelined', True)):
+    cfg = DPSNNConfig(grid_h=4, grid_w=4, neurons_per_column=32, seed=0,
+                      conn=conn, exchange=ExchangeConfig(pipelined=pipelined))
+    run, _ = exchange.make_distributed_run(cfg, mesh, n_steps=%d,
+                                           with_state=True)
+    res, st = run()
+    extra = {{}} if st.ext_pending is None else dict(
+        ext_pending=np.asarray(st.ext_pending))
+    np.savez('{out}/%%s.npz' %% name, spikes=np.asarray(res.spikes),
+             events=np.asarray(res.events),
+             aer_saturated=np.asarray(res.aer_saturated),
+             hist_ext=np.asarray(st.hist_ext),
+             pending=np.asarray(st.pending), aer_sat=np.asarray(st.aer_sat),
+             v=np.asarray(st.lif.v), **extra)
 print('OK')
 """ % STEPS
 
 
-def test_saturating_run_equals_jax(tmp_path):
-    """4x4x32 at a 0.1 Hz bound and factor 1 on a 2x2 mesh: the lists
-    overflow on most steps; spikes, events, the per-step flags, the last
-    step's per-shard flags, the ring and the pending frame equal JAX's
-    to the bit (the same events are truncated), v within the parity bar
-    (atol 2e-4)."""
-    assert "OK" in run_multidevice(SATURATING.format(out=tmp_path),
-                                   timeout=300)
-    want = np.load(tmp_path / "sat.npz")
+@pytest.fixture(scope="module")
+def jax_saturating(tmp_path_factory):
+    """JAX's saturating 2x2 runs, flat and pipelined, from one forced
+    4-device subprocess."""
+    out = tmp_path_factory.mktemp("jax_sat")
+    assert "OK" in run_multidevice(SATURATING.format(out=out), timeout=300)
+    return {name: dict(np.load(out / f"{name}.npz"))
+            for name in ("sat", "sat_pipelined")}
+
+
+def _assert_saturating_run_equals_jax(want, pipelined):
     conn = ConnectivityConfig(exchange_mode="aer_sparse",
                               aer_rate_bound_hz=0.1, aer_capacity_factor=1.0)
     cfg = DPSNNConfig(grid_h=4, grid_w=4, neurons_per_column=32, seed=0,
-                      conn=conn)
+                      conn=conn, exchange=ExchangeConfig(pipelined=pipelined))
     run, _ = ex.make_distributed_run(cfg, LocalMesh(2, 2, "cpu"),
                                      n_steps=STEPS, impl="ref",
                                      with_state=True)
@@ -291,8 +308,28 @@ def test_saturating_run_equals_jax(tmp_path):
     np.testing.assert_array_equal(sat, want["aer_saturated"])
     assert float(res.spikes) == float(want["spikes"])
     assert float(res.events) == float(want["events"])
-    for leaf in ("hist_ext", "pending", "aer_sat"):
+    leaves = ("hist_ext", "pending", "aer_sat") + (
+        ("ext_pending",) if pipelined else ())
+    assert ("ext_pending" in want) == pipelined
+    for leaf in leaves:
         np.testing.assert_array_equal(getattr(st, leaf).numpy(), want[leaf],
                                       leaf)
     np.testing.assert_allclose(st.lif.v.numpy(), want["v"], rtol=0,
                                atol=2e-4)
+
+
+def test_saturating_run_equals_jax(jax_saturating):
+    """4x4x32 at a 0.1 Hz bound and factor 1 on a 2x2 mesh: the lists
+    overflow on most steps; spikes, events, the per-step flags, the last
+    step's per-shard flags, the ring and the pending frame equal JAX's
+    to the bit (the same events are truncated), v within the parity bar
+    (atol 2e-4)."""
+    _assert_saturating_run_equals_jax(jax_saturating["sat"], False)
+
+
+def test_saturating_pipelined_run_equals_jax(jax_saturating):
+    """The same saturating run under the pipelined schedule: the
+    truncated frames are carried a step in ``ext_pending`` before they
+    reach the ring, and flags, spikes, events, the ring, the pending and
+    in-flight frames equal JAX's to the bit, v within the bar."""
+    _assert_saturating_run_equals_jax(jax_saturating["sat_pipelined"], True)

@@ -15,6 +15,16 @@ from repro.core import connectivity as jconn
 from repro_torch.configs import base, dpsnn
 from repro_torch.core import connectivity as conn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Small tensors: one intra-op thread, as test_torch_distributed.py."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 PROPS = ("n_columns", "n_neurons", "stencil_radius", "local_fanin",
          "remote_fanin", "recurrent_synapses", "total_equivalent_synapses",
          "max_delay_steps")

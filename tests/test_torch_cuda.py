@@ -349,3 +349,42 @@ def test_wire_steps_never_wait_for_the_card(cuda_device, wire):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert int(res.aer_saturated.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["dense_packed", "aer_sparse", "hier"])
+@pytest.mark.parametrize("impl", ["cuda", "cuda_fused"])
+def test_plastic_mesh_step_never_waits_for_the_card(cuda_device, wire,
+                                                    impl):
+    """Plastic steps on an in-process 2x2 mesh under sync debug mode
+    "error": neither the trace halo (dense, AER with its rebuild from
+    ``trace_ext``, hierarchical) nor the STDP update over the stacked
+    shards makes the host wait for the card; one launch of each plastic
+    kernel per step for all four shards."""
+    import dataclasses
+
+    from repro_torch.core import exchange
+    from repro_torch.core.partition import NodeSpec
+    from repro_torch.runtime.transport import LocalMesh
+    base = DPSNNConfig(grid_h=4, grid_w=4, neurons_per_column=48, seed=3,
+                       stdp=True)
+    cfg = dataclasses.replace(base, conn=dataclasses.replace(
+        base.conn, aer_rate_bound_hz=500.0,
+        exchange_mode="aer_sparse" if wire == "aer_sparse"
+        else "dense_packed"))
+    node = NodeSpec(2, 1, 1, 2) if wire == "hier" else None
+    run, _ = exchange.make_distributed_run(
+        cfg, LocalMesh(2, 2, cuda_device, node=node, compress=True),
+        n_steps=3, impl=impl, with_state=True)
+    _, state = run()                     # builds the kernels
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res, final = run(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert _build.LAUNCHES["stdp_dense_update"] == 3
+    assert _build.LAUNCHES["stdp_remote_update"] == 3
+    assert (final.plastic.trace_ext is not None) == (wire == "aer_sparse")
+    assert float(res.spikes) > 0

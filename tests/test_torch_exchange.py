@@ -29,6 +29,15 @@ from repro_torch.runtime.transport import (LocalMesh, ProcessGroupMesh,
                                            assert_axis_sizes)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Small tensors: one intra-op thread, as test_torch_distributed.py."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("n", [1, 31, 32, 33, 64, 1240])
 def test_pack_spikes_bitwise_against_reference(n):
     rng = np.random.default_rng(n)
@@ -77,19 +86,26 @@ def test_exchange_halo_is_the_padded_global_window(mesh, grid, radius,
                                                    compress):
     """Every shard's extended frame equals its window of the zero-padded
     global frame, tiles thinner than the radius included (chained
-    rings: 1x1 and 1x2 tiles at radius 2 and 3)."""
+    rings: 1x1 and 1x2 tiles at radius 2 and 3); so does the extended
+    STDP trace frame that rides beside it, raw even on the packed
+    wire."""
     ry, rx = mesh
     gh, gw = grid
     n = 37
     spec = part.TileSpec(ry, rx, gh // ry, gw // rx, radius)
-    g = (torch.from_numpy(np.random.default_rng(radius).random(
-        (gh, gw, n))) < 0.4).to(torch.float32)
+    rng = np.random.default_rng(radius)
+    g = (torch.from_numpy(rng.random((gh, gw, n))) < 0.4).to(torch.float32)
+    tr = torch.from_numpy(rng.uniform(0, 5, (gh, gw, n)).astype(np.float32))
     frames = part.global_to_tiles(g, spec)
-    ext = ex.exchange_halo(frames, spec,
-                           LocalMesh(ry, rx, "cpu", compress=compress))
+    mesh = LocalMesh(ry, rx, "cpu", compress=compress)
+    ext = ex.exchange_halo(frames, spec, mesh)
     assert ext.shape == (ry * rx, spec.tile_h + 2 * radius,
                          spec.tile_w + 2 * radius, n)
     assert torch.equal(ext, _padded_window(g, spec, radius))
+    ext2, ext_tr = ex.exchange_halo(frames, spec, mesh,
+                                    trace=part.global_to_tiles(tr, spec))
+    assert torch.equal(ext2, ext)
+    assert torch.equal(ext_tr, _padded_window(tr, spec, radius))
 
 
 def test_local_mesh_shift_and_edges():
@@ -150,32 +166,42 @@ def test_schedule_checks_raise_the_reference_text():
                                          (12, 6, 6, 6), (6, 12, 1, 12)])
 @pytest.mark.parametrize("compress", [True, False])
 def test_payload_accounting_equals_reference(gh, gw, ry, rx, compress):
-    """Static bytes under dense_packed, aer_sparse and auto equal the
-    reference's; the STDP trace strips (item 4) are refused."""
-    mine = dpsnn.reduced_family("exp", gh, gw, 1240, radius=3)
-    theirs = jdpsnn.reduced_family("exp", gh, gw, 1240, radius=3)
-    spec = part.make_tile_spec(mine, ry, rx)
-    jspec = jpart.make_tile_spec(theirs, ry, rx)
-    assert comp.halo_send_shapes(spec) == jcomp.halo_send_shapes(jspec)
-    assert comp.halo_payload_bytes(mine, spec, compress=compress) == \
-        jcomp.halo_payload_bytes(theirs, jspec, compress=compress)
-    for mode in ("aer_sparse", "auto"):
-        assert comp.halo_payload_bytes(mine, spec, mode=mode,
-                                       compress=compress) == \
-            jcomp.halo_payload_bytes(theirs, jspec, mode=mode,
-                                     compress=compress)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        comp.halo_payload_bytes(dataclasses.replace(mine, stdp=True), spec)
+    """Static and plastic bytes (the STDP trace strips counted, from the
+    config's flag and from ``stdp=``) under dense_packed, aer_sparse and
+    auto equal the reference's."""
+    for plastic in (False, True):
+        mine = dpsnn.reduced_family("exp", gh, gw, 1240, radius=3)
+        theirs = jdpsnn.reduced_family("exp", gh, gw, 1240, radius=3)
+        mine = dataclasses.replace(mine, stdp=plastic)
+        theirs = dataclasses.replace(theirs, stdp=plastic)
+        spec = part.make_tile_spec(mine, ry, rx)
+        jspec = jpart.make_tile_spec(theirs, ry, rx)
+        assert comp.halo_send_shapes(spec) == jcomp.halo_send_shapes(jspec)
+        assert comp.halo_payload_bytes(mine, spec, compress=compress) == \
+            jcomp.halo_payload_bytes(theirs, jspec, compress=compress)
+        for mode in ("aer_sparse", "auto"):
+            assert comp.halo_payload_bytes(mine, spec, mode=mode,
+                                           compress=compress) == \
+                jcomp.halo_payload_bytes(theirs, jspec, mode=mode,
+                                         compress=compress)
+            assert comp.halo_payload_bytes(
+                mine, spec, mode=mode, compress=compress,
+                stdp=not plastic) == jcomp.halo_payload_bytes(
+                    theirs, jspec, mode=mode, compress=compress,
+                    stdp=not plastic)
 
 
 def test_mesh_refusals_name_their_roadmap_items():
-    """STDP (item 4) and the guard (item 6) are refused on a mesh; an
+    """The guard (item 6) is refused on a mesh, STDP no longer; an
     unknown wire format or policy raises the reference's text."""
     from repro_torch.configs.base import GuardConfig
     base = dpsnn.reduced(4, 4, 16)
     mesh = LocalMesh(2, 2, "cpu")
-    for change, item in [(dict(stdp=True), "item 4"),
-                         (dict(guard=GuardConfig(enabled=True)), "item 6")]:
+    ex.make_distributed_run(dataclasses.replace(base, stdp=True), mesh,
+                            n_steps=1)
+    for change, item in [(dict(guard=GuardConfig(enabled=True)), "item 6"),
+                         (dict(stdp=True, guard=GuardConfig(enabled=True)),
+                          "item 6")]:
         with pytest.raises(NotImplementedError, match=item):
             ex.make_distributed_run(dataclasses.replace(base, **change),
                                     mesh, n_steps=1)

@@ -6,7 +6,7 @@ hierarchical runs bitwise against the flat ones (both wire formats,
 ``auto`` and pipelined; the reference's 8x8x32 gauss_exp geometry at
 radius 6, ``tests/test_hier_exchange.py``), and against JAX's own
 hierarchical ``(2, 1, 1, 2)`` mesh on four forced host devices (one
-subprocess)."""
+subprocess), a saturating AER run included."""
 import dataclasses
 
 import numpy as np
@@ -16,7 +16,8 @@ from _subproc import run_multidevice
 
 from repro.core import partition as jpart
 from repro_torch import convert
-from repro_torch.configs.base import DPSNNConfig, ExchangeConfig
+from repro_torch.configs.base import (ConnectivityConfig, DPSNNConfig,
+                                      ExchangeConfig)
 from repro_torch.configs.dpsnn import with_family
 from repro_torch.core import exchange as ex
 from repro_torch.core import partition as part
@@ -78,25 +79,32 @@ def test_hier_exchange_is_the_padded_global_window(mesh, grid, g, radius,
     of the zero-padded global frame, node rings chained past one node
     (radius 3 over nodes 2 tiles wide) included. ``mixed`` sends the
     first ring of each phase as AER and the rest dense; the bound is
-    high enough that no list overflows."""
+    high enough that no list overflows. The STDP trace frame rides
+    beside the spikes raw (gathered unpacked on the packed wire) and is
+    windowed the same way."""
     ry, rx = mesh
     gh, gw = grid
     n = 37
     spec = part.TileSpec(ry, rx, gh // ry, gw // rx, radius)
     node = part.make_node_spec(ry, rx, g)
-    frames = (torch.from_numpy(np.random.default_rng(radius + g).random(
+    rng = np.random.default_rng(radius + g)
+    frames = (torch.from_numpy(rng.random(
         (ry * rx, spec.tile_h, spec.tile_w, n))) < 0.3).to(torch.float32)
+    trace = torch.from_numpy(rng.uniform(0, 5, frames.shape).astype(
+        np.float32))
     lm = LocalMesh(ry, rx, "cpu", compress=wire == "packed", node=node)
     modes = None
     if wire == "mixed":
         modes = {(p, k): "aer_sparse" if k == 1 else "dense_packed"
                  for p in "hv" for k in range(1, radius + 1)}
-    ext, sat = ex.exchange_halo_hier(
+    ext, ext_tr, sat = ex.exchange_halo_hier(
         frames, spec, lm, modes=modes,
         mode="aer_sparse" if wire == "aer" else "dense_packed",
-        rate_bound_hz=1000.0, capacity_factor=1.0, dt_ms=1.0)
+        rate_bound_hz=1000.0, capacity_factor=1.0, dt_ms=1.0, trace=trace)
     want = _padded_window(part.tiles_to_global(frames, spec), spec, radius)
     assert torch.equal(ext, want)
+    assert torch.equal(ext_tr, _padded_window(
+        part.tiles_to_global(trace, spec), spec, radius))
     if wire in ("aer", "mixed"):
         assert sat.shape == (ry * rx,) and not bool(sat.any())
     else:
@@ -110,7 +118,7 @@ def test_hier_overflow_flags_every_lane_of_the_node():
     node = part.make_node_spec(2, 2, 2)             # nodes of 1x2
     frames = torch.zeros(4, 2, 2, 5)
     frames[:2] = 1.0                                # node 0 fires
-    _, sat = ex.exchange_halo_hier(
+    _, _, sat = ex.exchange_halo_hier(
         frames, spec, LocalMesh(2, 2, "cpu", node=node), mode="aer_sparse",
         rate_bound_hz=1.0, capacity_factor=1.0, dt_ms=1.0)
     assert sat.tolist() == [True, True, False, False]
@@ -174,18 +182,24 @@ def test_hier_run_equals_flat(runs, case, g):
 
 JAX_HIER = """
 import dataclasses, numpy as np, jax
-from repro.configs.base import DPSNNConfig, ExchangeConfig
+from repro.configs.base import ConnectivityConfig, DPSNNConfig, ExchangeConfig
 from repro.configs.dpsnn import with_family
 from repro.core import exchange
 base = with_family(DPSNNConfig(grid_h=8, grid_w=8, neurons_per_column=32,
                                seed=3), "gauss_exp")
 mesh = jax.make_mesh((2, 1, 1, 2), ("ndata", "data", "nmodel", "model"))
+cfgs = {{}}
 for name, mode, policy in (("aer", "aer_sparse", "inherit"),
                            ("auto", "dense_packed", "auto")):
     conn = dataclasses.replace(base.conn, radius=6, exchange_mode=mode,
                                aer_rate_bound_hz=100.0)
-    cfg = dataclasses.replace(base, conn=conn,
-                              exchange=ExchangeConfig(exchange_mode=policy))
+    cfgs[name] = dataclasses.replace(
+        base, conn=conn, exchange=ExchangeConfig(exchange_mode=policy))
+cfgs["sat"] = DPSNNConfig(grid_h=4, grid_w=4, neurons_per_column=32, seed=0,
+                          conn=ConnectivityConfig(exchange_mode="aer_sparse",
+                                                  aer_rate_bound_hz=0.1,
+                                                  aer_capacity_factor=1.0))
+for name, cfg in cfgs.items():
     run, _ = exchange.make_distributed_run(cfg, mesh, n_steps=%d,
                                            with_state=True)
     res, st = run()
@@ -205,11 +219,12 @@ print('OK')
 
 @pytest.fixture(scope="module")
 def jax_hier(tmp_path_factory):
-    """JAX's hierarchical (2, 1, 1, 2) runs, AER and auto, 40 steps."""
+    """JAX's hierarchical (2, 1, 1, 2) runs, AER, auto and a saturating
+    AER run, 40 steps."""
     out = tmp_path_factory.mktemp("jax_hier")
     assert "OK" in run_multidevice(JAX_HIER.format(out=out), timeout=300)
     return {name: dict(np.load(out / f"{name}.npz"))
-            for name in ("aer", "auto")}
+            for name in ("aer", "auto", "sat")}
 
 
 @pytest.mark.parametrize("case", ["aer", "auto"])
@@ -219,7 +234,10 @@ def test_hier_run_equals_jax_hier_mesh(runs, jax_hier, case):
     spike times, ISI sums and counters bitwise; v and c within the parity
     bar of tests/test_simulator.py (atol 2e-4)."""
     res, st = runs(case, 2)
-    want = jax_hier[case]
+    _assert_matches_jax_hier(res, st, jax_hier[case])
+
+
+def _assert_matches_jax_hier(res, st, want):
     assert float(res.spikes) == float(want["res_spikes"])
     assert float(res.events) == float(want["res_events"])
     np.testing.assert_array_equal(res.aer_saturated.numpy(), want["res_sat"])
@@ -229,3 +247,22 @@ def test_hier_run_equals_jax_hier_mesh(runs, jax_hier, case):
         np.testing.assert_array_equal(st[leaf], want[leaf], leaf)
     np.testing.assert_allclose(st["v"], want["v"], rtol=0, atol=2e-4)
     np.testing.assert_allclose(st["c"], want["c"], rtol=0, atol=2e-4)
+
+
+def test_saturating_hier_run_equals_jax_hier_mesh(jax_hier):
+    """4x4x32 at a 0.1 Hz bound and factor 1 in nodes of 1x2: the node
+    frames' lists overflow on most steps, every lane of a node carries
+    its flag, and the same events are truncated as on JAX's (2, 1, 1, 2)
+    mesh: the per-step flags, spikes, events, ring and pending frame to
+    the bit, v within the bar."""
+    cfg = DPSNNConfig(grid_h=4, grid_w=4, neurons_per_column=32, seed=0,
+                      conn=ConnectivityConfig(exchange_mode="aer_sparse",
+                                              aer_rate_bound_hz=0.1,
+                                              aer_capacity_factor=1.0))
+    run, _ = ex.make_distributed_run(
+        cfg, LocalMesh(2, 2, "cpu", node=part.make_node_spec(2, 2, 2)),
+        n_steps=STEPS, impl="ref", with_state=True)
+    res, st = run()
+    assert STEPS // 2 < int(res.aer_saturated.sum()) <= STEPS
+    _assert_matches_jax_hier(res, convert.dist_state_to_numpy(st),
+                             jax_hier["sat"])

@@ -6,6 +6,19 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Small tensors: one intra-op thread, as test_torch_distributed.py."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 PROBE = """

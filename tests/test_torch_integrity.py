@@ -27,6 +27,15 @@ from repro_torch.runtime.integrity import (TRIP_AER_SAT, TRIP_BOUNDS,
                                            guard_update, init_guard)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Small tensors: one intra-op thread, as test_torch_distributed.py."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _cfg(stdp=False, guard=None, seed=42):
     cfg = D.reduced(4, 4, 32, seed=seed, stdp=stdp)
     if guard is not None:

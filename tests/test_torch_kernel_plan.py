@@ -6,9 +6,20 @@ the CTAs' item shares cover every (column, target block) item exactly
 once. No card, no JAX: the plan is computed from the shapes and an SM
 count (132 on an H100 SXM)."""
 import pytest
+import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import plan as P
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Small tensors: one intra-op thread, as test_torch_distributed.py."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 H100_SMS = 132
 # the persistent ELL kernels

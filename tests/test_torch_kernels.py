@@ -22,6 +22,16 @@ from repro.kernels import ref as jref
 from repro_torch.configs.base import NeuronConfig
 from repro_torch.kernels import _build, ops, ref
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Small tensors: one intra-op thread, as test_torch_distributed.py."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -3,14 +3,35 @@ spawns N workers on gloo (``--device cpu``, the plain versions) and holds
 their totals and final potentials bitwise against its own
 ``single_process_reference``, on the packed wire and with float32
 strips, pipelined, with chained rings across processes, and in node
-groups under the hierarchical exchange on both wire formats. Every
+groups under the hierarchical exchange on both wire formats; plastic
+ranks (``--stdp``) with their live weights and traces as well. Every
 launch runs under a timeout, and a failed rank is named."""
 import json
 
 import pytest
+import torch
 
 from repro_torch.core.partition import make_node_spec, process_grid
 from repro_torch.launch import launch_distributed as ld
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Small tensors: one intra-op thread, as test_torch_distributed.py."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread_ranks():
+    """One intra-op thread in every rank too: the launcher hands its
+    environment on to the ranks it spawns."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+
 
 TIMEOUT = "120"
 
@@ -87,6 +108,32 @@ def test_ranks_in_nodes_equal_single_process(tmp_path, capsys, wire):
     assert row["intra_node_bytes_per_rank"] > 0
     assert row["aer_saturated_steps"] == 0
     assert row["aer_saturated_per_step"] == [0] * 16
+
+
+@pytest.mark.parametrize("ranks,grid,flags", [
+    (2, "4x4", []),
+    (4, "8x8", ["--ranks-per-node", "2"])])
+def test_plastic_ranks_equal_single_process(tmp_path, capsys, ranks, grid,
+                                            flags):
+    """``--stdp``: the pre-trace halo crosses the processes beside the
+    spikes (in nodes of 2 through the node gather and the corner
+    ranks), and the ranks' saved weights and traces equal the single
+    process's to the bit, beside spikes, events and v."""
+    status = ld.main(["--ranks", str(ranks), "--stdp", "--grid", grid,
+                      "--neurons", "32", "--steps", "30", "--seed", "3",
+                      "--impl", "ref", "--device", "cpu",
+                      "--timeout", TIMEOUT, "--state-dir",
+                      str(tmp_path / "states"), "--json", "-", *flags])
+    out = capsys.readouterr().out
+    assert status == 0, out
+    assert "BITWISE-EQUAL" in out
+    assert ", v, w_local, rem_w, x_pre, x_post)" in out
+    row = json.loads(out.strip().splitlines()[-1])
+    assert row["stdp"] is True and row["single_process_match"] is True
+    assert row.get("ranks_per_node") == (2 if flags else None)
+    # the CPU runs the kernels' plain versions: no launch is counted
+    assert row["launches"] == dict.fromkeys(row["launches"], 0)
+    assert row["peak_memory_gb"] is None
 
 
 @pytest.mark.parametrize("flags,text", [

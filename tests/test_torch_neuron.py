@@ -14,6 +14,15 @@ from repro_torch.configs.base import NeuronConfig
 from repro_torch.core import neuron, prng
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Small tensors: one intra-op thread, as test_torch_distributed.py."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _states(seed, n):
     rng = np.random.default_rng(seed)
     v = rng.uniform(0, 21, n).astype(np.float32)

@@ -13,6 +13,16 @@ from repro.core import partition as jpart
 from repro_torch.configs import dpsnn
 from repro_torch.core import partition as part
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Small tensors: one intra-op thread, as test_torch_distributed.py."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 GRIDS = [(8, 8, 1, 1), (8, 8, 2, 2), (8, 8, 1, 4), (8, 8, 4, 1),
          (8, 8, 8, 8), (6, 6, 3, 3), (24, 24, 12, 12), (24, 24, 24, 24),
          (6, 10, 2, 5)]

@@ -43,6 +43,16 @@ from repro_torch.core import simulation as sim
 from repro_torch.core.connectivity import build_stencil, neuron_types
 from repro_torch.kernels import ops, ref
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Small tensors: one intra-op thread, as test_torch_distributed.py."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 STDP_KW = dict(a_plus=0.05, a_minus=0.055)
 
 

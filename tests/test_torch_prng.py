@@ -30,6 +30,16 @@ from repro_torch.core import prng
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import keyed_drive as kd
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Small tensors: one intra-op thread, as test_torch_distributed.py."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SEEDS = [0, 1, 42, 2**31 - 1]
 SHAPES = [(7,), (64, 64), (1240,)]

@@ -30,6 +30,15 @@ from repro_torch.core import network as net
 from repro_torch.core import simulation as sim
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Small tensors: one intra-op thread, as test_torch_distributed.py."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _jax_drive(cfg, n_steps, t0=0):
     col_ids = jnp.arange(cfg.n_columns, dtype=jnp.int32)
     draw = jax.jit(lambda t: jnet.external_drive(cfg, t, col_ids)[1])
