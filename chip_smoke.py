@@ -88,7 +88,30 @@ then, on the card:
    its STDP epilogue, ``stdp_dense_update``, ``stdp_remote_update``,
    ``keyed_drive``; or the staged kernels), its device time and largest
    op outside the kernels, halo bytes with the trace strips, and peak
-   memory.
+   memory;
+6. drives the batched multi-tenant service (``core/batched.py``,
+   ``launch/serve.py``) on the same grid under ``cuda_fused``, after
+   holding every tenant-axis kernel (one launch for B tenants) to one
+   launch per tenant and to its plain version on random inputs: (a) a
+   one-slot server's job of seed 42 equals phase 3's run to the bit;
+   (b) four static tenants (seeds 42-45, ``nu_scale`` 1.0, 0.8, 1.0,
+   1.5) each equal their dedicated ``simulation.run(seed=, nu_scale=)``,
+   with one ``fused_step`` and one ``keyed_drive`` launch per loop step
+   for all four and one copy of the weights; (c) 8 jobs of staggered
+   durations recycled through 4 slots, under ``cuda_fused`` and under
+   ``cuda``, every JobResult equal to its dedicated run; (d) four plastic
+   guarded tenants of 30 to 50 steps in one chunk, weights and traces
+   equal to their dedicated plastic runs (the first kept its weights
+   through its batch-mates' last steps), with peak memory; (e) the guard
+   on and one of
+   four tenants poisoned at step 9: quarantined at step 9, its
+   batch-mates equal an unpoisoned server's; then the static service's
+   ms per loop step, tenant-steps/s and device time at B = 1, 2, 4, 8,
+   and ``fused_step`` and ``keyed_drive`` over B tenants beside their
+   bounds (``fused_step`` also as one launch per tenant); the
+   tenant-axis kernels at B = 4 join the ``{"kernels": ...}`` line with
+   their library calls (``torch.bmm`` for ``synapse_matmul``, cuSPARSE
+   ``A @ X`` of B columns for ``ell_gather``).
 
 Every phase raises on failure and the script exits non-zero. Without a
 card, or without the rest of the repository beside it, it exits
@@ -173,6 +196,20 @@ NEUTRAL_STEPS = 50        # guard on against off, plastic, bitwise
 # phase 5d: the final leaves a plastic mesh or rank run is held to, bitwise
 PLASTIC_LEAVES = ("v", "w_local", "rem_w", "x_pre", "x_post")
 PLASTIC_TOL = dict(rtol=1e-6, atol=1e-6)   # weights across impls
+# phase 6: the batched service. 6b's tenants (seed, nu_scale), the chunk,
+# the batch widths timed (each for SERVICE_TIMED loop steps after
+# WARMUP_STEPS), 6d's plastic durations (one per tenant), and the width
+# of the tenant-axis kernels' entries in the {"kernels": ...} line: the
+# width at which 6b, 6c and 6d run them
+SERVICE_TENANTS = ((42, 1.0), (43, 0.8), (44, 1.0), (45, 1.5))
+SERVICE_CHUNK = 32
+SERVICE_WIDTHS = (1, 2, 4, 8)
+SERVICE_TIMED = 100
+SERVICE_PLASTIC_STEPS = (30, 50, 50, 40)
+TENANT_B = 4
+# the kernels that take the tenant axis (lif_step runs on its rows as is)
+TENANT_KERNELS = ("keyed_drive", "synapse_matmul", "ell_gather",
+                  "fused_step", "stdp_dense_update", "stdp_remote_update")
 
 
 def log(*args):
@@ -241,6 +278,9 @@ class Smoke:
                                                 launch_distributed,
                                                 multiprocess)
         self.LocalMesh = transport.LocalMesh
+        from repro_torch.core import batched
+        from repro_torch.launch import serve
+        self.batched, self.serve = batched, serve
         self.ExchangeConfig = base.ExchangeConfig
         self.payload_bytes = compression.halo_payload_bytes
         self.comp = compression
@@ -421,12 +461,20 @@ class Smoke:
         self.wire_rank_path(cfg, fused)
         self.plastic_rank_path(cfg, plastic_one)
         del plastic_one
+        torch.cuda.empty_cache()
 
-        kernels = [dict(name=name, route="cuda", source=SOURCES[name],
+        # 6. the batched multi-tenant service, held to phase 3 and to each
+        # tenant's dedicated run
+        self.service_path(cfg, fused)
+
+        tenant = {f"{name}[B={TENANT_B}]": name for name in TENANT_KERNELS}
+        names = {**{name: name for name in (*TPU_KERNELS, *PORT_KERNELS)},
+                 **tenant}
+        kernels = [dict(name=label, route="cuda", source=SOURCES[name],
                         replaces={**TPU_KERNELS, **PORT_KERNELS}[name],
                         tpu_kernel=TPU_KERNELS.get(name),
-                        **self.report["kernels"][name])
-                   for name in (*TPU_KERNELS, *PORT_KERNELS)]
+                        **self.report["kernels"][label])
+                   for label, name in names.items()]
         log(f"total {time.perf_counter()-t_start:.1f} s")
         out = ROOT / "build"
         out.mkdir(exist_ok=True)
@@ -1152,20 +1200,9 @@ class Smoke:
         return lambda: torch.bmm(s, params.w_local)
 
     def library_spmv(self, x, params):
-        """One cuSPARSE CSR product computing ell_gather: row (c, n) holds
-        the entries at columns c*T + idx[c, n, k] (duplicates summed when
-        the matrix is built)."""
-        torch = self.torch
-        c, n, k = params.rem_flat.shape
-        t = x["s_flat"].shape[1]
-        rows = torch.arange(c * n, device=self.dev).repeat_interleave(k)
-        cols = (params.rem_flat.long()
-                + (torch.arange(c, device=self.dev) * t)[:, None, None])
-        a = torch.sparse_coo_tensor(
-            torch.stack([rows, cols.reshape(-1)]), params.rem_w.reshape(-1),
-            size=(c * n, c * t), check_invariants=True
-        ).coalesce().to_sparse_csr()
-        del rows, cols
+        """One cuSPARSE CSR product computing ell_gather (``ell_csr``)."""
+        c, n, _ = params.rem_flat.shape
+        a = self.ell_csr(params, x["s_flat"].shape[1])
         tbl = x["s_flat"].reshape(-1)
         want = self.ref.ell_gather_ref(x["s_flat"], params.rem_flat,
                                        params.rem_w)
@@ -1173,6 +1210,19 @@ class Smoke:
                    scale=self.scale_remote(x["s_flat"], params.rem_flat,
                                            params.rem_w))
         return lambda: a @ tbl
+
+    def ell_csr(self, params, t):
+        """The ELL delivery as one CSR matrix: row (c, n) holds the
+        entries at columns c*T + idx[c, n, k] (duplicates summed)."""
+        torch = self.torch
+        c, n, k = params.rem_flat.shape
+        rows = torch.arange(c * n, device=self.dev).repeat_interleave(k)
+        cols = (params.rem_flat.long()
+                + (torch.arange(c, device=self.dev) * t)[:, None, None])
+        return torch.sparse_coo_tensor(
+            torch.stack([rows, cols.reshape(-1)]), params.rem_w.reshape(-1),
+            size=(c * n, c * t), check_invariants=True
+        ).coalesce().to_sparse_csr()
 
     def check_four(self, name, ncfg, v, cc, refrac, s_loc, w, s_flat, idx,
                    rw, ext):
@@ -2444,6 +2494,697 @@ class Smoke:
             f"{one['events']:.6e}; device time not measured (other "
             f"processes)")
 
+
+    # ------------------------------------------------------------ phase 6
+    def check_tenant_kernels(self, b=3, c=5, n=300, k=248, o=9, seed=21):
+        """Every tenant-axis kernel on ``b`` tenants of ``c`` random columns
+        in one launch: to the bit against one single-tenant launch per
+        tenant (a row's arithmetic does not depend on its launch's other
+        rows), and against its plain version with the tenant axis
+        (``synapse_matmul`` against the FMA chain, ``keyed_drive`` and both
+        STDP kernels to the bit, ``ell_gather`` and ``fused_step`` as
+        phase 1 holds them): shared and per-tenant weights, the STDP and
+        guard epilogues, and an ``active`` mask with one tenant off, whose
+        weights come back as they were. Returns the max abs errors."""
+        torch, ops, ref, dev = self.torch, self.ops, self.ref, self.dev
+        g = torch.Generator(device=dev).manual_seed(seed)
+        rows, t = b * c, o * n
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev)
+
+        def rand(*shape):
+            return torch.rand(*shape, generator=g, device=dev)
+
+        def cut(x, i):
+            if isinstance(x, torch.Tensor) and x.shape[0] == rows:
+                return x[i * c:(i + 1) * c]
+            return x
+
+        def per_launch(name, fn, args, whole):
+            whole = whole if isinstance(whole, tuple) else (whole,)
+            for i in range(b):
+                part = fn(*(cut(a, i) for a in args))
+                part = part if isinstance(part, tuple) else (part,)
+                for j, (got, want) in enumerate(zip(part, whole)):
+                    self.equal(f"{name} tenant {i} output {j}", got,
+                               want[i * c:(i + 1) * c])
+
+        ncfg = self.dpsnn.GRID_24.neuron
+        v, cc = rnd(rows, n) * 8 + 10, rnd(rows, n).abs()
+        refrac = (rand(rows, n) < 0.05).int() * 2
+        s_loc = (rand(rows, n) < 0.05).float()
+        s_loc[c + 1] = 1.0            # every source of one column spikes
+        s_flat = (rand(rows, t) < 0.02).float()
+        ext = rnd(rows, n).abs()
+        w, w_own = rnd(c, n, n) * 0.4, rnd(rows, n, n) * 0.4
+        idx = torch.randint(0, t, (c, n, k), generator=g, device=dev,
+                            dtype=torch.int32)
+        rw, rw_own = rnd(c, n, k) * 0.4, rnd(rows, n, k) * 0.4
+        xp, xq = rand(rows, n), rand(rows, n)
+        scfg, gcfg = self.STDPConfig(), self.GuardConfig(enabled=True)
+        errs = {}
+
+        got = ops.synapse_matmul(s_loc, w)
+        self.equal("synapse_matmul tenants", got,
+                   ref.synapse_matmul_chain_ref(s_loc, w))
+        per_launch("synapse_matmul", ops.synapse_matmul, (s_loc, w), got)
+        for tag, ww in (("shared", rw), ("own", rw_own)):
+            got = ops.ell_gather(s_flat, idx, ww)
+            errs[f"ell_gather {tag}"] = self.close(
+                f"ell_gather tenants {tag}", got,
+                ref.ell_gather_ref(s_flat, idx, ww),
+                scale=self.scale_remote(s_flat, idx, ww))
+            per_launch(f"ell_gather {tag}", ops.ell_gather, (s_flat, idx, ww),
+                       got)
+        for tag, ww, rr, kw in (("shared", w, rw, {}),
+                                ("own+stdp+guard", w_own, rw_own,
+                                 dict(scfg=scfg, gcfg=gcfg))):
+            args = (v, cc, refrac, s_loc, ww, s_flat, idx, rr, ext,
+                    *((xp, xq) if kw else ()))
+
+            def fn(*a, kw=kw):
+                return ops.fused_step(ncfg, *a, **kw)
+            got = fn(*args)
+            want = ref.fused_step_ref(ncfg, *args, **kw)
+            errs[f"fused_step {tag}"], _ = self.close_step(
+                f"fused_step tenants {tag}", got[:4], want[:4],
+                scale=self.scale_step(s_loc, ww, s_flat, idx, rr, ext))
+            agree = got[3] == want[3]
+            if kw:
+                for j in (4, 5):
+                    self.equal(f"fused_step tenants {tag} trace {j}",
+                               got[j][agree], want[j][agree])
+                self.equal(f"fused_step tenants {tag} flags", got[6], want[6])
+            per_launch(f"fused_step {tag}", fn, args, got)
+
+        ids = torch.arange(7, 7 + c, dtype=torch.int32, device=dev)
+        seeds = torch.tensor([42, -5, 2**31 - 1], dtype=torch.int32,
+                             device=dev)
+        steps = torch.tensor([0, 20, 2**31 - 1], dtype=torch.int32,
+                             device=dev)
+        lams = torch.tensor([1.62, 0.0, 9.9], dtype=torch.float32,
+                            device=dev)
+        cur, counts = ops.keyed_drive_tenants(seeds, steps, ids, n, lams, 0.5)
+        want = ref.keyed_poisson_tenants_ref(seeds.tolist(), steps.tolist(),
+                                             ids, n, lams.tolist())
+        self.equal("keyed_drive tenants counts", counts, want)
+        self.equal("keyed_drive tenants currents", cur, want * 0.5)
+        for i in range(b):
+            one = ops.keyed_drive(int(seeds[i]), int(steps[i]), ids, n,
+                                  float(lams[i]), 0.5)
+            self.equal(f"keyed_drive tenant {i}", torch.cat(one),
+                       torch.cat((cur[i * c:(i + 1) * c],
+                                  counts[i * c:(i + 1) * c])))
+
+        kw = dict(a_plus=0.01, a_minus=0.012, lr=0.7, w_max=0.84)
+        spikes = (rand(rows, n) < 0.1).float()
+        tbl = rand(rows, t)
+        active = torch.tensor([True, False, True], device=dev)
+        exc = (rand(n) < 0.8).float()
+        for name, fn, plain, args in (
+                ("stdp_remote_update", ops.stdp_remote_update,
+                 ref.stdp_remote_update_ref, (tbl, idx, rw_own, spikes, xq)),
+                ("stdp_dense_update", ops.stdp_dense_update,
+                 ref.stdp_dense_update_ref,
+                 (w_own, xp * exc, spikes * exc, spikes, xq))):
+            got = fn(*args, **kw)
+            self.equal(f"{name} tenants", got, plain(*args, **kw))
+            per_launch(name, lambda *a, fn=fn: fn(*a, **kw), args, got)
+            off = fn(*args, **kw, active=active)
+            self.equal(f"{name} tenants, one inactive", off,
+                       plain(*args, **kw, active=active))
+            w0 = args[2] if name == "stdp_remote_update" else args[0]
+            self.equal(f"{name} inactive tenant passed through",
+                       off[c:2 * c], w0[c:2 * c])
+            self.equal(f"{name} active tenants",
+                       torch.cat((off[:c], off[2 * c:])),
+                       torch.cat((got[:c], got[2 * c:])))
+        return errs
+
+    def hold_slot(self, name, state, b, want):
+        """Slot ``b`` of a batch's state against a single-tenant state: v,
+        c, refrac, the ring, the spike and event counts (and the traces
+        under STDP) to the bit."""
+        pairs = [("v", state.lif.v[b], want.lif.v),
+                 ("c", state.lif.c[b], want.lif.c),
+                 ("refrac", state.lif.refrac[b], want.lif.refrac),
+                 ("hist", state.hist[b], want.hist),
+                 ("spikes", state.spike_count[b], want.spike_count),
+                 ("events", state.event_count[b], want.event_count)]
+        if want.stdp is not None:
+            pairs += [("x_pre", state.stdp.x_pre[b], want.stdp.x_pre),
+                      ("x_post", state.stdp.x_post[b], want.stdp.x_post)]
+        for leaf, got, ref_ in pairs:
+            self.equal(f"{name} {leaf}", got, ref_)
+
+    def raster_rates(self, cfg, raster):
+        """A (steps, C, N) bool raster's per-step population rates, as
+        ``simulation.run``'s ``rate_trace`` computes them from the
+        counters."""
+        torch, f32 = self.torch, self.torch.float32
+        per_step = float(
+            torch.tensor(self.sim._recip(cfg.n_neurons), dtype=f32)
+            * torch.tensor(self.sim._recip(cfg.neuron.dt_ms * 1e-3),
+                           dtype=f32))
+        counts = torch.as_tensor(raster, device=self.dev).sum((1, 2))
+        return counts.to(f32) * per_step
+
+    def dedicated(self, cfg, params, seed, n_steps, impl="cuda_fused",
+                  nu_scale=None):
+        """A tenant's dedicated single-tenant run on the card."""
+        state = self.net.init_state(cfg, range(cfg.n_columns),
+                                    device=self.dev, seed=seed)
+        return self.sim.run(cfg, params, state, n_steps, impl=impl,
+                            seed=seed, nu_scale=nu_scale)
+
+    def serve_jobs(self, cfg, params, jobs, slots, impl="cuda_fused"):
+        """``jobs`` through a server of ``slots`` slots (chunk
+        SERVICE_CHUNK), with the launch counts set to 0 just before the
+        drain and read just after: ``(server, results by id, launches)``."""
+        srv = self.serve.BatchedSimServer(cfg, slots=slots,
+                                          chunk=SERVICE_CHUNK, impl=impl,
+                                          params=params, device=self.dev)
+        for job in jobs:
+            srv.submit(dataclasses.replace(job))
+        srv.close()
+        self.sync()
+        self.ops.reset_launches()
+        results = {r.job_id: r for r in srv.drain()}
+        self.sync()
+        return srv, results, dict(self.ops.LAUNCHES)
+
+    def service_path(self, cfg, fused):
+        """Phase 6: the batched service on ``cfg`` (6a-6e), its timing at
+        B = SERVICE_WIDTHS, and the tenant-axis kernels' entries."""
+        t0 = time.perf_counter()
+        errs = self.check_tenant_kernels()
+        self.note("phase 6 tenant-axis kernels (3 tenants of 5 random "
+                  "columns of 300 neurons, K = 248): one launch equal to "
+                  "one launch per tenant, to the bit, for all six; "
+                  "synapse_matmul equal to the FMA chain, keyed_drive and "
+                  "both STDP kernels (one tenant inactive: its weights "
+                  "passed through) equal to their plain versions to the "
+                  "bit; max abs err " + ", ".join(
+                      f"{k} {v:.2e}" for k, v in errs.items()))
+        params, _ = self.sim.build(cfg, device=self.dev)
+        out = dict(b1=self.service_one(cfg, params, fused),
+                   b4=self.service_four(cfg, params),
+                   recycle=self.service_recycle(cfg, params),
+                   guard=self.service_guard(cfg, params),
+                   timing=self.service_timing(cfg, params))
+        out["plastic"] = self.service_plastic(cfg, params)
+        out["seconds"] = time.perf_counter() - t0
+        self.report["service_path"] = out
+        log(f"phase 6 took {out['seconds']:.1f} s")
+
+    def service_one(self, cfg, params, fused):
+        """6a: a one-slot server, one job of seed cfg.seed for phase 3's
+        WARMUP_STEPS + MAIN_STEPS steps, equal to phase 3's run to the
+        bit."""
+        steps = WARMUP_STEPS + MAIN_STEPS
+        srv, res, launches = self.serve_jobs(
+            cfg, params, [self.serve.SimJob(job_id="one", seed=cfg.seed,
+                                            n_steps=steps)], 1)
+        res = res["one"]
+        self.hold_slot("6a", srv.state, 0, fused.state)
+        self.equal("6a per-step spikes", self.raster_rates(cfg, res.raster),
+                   self.torch.cat([self.warm_trace, fused.rate_trace]))
+        if (res.spikes, res.events) != (float(fused.spikes),
+                                        float(fused.events)):
+            raise AssertionError(f"6a: spikes/events {res.spikes}/"
+                                 f"{res.events}")
+        if launches != self.expected_launches(fused_step=steps,
+                                              keyed_drive=steps):
+            raise AssertionError(f"6a launches {launches}")
+        self.note(f"phase 6a one slot, seed {cfg.seed}, {steps} steps in "
+                  f"chunks of {SERVICE_CHUNK}: spikes {res.spikes:.0f}, per-"
+                  f"step spikes from the raster, v, c, refrac, hist and "
+                  f"events {res.events:.6e} equal phase 3's cuda_fused run "
+                  f"to the bit")
+        return dict(spikes=res.spikes, events=res.events, launches=launches)
+
+    def service_four(self, cfg, params):
+        """6b: four static tenants (SERVICE_TENANTS) for MAIN_STEPS, one
+        fused_step and one keyed_drive launch per loop step for all, the
+        weights one tensor, each slot equal to its dedicated run."""
+        jobs = [self.serve.SimJob(job_id=f"t{i}", seed=s, n_steps=MAIN_STEPS,
+                                  nu_scale=nu)
+                for i, (s, nu) in enumerate(SERVICE_TENANTS)]
+        srv, res, launches = self.serve_jobs(cfg, params, jobs, 4)
+        loop = srv.stats["loop_steps"]
+        if loop != MAIN_STEPS or launches != self.expected_launches(
+                fused_step=loop, keyed_drive=loop):
+            raise AssertionError(f"6b: {loop} loop steps, launches "
+                                 f"{launches}")
+        ptr = params.w_local.data_ptr()
+        if not (srv._bparams is params and srv.params.w_local.data_ptr()
+                == ptr):
+            raise AssertionError("6b: the static weights were copied")
+        for name in ("fused_step", "keyed_drive"):
+            self.report["kernels"][f"{name}[B={TENANT_B}]"] = dict(
+                launches=launches[name], launches_from="phase 6b, 4 slots")
+        rates = []
+        for i, (seed, nu) in enumerate(SERVICE_TENANTS):
+            one = self.dedicated(cfg, params, seed, MAIN_STEPS, nu_scale=nu)
+            self.hold_slot(f"6b tenant {i}", srv.state, i, one.state)
+            self.equal(f"6b tenant {i} per-step spikes",
+                       self.raster_rates(cfg, res[f"t{i}"].raster),
+                       one.rate_trace)
+            rates.append(res[f"t{i}"].rate_hz)
+        self.note(f"phase 6b four static tenants (seed, nu_scale) "
+                  f"{list(SERVICE_TENANTS)}, {MAIN_STEPS} steps: {loop} loop "
+                  f"steps, launches {launches} (one fused_step and one "
+                  f"keyed_drive per loop step for all four); the weights "
+                  f"one tensor (data_ptr {ptr:#x}); rates "
+                  + ", ".join(f"{r:.4f}" for r in rates)
+                  + " Hz; each slot equal to its dedicated run to the bit "
+                  "(v, c, refrac, hist, spikes, events, per-step spikes)")
+        return dict(loop_steps=loop, launches=launches, rates_hz=rates)
+
+    def service_recycle(self, cfg, params):
+        """6c: 8 jobs on TENANT_B slots under cuda_fused and under cuda,
+        durations 60 + (i % 3) * 7 as the reference's command line mixes
+        them: every JobResult equal to its dedicated run, one launch of
+        each kernel per loop step."""
+        jobs = [self.serve.SimJob(job_id=f"job{i}", seed=cfg.seed + i,
+                                  n_steps=60 + (i % 3) * 7) for i in range(8)]
+        out = {}
+        for impl, slots in (("cuda_fused", TENANT_B), ("cuda", TENANT_B)):
+            srv, res, launches = self.serve_jobs(cfg, params, jobs, slots,
+                                                 impl)
+            loop = srv.stats["loop_steps"]
+            want = (dict(fused_step=loop) if impl == "cuda_fused" else
+                    dict(synapse_matmul=loop, ell_gather=loop, lif_step=loop))
+            if launches != self.expected_launches(keyed_drive=loop, **want):
+                raise AssertionError(f"6c {impl}: {loop} loop steps, "
+                                     f"launches {launches}")
+            for job in jobs:
+                one = self.dedicated(cfg, params, job.seed, job.n_steps, impl)
+                r = res[job.job_id]
+                # the rate as the server computes it
+                sim_s = job.n_steps * cfg.neuron.dt_ms * 1e-3
+                rate = float(one.spikes) / (cfg.n_neurons * sim_s)
+                got = (r.status, r.spikes, r.events, r.rate_hz)
+                if got != ("ok", float(one.spikes), float(one.events), rate):
+                    raise AssertionError(
+                        f"6c {impl} {job.job_id}: (status, spikes, events, "
+                        f"rate) {got} against {float(one.spikes)}, "
+                        f"{float(one.events)}, {rate}")
+                self.equal(f"6c {impl} {job.job_id} per-step spikes",
+                           self.raster_rates(cfg, r.raster), one.rate_trace)
+            row = srv.metrics_row()
+            out[impl] = dict(slots=slots, launches=launches, **{
+                k: row[k] for k in ("loop_steps", "tenant_steps",
+                                    "occupancy", "slot_recycles",
+                                    "tenant_steps_per_s", "wall_s")})
+            if impl == "cuda":
+                for name in ("synapse_matmul", "ell_gather"):
+                    self.report["kernels"][f"{name}[B={TENANT_B}]"] = dict(
+                        launches=launches[name],
+                        launches_from=f"phase 6c, {slots} slots, impl=cuda")
+            self.note(f"phase 6c {impl}: 8 jobs on {slots} slots, "
+                      f"{row['loop_steps']} loop steps, occupancy "
+                      f"{row['occupancy']:.4f}, {row['slot_recycles']} "
+                      f"recycles, {row['tenant_steps_per_s']:.1f} tenant-"
+                      f"steps/s (wall, chunk {SERVICE_CHUNK}), launches "
+                      f"{launches}; every JobResult (spikes, events, rate, "
+                      f"per-step spikes) equal to its dedicated run")
+        return out
+
+    def service_guard(self, cfg, params):
+        """6e: the guard on, four tenants of 40 steps, job 2 poisoned with
+        NaN at its step 9: quarantined with a trip at step 9 and a raster
+        of 10 rows; its batch-mates equal an unpoisoned server's run."""
+        gcfg = dataclasses.replace(cfg, guard=self.GuardConfig(enabled=True))
+        jobs = [self.serve.SimJob(job_id=f"g{i}", seed=100 + i, n_steps=40)
+                for i in range(4)]
+        poisoned = list(jobs)
+        poisoned[2] = dataclasses.replace(jobs[2], chaos_nan_at_step=9)
+        _, clean, _ = self.serve_jobs(gcfg, params, jobs, 4)
+        srv, dirty, _ = self.serve_jobs(gcfg, params, poisoned, 4)
+        bad = dirty["g2"]
+        if (bad.status, bad.guard["guard_trip_what"],
+                bad.guard["guard_trip_step"], bad.raster.shape[0]) != (
+                    "quarantined", "nan", 9, 10):
+            raise AssertionError(f"6e: poisoned job {bad.status}, "
+                                 f"{bad.guard}, raster {bad.raster.shape}")
+        for jid in ("g0", "g1", "g3"):
+            a, b = dirty[jid], clean[jid]
+            if (a.status, a.spikes, a.events) != ("ok", b.spikes, b.events) \
+                    or not (a.raster == b.raster).all():
+                raise AssertionError(f"6e: {jid} differs from the clean run")
+        if srv.metrics_row()["quarantined"] != 1:
+            raise AssertionError("6e: quarantine count")
+        self.note("phase 6e guard on, 4 tenants, job 2 poisoned at step 9: "
+                  "quarantined, trip nan at step 9, raster of 10 rows; its "
+                  "batch-mates' spikes, events and rasters equal an "
+                  "unpoisoned server's to the bit")
+        return dict(guard=bad.guard)
+
+    def tenant_inputs(self, cfg, params, st):
+        """The kernels' inputs of a batch's next step, as the batched step
+        builds them, from its state ``st`` (tenants at the configured
+        rate, seeds cfg.seed + b)."""
+        torch, B = self.torch, self.batched
+        b, d, c, n = st.hist.shape
+        rows, tl = b * c, st.t.long()
+        ar = torch.arange(b, device=self.dev)
+        seeds = torch.arange(cfg.seed, cfg.seed + b, dtype=torch.int32,
+                             device=self.dev)
+        lam = B.tenant_rates(cfg, None, b).to(self.dev)
+        ext, counts = self.ops.keyed_drive_tenants(
+            seeds, st.t, self.col_ids(cfg), n, lam, cfg.conn.j_ext)
+        return dict(
+            tenants=b, v=st.lif.v.reshape(rows, n),
+            c=st.lif.c.reshape(rows, n),
+            refrac=st.lif.refrac.reshape(rows, n),
+            s_loc=st.hist[ar, (tl - cfg.conn.min_delay_steps) % d].reshape(
+                rows, n),
+            s_flat=B.neighbour_tables(st.hist, tl,
+                                      self.conn.build_stencil(cfg),
+                                      (cfg.grid_h, cfg.grid_w)),
+            ext=ext, counts=counts, seeds=seeds, t=st.t, lam=lam)
+
+    def fused_args(self, x, params):
+        return (x["v"], x["c"], x["refrac"], x["s_loc"], params.w_local,
+                x["s_flat"], params.rem_flat, params.rem_w, x["ext"])
+
+    def entry(self, nbytes, flops, int_ops=0.0, **kw):
+        """A kernel entry's bound from the bytes it must move and the
+        operations it must do (float32, or int32 ``int_ops``)."""
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_F32_FLOPS * 1e3 + int_ops / PEAK_INT32_OPS * 1e3
+        return dict(bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bytes=nbytes, flops=flops, int_ops=int_ops, **kw)
+
+    def time_tenant_step(self, cfg, params, x):
+        """``fused_step`` and ``keyed_drive`` over ``x``'s tenants in one
+        launch, beside their bounds (the ELL idx and weights and the
+        weight rows of the sources that spike in any tenant counted once,
+        each tenant's table, state and drive once per tenant), and
+        ``fused_step`` as one launch per tenant (no sharing)."""
+        ops, torch = self.ops, self.torch
+        b = x["tenants"]
+        rows, n = x["v"].shape
+        c, k = rows // b, params.rem_flat.shape[-1]
+        t = x["s_flat"].shape[1]
+        args = self.fused_args(x, params)
+        spiking = x["s_loc"].reshape(b, c, n) != 0
+        nnz, union = float(spiking.sum()), float(spiking.any(0).sum())
+        f4 = 4
+        fused = self.entry(
+            2 * c * n * k * f4 + union * n * f4 + b * (c * t + 9 * c * n) * f4,
+            2 * nnz * n + 2 * rows * n * k + 14 * rows * n,
+            ms=self.time_ms(lambda: ops.fused_step(cfg.neuron, *args)),
+            weight_rows=nnz, weight_rows_union=union)
+
+        def separate():
+            for i in range(b):
+                ops.fused_step(cfg.neuron, *(
+                    a if a.shape[0] == c else a[i * c:(i + 1) * c]
+                    for a in args))
+        fused["ms_one_launch_per_tenant"] = self.time_ms(separate)
+        counts = x["counts"].reshape(b, c, n)
+        draws = float((counts + 1).sum())
+        chain = float((2 + 2 * (counts.max(dim=2).values + 1)).sum())
+        ids = self.col_ids(cfg)
+        keyed = self.entry(
+            2 * rows * n * f4 + c * f4 + 12 * b, 0.0,
+            int_ops=OPS_PER_THREEFRY * (draws + chain),
+            ms=self.time_ms(lambda: ops.keyed_drive_tenants(
+                x["seeds"], x["t"], ids, n, x["lam"], cfg.conn.j_ext)),
+            draws=draws)
+        return fused, keyed
+
+    def service_timing(self, cfg, params):
+        """Static service at B = SERVICE_WIDTHS: SERVICE_TIMED loop steps
+        after WARMUP_STEPS (CUDA events around ``run_chunk``), its
+        profile, and fused_step and keyed_drive over its tenants beside
+        their bounds; at B = TENANT_B the tenant-axis kernels' entries."""
+        torch, B = self.torch, self.batched
+        rows = []
+        for b in SERVICE_WIDTHS:
+            seeds = [cfg.seed + i for i in range(b)]
+            warm = B.run_chunk(cfg, params, B.init_tenants(cfg, seeds,
+                                                           self.dev),
+                               seeds, [WARMUP_STEPS] * b, WARMUP_STEPS)
+            st = warm.state
+            del warm
+
+            def run(k, st=st, seeds=seeds, b=b):
+                return B.run_chunk(cfg, params, st, seeds, [k] * b, k)
+            self.sync()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            w0 = time.perf_counter()
+            e0.record()
+            res = run(SERVICE_TIMED)
+            e1.record()
+            self.sync()
+            wall = time.perf_counter() - w0
+            if res.steps_taken != SERVICE_TIMED:
+                raise AssertionError(f"B={b}: {res.steps_taken} loop steps")
+            ms = e0.elapsed_time(e1) / SERVICE_TIMED
+            del res
+            prof = self.profile(f"service B={b}", run, ms)
+            x = self.tenant_inputs(cfg, params, st)
+            fused, keyed = self.time_tenant_step(cfg, params, x)
+            row = dict(tenants=b, ms_per_step=ms, wall_s=wall,
+                       tenant_steps_per_s=b * 1e3 / ms,
+                       device_ms_per_step=prof["device_ms_per_step"],
+                       outside_ms_per_step=prof["outside_ms_per_step"],
+                       largest_outside=prof["largest_outside"],
+                       largest_op=prof["largest_op"],
+                       fused_step=fused, keyed_drive=keyed)
+            rows.append(row)
+            log(f"phase 6 service B={b} static cuda_fused: {ms:.4f} ms per "
+                f"loop step (device clock), {row['tenant_steps_per_s']:.1f} "
+                f"tenant-steps/s, device {prof['device_ms_per_step']:.4f} "
+                f"ms/step (outside the kernels "
+                f"{prof['outside_ms_per_step']:.4f}, largest "
+                f"{prof['largest_outside'][0]} "
+                f"{prof['largest_outside'][1]:.1f} us, op "
+                f"{prof['largest_op'][0]} {prof['largest_op'][1]:.1f} us); "
+                f"fused_step {fused['ms']:.4f} ms (bound "
+                f"{fused['bound_ms']:.4f} by {fused['bound_by']}, "
+                f"{fused['bytes'] / 1e9:.4f} GB; one launch per tenant "
+                f"{fused['ms_one_launch_per_tenant']:.4f} ms; weight rows "
+                f"{fused['weight_rows']:.0f}, union "
+                f"{fused['weight_rows_union']:.0f}), keyed_drive "
+                f"{keyed['ms']:.4f} ms (bound {keyed['bound_ms']:.4f} by "
+                f"{keyed['bound_by']})")
+            if b == TENANT_B:
+                self.tenant_entries(cfg, params, x, fused, keyed)
+            del x, st
+        return rows
+
+    def tenant_entries(self, cfg, params, x, fused, keyed):
+        """The {"kernels": ...} entries of fused_step, keyed_drive,
+        synapse_matmul and ell_gather over x's tenants: held to their
+        plain versions (and synapse_matmul to one launch per tenant, to
+        the bit), timed beside their bounds and the library call that
+        computes the same function."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        b = x["tenants"]
+        rows, n = x["v"].shape
+        c, k = rows // b, params.rem_flat.shape[-1]
+        t = x["s_flat"].shape[1]
+        ncfg, f4 = cfg.neuron, 4
+        args = self.fused_args(x, params)
+        kern = self.report["kernels"]
+        scale = self.scale_step(x["s_loc"], params.w_local, x["s_flat"],
+                                params.rem_flat, params.rem_w, x["ext"])
+        err, flips = self.close_step(
+            f"fused_step[B={b}]", ops.fused_step(ncfg, *args),
+            ref.fused_step_ref(ncfg, *args), scale=scale)
+        kern[f"fused_step[B={b}]"].update(
+            max_abs_err=err, spike_flips=flips, library_ms=None,
+            plain_ms=self.time_ms(lambda: ref.fused_step_ref(ncfg, *args),
+                                  iters=3), **fused)
+        ids = self.col_ids(cfg)
+        want = ref.keyed_poisson_tenants_ref(
+            x["seeds"].tolist(), x["t"].tolist(), ids, n, x["lam"].tolist())
+        self.equal(f"keyed_drive[B={b}]", x["counts"], want)
+        kern[f"keyed_drive[B={b}]"].update(
+            max_abs_err=0.0, library_ms=None,
+            plain_ms=self.time_ms(lambda: ref.keyed_poisson_tenants_ref(
+                x["seeds"].tolist(), x["t"].tolist(), ids, n,
+                x["lam"].tolist()), iters=2), **keyed)
+        # synapse_matmul: one launch equal to one per tenant, to the bit
+        s, w = x["s_loc"], params.w_local
+        got = ops.synapse_matmul(s, w)
+        for i in range(b):
+            self.equal(f"synapse_matmul[B={b}] tenant {i}",
+                       got[i * c:(i + 1) * c],
+                       ops.synapse_matmul(s[i * c:(i + 1) * c], w))
+        spiking = s.reshape(b, c, n) != 0
+        nnz, union = float(spiking.sum()), float(spiking.any(0).sum())
+        sb = s.reshape(b, c, n).transpose(0, 1).contiguous()
+        bmm = torch.bmm(sb, w)
+        kern[f"synapse_matmul[B={b}]"].update(
+            max_abs_err=self.close(f"synapse_matmul[B={b}]", got,
+                                   ref.synapse_matmul_ref(s, w),
+                                   scale=self.scale_local(s, w)),
+            ms=self.time_ms(lambda: ops.synapse_matmul(s, w)),
+            plain_ms=self.time_ms(lambda: ref.synapse_matmul_ref(s, w)),
+            library_ms=self.time_ms(lambda: torch.bmm(sb, w)),
+            library="torch.bmm of (C, B, N) x (C, N, N)",
+            library_max_abs_err=self.close(
+                f"synapse_matmul[B={b}] bmm",
+                bmm.transpose(0, 1).reshape(rows, n), got,
+                scale=self.scale_local(s, w)),
+            **self.entry(union * n * f4 + 2 * rows * n * f4, 2 * nnz * n,
+                         weight_rows=nnz, weight_rows_union=union))
+        del bmm, sb
+        # ell_gather beside cuSPARSE CSR A @ X, X of B columns
+        tbl, idx, rw = x["s_flat"], params.rem_flat, params.rem_w
+        got = ops.ell_gather(tbl, idx, rw)
+        a = self.ell_csr(params, t)
+        xb = tbl.reshape(b, c * t).t().contiguous()
+        spmm = (a @ xb).t().reshape(rows, n)
+        kern[f"ell_gather[B={b}]"].update(
+            max_abs_err=self.close(f"ell_gather[B={b}]", got,
+                                   ref.ell_gather_ref(tbl, idx, rw),
+                                   scale=self.scale_remote(tbl, idx, rw)),
+            library_max_abs_err=self.close(
+                f"ell_gather[B={b}] spmm", spmm, got,
+                scale=self.scale_remote(tbl, idx, rw)),
+            ms=self.time_ms(lambda: ops.ell_gather(tbl, idx, rw)),
+            plain_ms=self.time_ms(lambda: ref.ell_gather_ref(tbl, idx, rw),
+                                  iters=3),
+            library_ms=self.time_ms(lambda: a @ xb),
+            library="cuSPARSE CSR A @ X, X of B columns",
+            **self.entry(2 * c * n * k * f4 + b * (c * t + c * n) * f4,
+                         2 * rows * n * k))
+        del a, xb, spmm
+        for name in ("fused_step", "keyed_drive", "synapse_matmul",
+                     "ell_gather"):
+            e = kern[f"{name}[B={b}]"]
+            log(f"  {name}[B={b}]: {e['ms']:.4f} ms (plain "
+                f"{e['plain_ms']:.4f} ms, library "
+                + ("-" if e["library_ms"] is None else
+                   f"{e['library_ms']:.4f}")
+                + f" ms, bound {e['bound_ms']:.4f} ms by {e['bound_by']}, "
+                f"max abs err {e['max_abs_err']:.2e}, launches "
+                f"{e['launches']} ({e['launches_from']}))")
+
+
+    def service_plastic(self, cfg, params):
+        """6d: TENANT_B plastic guarded tenants of SERVICE_PLASTIC_STEPS
+        steps in one chunk: each equal to its dedicated plastic run to the
+        bit, weights and traces included (the one that finishes first kept
+        its weights through its batch-mates' last steps); then both STDP
+        kernels on the batch's last step, timed beside their bounds."""
+        torch, B = self.torch, self.batched
+        pcfg = self.plastic_cfg(cfg)
+        seeds = [cfg.seed + i for i in range(TENANT_B)]
+        steps = max(SERVICE_PLASTIC_STEPS)
+        torch.cuda.empty_cache()
+        self.sync()
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        bp = B.batch_params(pcfg, params, len(seeds))
+        bs = B.init_tenants(pcfg, seeds, self.dev)
+        self.sync()
+        self.ops.reset_launches()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = B.run_chunk(pcfg, bp, bs, seeds, list(SERVICE_PLASTIC_STEPS),
+                          steps)
+        e1.record()
+        self.sync()
+        launches = dict(self.ops.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated(self.dev) / 1e9
+        ms = e0.elapsed_time(e1) / steps
+        del bp, bs
+        if out.steps_taken != steps or launches != self.expected_launches(
+                fused_step=steps, keyed_drive=steps,
+                stdp_dense_update=steps, stdp_remote_update=steps):
+            raise AssertionError(f"6d: {out.steps_taken} loop steps, "
+                                 f"launches {launches}")
+        if bool(out.state.guard.tripped.any()):
+            raise AssertionError("6d: a guard tripped")
+        for name in ("stdp_dense_update", "stdp_remote_update"):
+            self.report["kernels"][f"{name}[B={TENANT_B}]"] = dict(
+                launches=launches[name],
+                launches_from=f"phase 6d, {TENANT_B} slots")
+        for i, (seed, n_steps) in enumerate(zip(seeds, SERVICE_PLASTIC_STEPS)):
+            one = self.dedicated(pcfg, params, seed, n_steps)
+            self.hold_slot(f"6d tenant {i}", out.state, i, one.state)
+            for leaf in ("w_local", "rem_w"):
+                self.equal(f"6d tenant {i} {leaf}",
+                           getattr(out.params, leaf)[i],
+                           getattr(one.params, leaf))
+            del one
+        self.note(f"phase 6d {TENANT_B} plastic guarded tenants (seeds "
+                  f"{seeds}, "
+                  f"{SERVICE_PLASTIC_STEPS} steps, one chunk): {ms:.4f} ms "
+                  f"per loop step, peak memory {peak_gb:.2f} GB, launches "
+                  f"{launches}; each tenant's v, c, refrac, hist, spikes, "
+                  f"events, x_pre, x_post, w_local and rem_w equal its "
+                  f"dedicated plastic run to the bit (the first kept its "
+                  f"weights through its batch-mates' last "
+                  f"{steps - min(SERVICE_PLASTIC_STEPS)} steps); no trip")
+        # both STDP kernels on the batch's state after its last step: each
+        # tenant's last frame, traces and weights
+        b, c, n = TENANT_B, cfg.n_columns, cfg.neurons_per_column
+        d = out.state.hist.shape[1]
+        ar = torch.arange(b, device=self.dev)
+        spikes = out.state.hist[ar, (out.state.t.long() - 1) % d].reshape(
+            b * c, n)
+        x_pre = out.state.stdp.x_pre.reshape(b * c, n)
+        x_post = out.state.stdp.x_post.reshape(b * c, n)
+        w = out.params.w_local.reshape(b * c, n, n)
+        rw = out.params.rem_w.reshape(b * c, n, -1)
+        del out
+        torch.cuda.empty_cache()
+        self.stdp_entries(pcfg, params, w, rw, spikes, x_pre, x_post)
+        return dict(ms_per_step=ms, peak_memory_gb=peak_gb,
+                    launches=launches)
+
+    def stdp_entries(self, pcfg, params, w, rw, spikes, x_pre, x_post):
+        """stdp_dense_update and stdp_remote_update over TENANT_B tenants'
+        own weights (every tenant active): to the bit against their plain
+        versions, timed beside their bounds (the shared ELL idx once)."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        rows, n = spikes.shape
+        b, k = TENANT_B, rw.shape[-1]
+        c = rows // b
+        exc = (~self.neuron_types(pcfg, self.dev)).float()
+        scfg = pcfg.stdp_cfg
+        kw = dict(a_plus=scfg.a_plus, a_minus=scfg.a_minus, lr=scfg.lr,
+                  w_max=scfg.w_max_factor * pcfg.conn.j_exc,
+                  active=torch.ones(b, dtype=torch.bool, device=self.dev))
+        dense = (w, x_pre * exc, spikes * exc, spikes, x_post)
+        table = self.plast.pre_trace_table(
+            x_pre, self.conn.build_stencil(pcfg), (pcfg.grid_h, pcfg.grid_w))
+        remote = (table, params.rem_flat, rw, spikes, x_post)
+        t = table.shape[1]
+        f4 = 4
+        cases = (
+            ("stdp_dense_update", ops.stdp_dense_update,
+             ref.stdp_dense_update_ref, dense,
+             self.entry(2 * rows * n * n * f4 + 4 * rows * n * f4,
+                        6 * rows * n * n)),
+            ("stdp_remote_update", ops.stdp_remote_update,
+             ref.stdp_remote_update_ref, remote,
+             self.entry(c * n * k * f4 + 2 * rows * n * k * f4
+                        + (rows * t + 2 * rows * n) * f4, 8 * rows * n * k)))
+        for name, fn, plain, args, bound in cases:
+            label = f"{name}[B={b}]"
+            self.equal(label, fn(*args, **kw), plain(*args, **kw))
+            self.sync()
+            self.report["kernels"][label].update(
+                max_abs_err=0.0, library_ms=None,
+                ms=self.time_ms(lambda: fn(*args, **kw), iters=5),
+                plain_ms=self.time_ms(lambda: plain(*args, **kw), iters=2),
+                **bound)
+            e = self.report["kernels"][label]
+            log(f"  {label}: {e['ms']:.4f} ms (plain {e['plain_ms']:.4f} ms, "
+                f"library -, bound {e['bound_ms']:.4f} ms by "
+                f"{e['bound_by']}, {e['bytes'] / 1e9:.3f} GB; equal to the "
+                f"plain version to the bit; launches {e['launches']} "
+                f"({e['launches_from']}))")
 
 if __name__ == "__main__":
     sys.exit(main())

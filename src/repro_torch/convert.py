@@ -12,8 +12,12 @@ distributed state (``DistState``, the layout of the reference's
 across by leaf name too (``DIST_LEAVES``), its ``PlasticState`` under
 STDP included (the reference's ``plastic`` leaves ``w_local``, ``rem_w``,
 ``traces.x_pre``, ``traces.x_post`` and ``trace_ext``, named by their
-last part). This module imports neither JAX nor the reference: the
-caller hands it arrays.
+last part). The batched service's tenants (every state leaf, and the
+plastic weights under STDP, with a leading tenant axis, as the
+reference's ``init_tenants`` and ``run_chunk`` give them) come across
+with the same functions, but for their step counters, which stay on the
+device (:func:`tenants_state_from_numpy`). This module imports neither
+JAX nor the reference: the caller hands it arrays.
 """
 from __future__ import annotations
 
@@ -74,6 +78,17 @@ def state_from_numpy(*, v, c, refrac, hist, t, spike_count, event_count,
         guard=None if guard is None else GuardState(
             **{k: _tensor(guard[k], device) for k in GUARD_LEAVES}),
     )
+
+
+def tenants_state_from_numpy(*, device="cuda", **leaves) -> NetworkState:
+    """B tenants' state (``core/batched.py``) from leaves named as
+    :func:`state_from_numpy` takes them, each with a leading tenant axis;
+    the (B,) step counters go to ``device``, where the batched engine
+    advances them. Their params are :func:`params_from_numpy`'s, with
+    (B, ...) plastic weights under STDP; :func:`params_to_numpy` and
+    :func:`state_to_numpy` take both back."""
+    state = state_from_numpy(device=device, **leaves)
+    return state._replace(t=state.t.to(device))
 
 
 def params_to_numpy(params: NetworkParams) -> dict:

@@ -41,7 +41,7 @@ from repro_torch.core import prng
 from repro_torch.core.connectivity import StencilSpec, build_stencil
 from repro_torch.core.neuron import LIFState, lif_init, lif_sfa_step
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import silent_block_count
+from repro_torch.kernels.ref import per_tenant, silent_block_count, tenants_of
 from repro_torch.runtime import integrity
 
 IMPLS = ("ref", "cuda", "cuda_fused")
@@ -121,14 +121,17 @@ def column_ids(cfg: DPSNNConfig, device="cpu") -> torch.Tensor:
 
 
 def init_state(cfg: DPSNNConfig, col_ids, stencil: StencilSpec | None = None,
-               device="cpu") -> NetworkState:
+               device="cpu", *, seed: int | None = None) -> NetworkState:
     """Initial state, deterministic per global column id: the potentials
-    of column c from ``fold_in(PRNGKey(seed + 0x51F), c)``."""
+    of column c from ``fold_in(PRNGKey(seed + 0x51F), c)``. ``seed``
+    overrides ``cfg.seed`` (a tenant of the batched service); ``None`` is
+    the single-tenant state."""
     stencil = stencil or build_stencil(cfg)
     n = cfg.neurons_per_column
     ids = torch.as_tensor(col_ids, dtype=torch.int64).reshape(-1)
     dtype = getattr(torch, cfg.dtype)
-    keys = prng.fold_in(prng.prng_key(cfg.seed + INIT_STREAM, device),
+    base = cfg.seed if seed is None else int(seed)
+    keys = prng.fold_in(prng.prng_key(base + INIT_STREAM, device),
                         ids.to(device))
     lif = lif_init(cfg.neuron, (n,), dtype, keys)
     stdp = guard = None
@@ -156,7 +159,12 @@ def init_state(cfg: DPSNNConfig, col_ids, stencil: StencilSpec | None = None,
 def deliver_local_ref(spikes: torch.Tensor,
                       w_local: torch.Tensor) -> torch.Tensor:
     """(C,N) x (C,N,N) -> (C,N): batched product over columns, float32
-    accumulation."""
+    accumulation. B tenants' (B*C, N) spikes over shared weights: each
+    tenant's product on its own (``kernels/ref.py::per_tenant``)."""
+    b = tenants_of(spikes.shape[0], w_local.shape[0], "deliver_local")
+    if b > 1:
+        return per_tenant(deliver_local_ref, b, spikes.shape[0], spikes,
+                          w_local)
     return torch.einsum("cs,cst->ct", spikes.float(),
                         w_local.float()).to(spikes.dtype)
 
@@ -169,7 +177,14 @@ def deliver_remote_ref(s_flat: torch.Tensor, rem_flat: torch.Tensor,
     rem_flat: (C, N, K) indices into the O*N axis
     rem_w:    (C, N, K)
     returns   (C, N) currents
+
+    B tenants' (B*C, O*N) tables gather through the shared ``rem_flat``
+    (and ``rem_w`` of C or B*C rows), each tenant on its own.
     """
+    b = tenants_of(s_flat.shape[0], rem_flat.shape[0], "deliver_remote")
+    if b > 1:
+        return per_tenant(deliver_remote_ref, b, s_flat.shape[0], s_flat,
+                          rem_flat, rem_w)
     c, n, k = rem_flat.shape
     gathered = torch.gather(
         s_flat, 1, rem_flat.reshape(c, n * k).long()
@@ -230,33 +245,55 @@ def neighbour_table_single(hist: torch.Tensor, t: int, stencil: StencilSpec,
 # Step
 # ---------------------------------------------------------------------------
 
-def external_drive(cfg: DPSNNConfig, t: int, col_ids: torch.Tensor):
+def drive_rate(cfg: DPSNNConfig, nu_scale=None):
+    """The Poisson rate per neuron and step, C_ext * nu_ext * dt; with a
+    tenant's ``nu_scale`` (a float, or a float32 tensor of them) the
+    reference's ``float32(lam) * nu_scale`` in float32."""
+    lam = cfg.c_ext * cfg.nu_ext_hz * cfg.neuron.dt_ms * 1e-3
+    if nu_scale is None:
+        return lam
+    f32 = torch.float32
+    lam32 = float(torch.tensor(lam, dtype=f32))    # exact in any float
+    if isinstance(nu_scale, torch.Tensor):
+        return nu_scale.to(f32) * lam32
+    return float(torch.tensor(nu_scale, dtype=f32) * lam32)
+
+
+def external_drive(cfg: DPSNNConfig, t: int, col_ids: torch.Tensor, *,
+                   seed: int | None = None, nu_scale: float | None = None):
     """Poisson thalamo-cortical input: C_ext synapses at nu_ext each.
 
     Keyed per (seed, step, global column id) as the reference keys it, so
     the counts do not depend on what ran before or on which columns are
     drawn together. ``col_ids`` is a (C,) int32 tensor on the device to
     draw on: the ``keyed_drive`` kernel on the card, its plain version on
-    the CPU. Returns ``(currents, counts)``, both (C, N) float32.
+    the CPU. ``seed`` overrides ``cfg.seed`` and ``nu_scale`` scales the
+    rate (a tenant of the batched service); both ``None`` is the
+    single-tenant drive. Returns ``(currents, counts)``, both (C, N)
+    float32.
     """
-    lam = cfg.c_ext * cfg.nu_ext_hz * cfg.neuron.dt_ms * 1e-3
-    return ops.keyed_drive(cfg.seed, t, col_ids, cfg.neurons_per_column,
-                           lam, cfg.conn.j_ext)
+    return ops.keyed_drive(cfg.seed if seed is None else int(seed), t,
+                           col_ids, cfg.neurons_per_column,
+                           drive_rate(cfg, nu_scale), cfg.conn.j_ext)
 
 
 def step_single(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
                 *, stencil: StencilSpec, grid_hw: tuple[int, int],
                 col_ids: torch.Tensor, impl: str = "ref",
                 ext_counts: torch.Tensor | None = None,
-                silent_blocks: torch.Tensor | None = None) -> NetworkState:
+                silent_blocks: torch.Tensor | None = None,
+                seed: int | None = None, nu_scale: float | None = None,
+                chaos_nan: int | None = None) -> NetworkState:
     """One time step of the full (single-shard) network.
 
     ``col_ids`` are the state's (C,) int32 global column ids, on its
     device. ``ext_counts`` (C, N) are this step's Poisson counts, drawn
-    by :func:`external_drive` when None. ``silent_blocks`` (one int64 on the
+    by :func:`external_drive` when None (with ``seed`` and ``nu_scale``,
+    a tenant's drive). ``silent_blocks`` (one int64 on the
     state's device), when given, gains the number of silent 128-source
     blocks the local delivery skipped (``impl`` 'cuda' and 'cuda_fused'
-    count them in the kernel, 'ref' in plain PyTorch).
+    count them in the kernel, 'ref' in plain PyTorch). ``chaos_nan`` (a
+    step) overrides ``cfg.guard.chaos_nan_at_step``, as a tenant's poison.
     """
     d_slots = state.hist.shape[0]
     t = int(state.t)
@@ -268,7 +305,8 @@ def step_single(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
 
     # 2. external Poisson drive
     if ext_counts is None:
-        ext, ext_counts = external_drive(cfg, t, col_ids)
+        ext, ext_counts = external_drive(cfg, t, col_ids, seed=seed,
+                                         nu_scale=nu_scale)
     else:
         ext = ext_counts.to(dtype) * cfg.conn.j_ext
 
@@ -294,8 +332,9 @@ def step_single(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
     new_guard = state.guard
     if cfg.guard.enabled:
         gcfg = cfg.guard
-        if gcfg.chaos_nan_at_step >= 0:
-            lif = lif._replace(v=integrity.inject_nan(gcfg, t, lif.v))
+        if gcfg.chaos_nan_at_step >= 0 or chaos_nan is not None:
+            lif = lif._replace(v=integrity.inject_nan(gcfg, t, lif.v,
+                                                      chaos_step=chaos_nan))
             gflags = None
         tr = new_stdp if cfg.stdp else None
         code = integrity.step_verdict(

@@ -47,16 +47,19 @@ def pre_trace_table(x_pre: torch.Tensor, stencil: StencilSpec,
     frame shifted by each stencil offset through ``network.offset_slice``
     (the shift convention of the neighbour-spike table), zero beyond the
     sheet's edge, with a uniform one-step lag (callers pass the previous
-    step's traces)."""
+    step's traces). B tenants' (B*C, N) frames give their (B*C, O*N)
+    tables, each tenant's on its own sheet."""
     gh, gw = grid_hw
-    c, n = x_pre.shape
+    rows, n = x_pre.shape
     if not stencil.offsets:
-        return x_pre.new_zeros((c, 0))
+        return x_pre.new_zeros((rows, 0))
     r = stencil.radius
-    g = torch.nn.functional.pad(x_pre.reshape(gh, gw, n), (0, 0, r, r, r, r))
-    per_offset = [net.offset_slice(g, dy, dx, r, gh, gw, n).reshape(c, n)
+    g = torch.nn.functional.pad(x_pre.reshape(-1, gh, gw, n),
+                                (0, 0, r, r, r, r))
+    per_offset = [net.offset_slice(g, dy, dx, r, gh, gw, n)
                   for (dy, dx, _k, _delay, _p) in stencil.offsets]
-    return torch.stack(per_offset, dim=1).reshape(c, stencil.n_offsets * n)
+    return torch.stack(per_offset, dim=3).reshape(
+        rows, stencil.n_offsets * n)
 
 
 def advance_traces(cfg: DPSNNConfig, scfg: STDPConfig, st: STDPState,
@@ -72,7 +75,8 @@ def stdp_update(cfg: DPSNNConfig, scfg: STDPConfig, params: NetworkParams,
                 pre_trace_table: torch.Tensor | None = None,
                 rem_flat: torch.Tensor | None = None,
                 impl: str = "ref",
-                new_traces: STDPState | None = None):
+                new_traces: STDPState | None = None,
+                active: torch.Tensor | None = None):
     """One STDP step given this step's spikes (C, N).
 
     ``pre_trace_table`` is the (C, O*N) neighbour pre-trace table for the
@@ -80,6 +84,11 @@ def stdp_update(cfg: DPSNNConfig, scfg: STDPConfig, params: NetworkParams,
     traces ``fused_step`` already advanced under ``impl='cuda_fused'``)
     the decay and bump are not computed again. Returns ``(new_params,
     new_stdp_state)``; the inputs are left as they were.
+
+    B tenants (the batched service): every argument but ``rem_flat`` has
+    B*C rows (the weights each tenant's own, as a (B*C, ...) view), and
+    ``active`` ((B,)) keeps an inactive tenant's weights as they were, in
+    the kernels (their pass-through) or the plain versions.
     """
     if new_traces is None:
         new_traces = advance_traces(cfg, scfg, st, spikes)
@@ -89,7 +98,7 @@ def stdp_update(cfg: DPSNNConfig, scfg: STDPConfig, params: NetworkParams,
     x_pre_exc = x_pre * exc_src[None, :]
     spk_exc = spikes * exc_src[None, :]
     kw = dict(a_plus=scfg.a_plus, a_minus=scfg.a_minus, lr=scfg.lr,
-              w_max=w_max)
+              w_max=w_max, active=active)
     if impl in ("cuda", "cuda_fused"):
         dense, remote = ops.stdp_dense_update, ops.stdp_remote_update
     elif impl == "ref":

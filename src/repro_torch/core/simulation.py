@@ -25,13 +25,18 @@ class SimResult(NamedTuple):
     params: NetworkParams | None = None   # final params (plastic under STDP)
 
 
-def build(cfg: DPSNNConfig, *, device="cuda"):
+def build(cfg: DPSNNConfig, *, device="cuda", seed: int | None = None):
     """Generate params + fresh state for the full grid on one shard, on
-    ``device`` (CUDA by default; raises when there is no card)."""
+    ``device`` (CUDA by default; raises when there is no card).
+
+    ``seed`` overrides ``cfg.seed`` for the state only (the membrane
+    potentials); the network always comes from ``cfg.seed``: the tenants
+    of the batched service share one network and differ in state and
+    drive."""
     dev = net.resolve_device(device)
     col_ids = net.column_ids(cfg)
     params = net.build_params(cfg, col_ids, dev)
-    state = net.init_state(cfg, col_ids, device=dev)
+    state = net.init_state(cfg, col_ids, device=dev, seed=seed)
     return params, state
 
 
@@ -45,7 +50,9 @@ def _recip(x: float) -> float:
 def run(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
         n_steps: int, impl: str = "cuda_fused",
         ext_counts: torch.Tensor | None = None,
-        silent_blocks: torch.Tensor | None = None) -> SimResult:
+        silent_blocks: torch.Tensor | None = None,
+        seed: int | None = None,
+        nu_scale: float | None = None) -> SimResult:
     """Simulate ``n_steps`` of ``cfg.neuron.dt_ms`` each.
 
     With ``cfg.stdp`` the weights are dynamical state: every step applies
@@ -58,7 +65,9 @@ def run(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
     counts of each step (the tests pass the reference's); else each step
     draws its own (``network.external_drive``, keyed by the step and the
     global column ids, as the reference's). ``silent_blocks`` is
-    passed on to every step (``network.step_single``).
+    passed on to every step (``network.step_single``), and so are
+    ``seed`` and ``nu_scale``, a tenant's drive: this is the dedicated
+    single-tenant run that each slot of the batched service equals.
     """
     net.check_supported(cfg, impl)
     stencil = build_stencil(cfg)
@@ -86,7 +95,7 @@ def run(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
             cfg, params, s0, stencil=stencil, grid_hw=grid_hw,
             col_ids=col_ids, impl=impl,
             ext_counts=None if ext_counts is None else ext_counts[i],
-            silent_blocks=silent_blocks)
+            silent_blocks=silent_blocks, seed=seed, nu_scale=nu_scale)
         if cfg.stdp:
             spikes = final.hist[int(s0.t) % d_slots]
             table = plast.pre_trace_table(s0.stdp.x_pre, stencil, grid_hw)

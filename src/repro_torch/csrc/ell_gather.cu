@@ -23,6 +23,15 @@
 // A table too wide for two rows per SM (radius-6 exponential stencils,
 // ~720 KB a row) takes the wide instance: the same loop with the table
 // read from device memory through L2, one item per CTA.
+//
+// Tenant axis (the batched service): B tenants' tables, B * C rows, row
+// b * C + c gathering through column c's idx (shared by every tenant) and
+// through weight row (b * C + c) % w_rows (w_rows = C when the weights
+// are shared too). The items go in the order (column, tenant, target
+// block), so the B tenants of a column run on neighbouring CTAs and its
+// idx and weight rows come from HBM about once and from L2 after that;
+// each tenant's table row is still staged on its own. B = 1 is the
+// single-tenant launch, item for item.
 #include "kernels.cuh"
 
 namespace {
@@ -32,46 +41,53 @@ __global__ void __launch_bounds__(repro::TB, 2)
     ell_gather_kernel(const float* __restrict__ tbl,
                       const int* __restrict__ idx,
                       const float* __restrict__ w, float* __restrict__ out,
-                      int n_cols, int n, int n_tblk, int t_len, int k,
-                      bool vec) {
+                      int n_rows, int tenants, int w_rows, int n, int n_tblk,
+                      int t_len, int k, bool vec) {
   extern __shared__ float4 smem4[];
   float* tbl_sh = reinterpret_cast<float*>(smem4);
   // a contiguous, equal share of the items (kernels/plan.py
   // Plan.item_range): every item costs the same here
-  const long long items = (long long)n_cols * n_tblk;
+  const long long items = (long long)n_rows * n_tblk;
   const long long i0 = blockIdx.x * items / gridDim.x;
   const long long i1 = (blockIdx.x + 1) * items / gridDim.x;
-  int col_prev = -1;
+  int row_prev = -1;
   for (long long it = i0; it < i1; ++it) {
-    const int col = (int)(it / n_tblk);
-    const int r0 = (int)(it % n_tblk) * repro::TB;
-    const float* tbl_c = tbl + (size_t)col * t_len;
+    const repro::Item item =
+        repro::tenant_item((int)it, tenants, n_rows, n_tblk);
+    const int row = item.row;
+    const int r0 = item.tblk * repro::TB;
+    const float* tbl_c = tbl + (size_t)row * t_len;
     if constexpr (STAGED) {
-      if (col != col_prev) {
+      if (row != row_prev) {
         __syncthreads();  // every warp is done with the previous row
         repro::stage_async(tbl_sh, tbl_c, t_len);
         repro::cp_async_wait<0>();
         __syncthreads();
-        col_prev = col;
+        row_prev = row;
       }
     }
-    const size_t row0 = (size_t)col * n + r0;
+    const size_t out0 = (size_t)row * n + r0;
     repro::ell_rows(
         repro::TableRow<STAGED>{STAGED ? tbl_sh : tbl_c, t_len},
-        idx + row0 * k, w + row0 * k, min(repro::TB, n - r0), k, vec,
-        [&](int r, float sum) { out[row0 + r] = sum; });
+        idx + ((size_t)item.col * n + r0) * k,
+        w + ((size_t)(row % w_rows) * n + r0) * k, min(repro::TB, n - r0), k,
+        vec, [&](int r, float sum) { out[out0 + r] = sum; });
   }
 }
 
 }  // namespace
 
-// staged, ctas, smem_bytes: kernels/plan.py's choice for these shapes.
+// n_rows = tenants * C table rows (C = the idx's columns), w_rows = C or
+// n_rows weight rows; staged, ctas, smem_bytes: kernels/plan.py's choice
+// for these shapes.
 extern "C" int repro_ell_gather(const float* tbl, const int* idx,
-                                const float* w, float* out, int c, int n,
-                                int t_len, int k, int staged, int ctas,
-                                int smem_bytes, cudaStream_t stream) {
-  if (c <= 0 || n <= 0) return 0;
-  if (ctas <= 0 || smem_bytes < repro::ell_gather_smem(staged, t_len)) {
+                                const float* w, float* out, int n_rows,
+                                int tenants, int w_rows, int n, int t_len,
+                                int k, int staged, int ctas, int smem_bytes,
+                                cudaStream_t stream) {
+  if (n_rows <= 0 || n <= 0) return 0;
+  if (ctas <= 0 || tenants <= 0 || n_rows % tenants != 0 || w_rows <= 0 ||
+      smem_bytes < repro::ell_gather_smem(staged, t_len)) {
     return (int)cudaErrorInvalidValue;
   }
   const int n_tblk = (n + repro::TB - 1) / repro::TB;
@@ -80,6 +96,7 @@ extern "C" int repro_ell_gather(const float* tbl, const int* idx,
   const cudaError_t err = repro::set_smem(kernel, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)ctas, repro::TB, smem_bytes, stream>>>(
-      tbl, idx, w, out, c, n, n_tblk, t_len, k, repro::ell_vec(idx, w, k));
+      tbl, idx, w, out, n_rows, tenants, w_rows, n, n_tblk, t_len, k,
+      repro::ell_vec(idx, w, k));
   return (int)cudaGetLastError();
 }

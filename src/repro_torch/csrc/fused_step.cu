@@ -53,6 +53,19 @@
 // A table too wide for two CTAs per SM takes the wide instances
 // (STAGED = false): the same loop, the table read through L2, one item per
 // CTA.
+//
+// Tenant axis (the batched service): B tenants' rows, n_rows = B * C,
+// row b * C + c of tenant b. Every per-neuron input and output, the table
+// and the guard flags have a row per (tenant, column); the ELL idx has
+// C rows (every tenant's network is the same), and the local weights and
+// the ELL weights have w_rows and rw_rows rows, C when the tenants share
+// them (static runs) and n_rows when each trains its own (STDP): row r
+// reads weight row r % w_rows. The claims run through the items in the
+// order (column, tenant, target block), so the tenants of a column run on
+// neighbouring CTAs and its weight and ELL rows come from HBM about once
+// and from L2 after that. Each (tenant, column) still stages its own
+// table row and spikes: B rows of 99 KB would not fit one CTA. B = 1 is
+// the single-tenant launch, item for item.
 #include "kernels.cuh"
 
 namespace {
@@ -81,8 +94,9 @@ __global__ void __launch_bounds__(repro::TB, 2) fused_step_kernel(
     const float* __restrict__ v, const float* __restrict__ c,
     const int* __restrict__ refrac, float* __restrict__ v_out,
     float* __restrict__ c_out, int* __restrict__ r_out,
-    float* __restrict__ s_out, int n_cols, int n, int n_tblk, int t_len,
-    int k, bool vec, repro::LifParams p, unsigned long long* silent_count,
+    float* __restrict__ s_out, int n_rows, int tenants, int w_rows,
+    int rw_rows, int n, int n_tblk, int t_len, int k, bool vec,
+    repro::LifParams p, unsigned long long* silent_count,
     StdpEpilogue st, GuardEpilogue gd, int* next_item) {
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
@@ -97,8 +111,8 @@ __global__ void __launch_bounds__(repro::TB, 2) fused_step_kernel(
   int* claim = warp_count + repro::TB_WARPS;
 
   const int lane = threadIdx.x & 31;
-  const int items = n_cols * n_tblk;
-  int col_prev = -1, n_spiking = 0, silent = 0, n_done = 0;
+  const int items = n_rows * n_tblk;
+  int row_prev = -1, n_spiking = 0, silent = 0, n_done = 0;
   for (;;) {
     if (threadIdx.x == 0) {
       const int seen = *reinterpret_cast<volatile int*>(next_item);
@@ -112,12 +126,13 @@ __global__ void __launch_bounds__(repro::TB, 2) fused_step_kernel(
     if (c0 >= items) break;
     // claim is rewritten only after the chunk's own barriers
     for (int it = c0; it < c1; ++it) {
-      const int col = it / n_tblk;
-      const int tblk = it % n_tblk;
+      const repro::Item item = repro::tenant_item(it, tenants, n_rows, n_tblk);
+      const int row = item.row;
+      const int tblk = item.tblk;
       const int t0 = tblk * repro::TB;
       const int t = t0 + threadIdx.x;
       const bool valid = t < n;
-      const size_t i = (size_t)col * n + t;
+      const size_t i = (size_t)row * n + t;
       float v_i = 0.0f, c_i = 0.0f, ext_i = 0.0f;
       float xp_i = 0.0f, xq_i = 0.0f;
       int r_i = 0;
@@ -131,11 +146,11 @@ __global__ void __launch_bounds__(repro::TB, 2) fused_step_kernel(
           xq_i = st.x_post[i];
         }
       }
-      const float* tbl_c = tbl + (size_t)col * t_len;
-      const bool col_changed = col != col_prev;
+      const float* tbl_c = tbl + (size_t)row * t_len;
+      const bool col_changed = row != row_prev;
       if (col_changed) {
         __syncthreads();  // every thread is done with the previous column
-        repro::stage_async(spk_sh, s_loc + (size_t)col * n, n);
+        repro::stage_async(spk_sh, s_loc + (size_t)row * n, n);
         if constexpr (STAGED) {
           repro::stage_async(tbl_sh, tbl_c, t_len);
           repro::cp_async_wait<1>();  // the spikes; the row may still fly
@@ -145,12 +160,12 @@ __global__ void __launch_bounds__(repro::TB, 2) fused_step_kernel(
         __syncthreads();
         n_spiking = repro::list_spiking(spk_sh, n, list_sh, warp_count,
                                         tblk == 0, &silent);
-        col_prev = col;
+        row_prev = row;
       }
 
       // the first PREFETCH weight rows of the local product are requested
       // now and consumed after the ELL stream, which hides their latency
-      const float* wp = w + (size_t)col * n * n + t;
+      const float* wp = w + (size_t)(row % w_rows) * n * n + t;
       float pre[PREFETCH];
 #pragma unroll
       for (int j = 0; j < PREFETCH; ++j) {
@@ -164,10 +179,11 @@ __global__ void __launch_bounds__(repro::TB, 2) fused_step_kernel(
       // the sums of consecutive items alternate buffers, so an item's ELL
       // rows need not wait for the last item's epilogue
       float* rem = rem_sh + (n_done++ & 1) * repro::TB;
-      const size_t row0 = (size_t)col * n + t0;
       repro::ell_rows(
           repro::TableRow<STAGED>{STAGED ? tbl_sh : tbl_c, t_len},
-          idx + row0 * k, rem_w + row0 * k, min(repro::TB, n - t0), k, vec,
+          idx + ((size_t)item.col * n + t0) * k,
+          rem_w + ((size_t)(row % rw_rows) * n + t0) * k,
+          min(repro::TB, n - t0), k, vec,
           [&](int r, float sum) { rem[r] = sum; });
       __syncthreads();
 
@@ -206,12 +222,12 @@ __global__ void __launch_bounds__(repro::TB, 2) fused_step_kernel(
       if constexpr (GUARD) {
         const int bits = (__ballot_sync(0xffffffffu, bad_nan) ? 1 : 0) |
                          (__ballot_sync(0xffffffffu, bad_rng) ? 2 : 0);
-        if (lane == 0 && bits != 0) atomicOr(gd.flags + col, bits);
+        if (lane == 0 && bits != 0) atomicOr(gd.flags + row, bits);
       }
     }
   }
-  // each column's source blocks were counted once, by the CTA that took
-  // its target block 0 (claims are increasing, so it met the column there)
+  // each row's source blocks were counted once, by the CTA that took its
+  // target block 0 (claims are increasing, so it met the row there)
   if (silent_count != nullptr && threadIdx.x == 0 && silent > 0) {
     atomicAdd(silent_count, (unsigned long long)silent);
   }
@@ -230,23 +246,27 @@ FusedKernel<STAGED> fused_instance(bool stdp, bool guard) {
 
 }  // namespace
 
-// x_pre == NULL selects the variant without the STDP epilogue, flags ==
-// NULL the one without the guard epilogue; staged, ctas, smem_bytes are
-// kernels/plan.py's choice for these shapes; next_item is the claim
-// counter, one int the caller zeroes.
+// n_rows = tenants * C rows (C = the idx's columns); w_rows and rw_rows,
+// the rows of w and rem_w, are C or n_rows. x_pre == NULL selects the
+// variant without the STDP epilogue, flags == NULL the one without the
+// guard epilogue; staged, ctas, smem_bytes are kernels/plan.py's choice
+// for these shapes; next_item is the claim counter, one int the caller
+// zeroes.
 extern "C" int repro_fused_step(
     const float* s_loc, const float* w, const float* tbl, const int* idx,
     const float* rem_w, const float* ext, const float* v, const float* c,
     const int* refrac, float* v_out, float* c_out, int* r_out, float* s_out,
-    int n_cols, int n, int t_len, int k, float decay_v, float decay_c,
+    int n_rows, int tenants, int w_rows, int rw_rows, int n, int t_len, int k,
+    float decay_v, float decay_c,
     float gain, float g_c, float alpha_c, float v_rest, float v_reset,
     float v_thr, int arp, unsigned long long* silent_count,
     const float* x_pre, const float* x_post, float* x_pre_out,
     float* x_post_out, float dp, float dm, int* flags, float v_floor,
     float v_ceil, int staged, int ctas, int smem_bytes, int* next_item,
     cudaStream_t stream) {
-  if (n_cols <= 0 || n <= 0) return 0;
-  if (ctas <= 0 || next_item == nullptr ||
+  if (n_rows <= 0 || n <= 0) return 0;
+  if (ctas <= 0 || next_item == nullptr || tenants <= 0 ||
+      n_rows % tenants != 0 || w_rows <= 0 || rw_rows <= 0 ||
       smem_bytes < repro::fused_step_smem(staged, t_len, n)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -258,7 +278,8 @@ extern "C" int repro_fused_step(
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)ctas, repro::TB, smem_bytes, stream>>>(
       s_loc, w, tbl, idx, rem_w, ext, v, c, refrac, v_out, c_out, r_out,
-      s_out, n_cols, n, n_tblk, t_len, k, repro::ell_vec(idx, rem_w, k),
+      s_out, n_rows, tenants, w_rows, rw_rows, n, n_tblk, t_len, k,
+      repro::ell_vec(idx, rem_w, k),
       repro::lif_params(decay_v, decay_c, gain, g_c, alpha_c, v_rest,
                         v_reset, v_thr, arp),
       silent_count, StdpEpilogue{x_pre, x_post, x_pre_out, x_post_out, dp, dm},

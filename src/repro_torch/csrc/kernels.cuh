@@ -281,6 +281,27 @@ __device__ __forceinline__ void ell_rows(TableRow<STAGED> tbl,
   }
 }
 
+// One (row, target block) work item of a tenant-axis launch: n_rows =
+// tenants * C rows, row b * C + col of tenant b, items in the order
+// (col, tenant, target block), so that the tenants of a column are
+// neighbours (and tenants = 1 is the order (col, target block)).
+struct Item {
+  int col, row, tblk;
+};
+
+__device__ __forceinline__ Item tenant_item(int it, int tenants, int n_rows,
+                                            int n_tblk) {
+  if (tenants == 1) {  // the single-tenant order, with its two divisions
+    const int col = it / n_tblk;
+    return Item{col, col, it - col * n_tblk};
+  }
+  const int per_col = tenants * n_tblk;
+  const int col = it / per_col;
+  const int rest = it - col * per_col;
+  const int b = rest / n_tblk;
+  return Item{col, b * (n_rows / tenants) + col, rest - b * n_tblk};
+}
+
 inline bool aligned16(const void* ptr) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }

@@ -16,6 +16,12 @@
 // and a logf; a neuron makes count + 1 draws (2.6 on average at lam =
 // 1.62), and it writes 8 bytes (count and current).
 //
+// The tenant instance (TENANTS) draws B tenants' drives in one launch:
+// B * C columns, column b * C + c under tenant b's seed, step and rate,
+// read from (B,) device arrays, so that the host builds no key and waits
+// for nothing; every column draws exactly as the single-tenant
+// instance draws it with those three as scalars.
+//
 // The design: one CTA per column (a column of more than SHARE_MAX
 // neurons is split into equal shares, one CTA each, and each share's CTA
 // grows the chain itself). The draws go in rounds: round r draws DRAWS =
@@ -116,21 +122,40 @@ __device__ __forceinline__ int shared_add(int* p, int v) {
   return old;
 }
 
+// Per-tenant seeds, steps and rates of the TENANTS instance; a tenant's
+// seed word is its seed + stream as uint32 (the key's second word).
+struct Tenants {
+  const int* seed;
+  const int* t;
+  const float* lam;
+  unsigned stream;
+  int cols;  // columns per tenant
+};
+
+template <bool TENANTS>
 __global__ void __launch_bounds__(THREADS, MIN_CTAS)
 keyed_drive_kernel(const int* __restrict__ col_ids, float* __restrict__ counts,
                    float* __restrict__ cur, int n, int share, int parts,
                    unsigned seed_word, unsigned t, float neg_lam,
-                   float j_ext) {
+                   float j_ext, Tenants tn) {
   // list r & 1 holds round r's undone neurons (neuron, sum bits), then
   // every neuron's count
   extern __shared__ int2 smem[];
   __shared__ Key sub[RING];        // subkey_j in sub[j % RING]
   __shared__ int len[3];           // round r's list length in len[r % 3]
-  const int c = blockIdx.x / parts;
+  const int row = blockIdx.x / parts;  // column of the output
+  int c = row;                          // its global id's index
+  if constexpr (TENANTS) {
+    const int b = row / tn.cols;
+    c = row - b * tn.cols;
+    seed_word = static_cast<unsigned>(tn.seed[b]) + tn.stream;
+    t = static_cast<unsigned>(tn.t[b]);
+    neg_lam = -tn.lam[b];
+  }
   const int lo = (blockIdx.x % parts) * share;
   const int m = min(share, n - lo);   // this CTA's neurons lo .. lo + m - 1
   if (m <= 0) return;
-  const long long out = static_cast<long long>(c) * n + lo;
+  const long long out = static_cast<long long>(row) * n + lo;
   if (!(0.0f > neg_lam)) {            // lam = 0: no draw, every count 0
     for (int i = threadIdx.x; i < m; i += THREADS) {
       counts[out + i] = 0.0f;
@@ -223,8 +248,31 @@ extern "C" int repro_keyed_drive(const int* col_ids, float* counts,
   const int share = static_cast<int>((n + parts - 1LL) / parts);
   const long long blocks = static_cast<long long>(c) * parts;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  keyed_drive_kernel<<<static_cast<unsigned>(blocks), THREADS,
-                       SMEM_PER_NEURON * share, stream>>>(
-      col_ids, counts, cur, n, share, parts, seed_word, t, -lam, j_ext);
+  keyed_drive_kernel<false><<<static_cast<unsigned>(blocks), THREADS,
+                              SMEM_PER_NEURON * share, stream>>>(
+      col_ids, counts, cur, n, share, parts, seed_word, t, -lam, j_ext,
+      Tenants{nullptr, nullptr, nullptr, 0u, c});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B tenants' drives of the columns col_ids (C of them) in one launch:
+// (B * C, N) counts and currents, tenant b's seed word seeds[b] + stream
+// (as uint32), step and rate from ts[b] and lams[b]; seeds, ts and lams
+// are (B,) device arrays (every rate in [0, 10): the caller checks).
+extern "C" int repro_keyed_drive_tenants(const int* col_ids, float* counts,
+                                         float* cur, int tenants, int c,
+                                         int n, const int* seeds,
+                                         unsigned seed_stream, const int* ts,
+                                         const float* lams, float j_ext,
+                                         cudaStream_t stream) {
+  if (tenants <= 0 || c <= 0 || n <= 0) return 0;
+  const int parts = static_cast<int>((n + SHARE_MAX - 1LL) / SHARE_MAX);
+  const int share = static_cast<int>((n + parts - 1LL) / parts);
+  const long long blocks = static_cast<long long>(tenants) * c * parts;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  keyed_drive_kernel<true><<<static_cast<unsigned>(blocks), THREADS,
+                             SMEM_PER_NEURON * share, stream>>>(
+      col_ids, counts, cur, n, share, parts, 0u, 0u, 0.0f, j_ext,
+      Tenants{seeds, ts, lams, seed_stream, c});
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,6 +25,16 @@
 // per SM takes the wide instance, read through L2, one item per CTA
 // (kernels/plan.py chooses from the shapes).
 //
+// Tenant axis (the batched service under STDP): B tenants' tables,
+// spikes, post-traces and new weights, B * C rows, row b * C + c updating
+// through column c's idx (shared by every tenant) the weight row
+// (b * C + c) % w_rows (each tenant's own when w_rows = B * C). Items go in
+// the order (column, tenant, target block), so the tenants of a column
+// read its idx rows from HBM about once. With `active` ((B,) int32, or
+// NULL for all), an inactive tenant's rows are its weights copied through
+// exactly: the batched engine's freeze of a finished or quarantined
+// tenant, with no second pass over the weights.
+//
 // The arithmetic is grouped as XLA groups the reference's jitted step on
 // the CPU, and as kernels/ref.py::stdp_remote_update_ref emulates it:
 //   w' = clip(fma(lr, spiked ? fma(pre, spk*a_plus, -dep) : -dep, w))
@@ -131,6 +141,24 @@ __device__ __forceinline__ void update_rows(
   }
 }
 
+// An inactive tenant's ELL rows [0, rows) of K weights, copied through.
+__device__ __forceinline__ void copy_rows(const float* __restrict__ w,
+                                          float* __restrict__ out, int rows,
+                                          int k, bool vec) {
+  if (vec) {
+    const int kq = k >> 2;
+    const float4* w4 = reinterpret_cast<const float4*>(w);
+    float4* out4 = reinterpret_cast<float4*>(out);
+    for (int g = threadIdx.x; g < rows * kq; g += repro::TB) {
+      __stcs(out4 + g, __ldcg(w4 + g));
+    }
+  } else {
+    for (int j = threadIdx.x; j < rows * k; j += repro::TB) {
+      __stcs(out + j, __ldcg(w + j));
+    }
+  }
+}
+
 template <bool STAGED>
 __global__ void __launch_bounds__(repro::TB, 2)
     stdp_remote_update_kernel(const float* __restrict__ tbl,
@@ -138,47 +166,64 @@ __global__ void __launch_bounds__(repro::TB, 2)
                               const float* __restrict__ w,
                               const float* __restrict__ spikes,
                               const float* __restrict__ x_post,
-                              float* __restrict__ out, int n_cols, int n,
+                              float* __restrict__ out, int n_rows,
+                              int tenants, int w_rows,
+                              const int* __restrict__ active, int n,
                               int n_tblk, int t_len, int k, bool vec,
                               RemoteParams p) {
   extern __shared__ float4 smem4[];
   float* tbl_sh = reinterpret_cast<float*>(smem4);
   // a contiguous, equal share of the items (kernels/plan.py
   // Plan.item_range), as ell_gather_kernel takes them
-  const long long items = (long long)n_cols * n_tblk;
+  const long long items = (long long)n_rows * n_tblk;
   const long long i0 = blockIdx.x * items / gridDim.x;
   const long long i1 = (blockIdx.x + 1) * items / gridDim.x;
-  int col_prev = -1;
+  const int cols = n_rows / tenants;
+  int row_prev = -1;
   for (long long it = i0; it < i1; ++it) {
-    const int col = (int)(it / n_tblk);
-    const int r0 = (int)(it % n_tblk) * repro::TB;
-    const float* tbl_c = tbl + (size_t)col * t_len;
+    const repro::Item item =
+        repro::tenant_item((int)it, tenants, n_rows, n_tblk);
+    const int row = item.row;
+    const int r0 = item.tblk * repro::TB;
+    const int rows = min(repro::TB, n - r0);
+    const float* w0 = w + ((size_t)(row % w_rows) * n + r0) * k;
+    float* out0 = out + ((size_t)row * n + r0) * k;
+    if (active != nullptr && active[row / cols] == 0) {
+      copy_rows(w0, out0, rows, k, vec);
+      continue;
+    }
+    const float* tbl_c = tbl + (size_t)row * t_len;
     if constexpr (STAGED) {
-      if (col != col_prev) {
+      if (row != row_prev) {
         __syncthreads();  // every warp is done with the previous row
         repro::stage_async(tbl_sh, tbl_c, t_len);
         repro::cp_async_wait<0>();
         __syncthreads();
-        col_prev = col;
+        row_prev = row;
       }
     }
-    const size_t row0 = (size_t)col * n + r0;
+    const size_t v0 = (size_t)row * n + r0;
     update_rows(repro::TableRow<STAGED>{STAGED ? tbl_sh : tbl_c, t_len},
-                idx + row0 * k, w + row0 * k, out + row0 * k, spikes + row0,
-                x_post + row0, min(repro::TB, n - r0), k, vec, p);
+                idx + ((size_t)item.col * n + r0) * k, w0, out0, spikes + v0,
+                x_post + v0, rows, k, vec, p);
   }
 }
 
 }  // namespace
 
-// staged, ctas, smem_bytes: kernels/plan.py's choice for these shapes.
+// n_rows = tenants * C rows of tbl, spikes, x_post and out (C = the
+// idx's columns), w_rows = C or n_rows rows of w; active: (tenants,) int32
+// or NULL. staged, ctas, smem_bytes: kernels/plan.py's choice for these
+// shapes.
 extern "C" int repro_stdp_remote_update(
     const float* tbl, const int* idx, const float* w, const float* spikes,
-    const float* x_post, float* out, int c, int n, int t_len, int k,
-    float a_plus, float a_minus, float lr, float w_max, int staged, int ctas,
-    int smem_bytes, cudaStream_t stream) {
-  if (c <= 0 || n <= 0 || k <= 0) return 0;
-  if (ctas <= 0 || smem_bytes < repro::ell_gather_smem(staged, t_len)) {
+    const float* x_post, float* out, int n_rows, int tenants, int w_rows,
+    const int* active, int n, int t_len, int k, float a_plus, float a_minus,
+    float lr, float w_max, int staged, int ctas, int smem_bytes,
+    cudaStream_t stream) {
+  if (n_rows <= 0 || n <= 0 || k <= 0) return 0;
+  if (ctas <= 0 || tenants <= 0 || n_rows % tenants != 0 || w_rows <= 0 ||
+      smem_bytes < repro::ell_gather_smem(staged, t_len)) {
     return (int)cudaErrorInvalidValue;
   }
   const int n_tblk = (n + repro::TB - 1) / repro::TB;
@@ -188,7 +233,7 @@ extern "C" int repro_stdp_remote_update(
   if (err != cudaSuccess) return (int)err;
   const bool vec = repro::ell_vec(idx, w, k) && repro::aligned16(out);
   kernel<<<(unsigned)ctas, repro::TB, smem_bytes, stream>>>(
-      tbl, idx, w, spikes, x_post, out, c, n, n_tblk, t_len, k, vec,
-      RemoteParams{a_plus, a_minus, lr, w_max});
+      tbl, idx, w, spikes, x_post, out, n_rows, tenants, w_rows, active, n,
+      n_tblk, t_len, k, vec, RemoteParams{a_plus, a_minus, lr, w_max});
   return (int)cudaGetLastError();
 }

@@ -26,6 +26,13 @@
 // in ascending order: the order of fused_step's local product, so the two
 // give the same bits, and a rerun gives the same bits.
 //
+// Tenant axis (the batched service): B tenants' spikes, B * C rows, row
+// b * C + c reading weight column c (w has C columns, shared by every
+// tenant). The CTAs go in the order (column, tenant, target block), so the
+// B tenants of a column run on neighbouring CTAs and the weight rows they
+// both need come from HBM once and from L2 after that. B = 1 is the
+// single-tenant launch, CTA for CTA.
+//
 // What sets its time (PERF.md): a column's items each stream all of the
 // column's listed rows, and one CTA streams rows at a few tens of GB/s
 // however deep the ring, so the items of the busiest column (hundreds of
@@ -79,8 +86,8 @@ __device__ __forceinline__ void stage_rows(float* dst,
 
 __global__ void __launch_bounds__(T) synapse_matmul_kernel(
     const float* __restrict__ spikes, const float* __restrict__ w,
-    float* __restrict__ out, int n, int n_tblk, bool vec,
-    unsigned long long* silent_count) {
+    float* __restrict__ out, int n_rows, int tenants, int n, int n_tblk,
+    bool vec, unsigned long long* silent_count) {
   // [ring (the spikes staged at its start) | list | val | warp counts]
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
@@ -93,9 +100,11 @@ __global__ void __launch_bounds__(T) synapse_matmul_kernel(
   smem += repro::round16(4 * n);
   int* warp_count = reinterpret_cast<int*>(smem);
 
-  const int col = blockIdx.x / n_tblk, tblk = blockIdx.x - col * n_tblk;
+  const repro::Item item =
+      repro::tenant_item((int)blockIdx.x, tenants, n_rows, n_tblk);
+  const int tblk = item.tblk;
   const int t0 = tblk * T, width = min(T, n - t0);
-  repro::stage_async(spk, spikes + (size_t)col * n, n);
+  repro::stage_async(spk, spikes + (size_t)item.row * n, n);
   repro::cp_async_wait<0>();
   __syncthreads();
   int silent = 0, total = 0;
@@ -113,7 +122,7 @@ __global__ void __launch_bounds__(T) synapse_matmul_kernel(
   float acc = 0.0f;
   const int stages = (total + G - 1) / G;
   if (stages > 0) {
-    const float* wt = w + (size_t)col * n * n + t0;
+    const float* wt = w + (size_t)item.col * n * n + t0;
 #pragma unroll
     for (int g = 0; g < S - 1; ++g) {
       if (g < stages) {
@@ -146,8 +155,10 @@ __global__ void __launch_bounds__(T) synapse_matmul_kernel(
       slot = slot + 1 == S ? 0 : slot + 1;
     }
   }
-  if ((int)threadIdx.x < width) out[(size_t)col * n + t0 + threadIdx.x] = acc;
-  // every target block of a column sees the same source blocks: count once
+  if ((int)threadIdx.x < width) {
+    out[(size_t)item.row * n + t0 + threadIdx.x] = acc;
+  }
+  // every target block of a row sees the same source blocks: count once
   if (silent_count != nullptr && threadIdx.x == 0 && silent > 0) {
     atomicAdd(silent_count, (unsigned long long)silent);
   }
@@ -155,22 +166,25 @@ __global__ void __launch_bounds__(T) synapse_matmul_kernel(
 
 }  // namespace
 
-// smem_bytes is kernels/plan.py's choice for these shapes, at least
+// n_rows = tenants * C spike rows over the C weight columns; smem_bytes
+// is kernels/plan.py's choice for these shapes, at least
 // repro::synapse_matmul_smem(n), which the card must be able to give one
 // CTA (else an error, never a slower path); one CTA per item.
 extern "C" int repro_synapse_matmul(const float* spikes, const float* w,
-                                    float* out, int c, int n,
-                                    unsigned long long* silent_count,
+                                    float* out, int n_rows, int tenants,
+                                    int n, unsigned long long* silent_count,
                                     int smem_bytes, cudaStream_t stream) {
-  if (c <= 0 || n <= 0) return 0;
-  if (smem_bytes < repro::synapse_matmul_smem(n)) {
+  if (n_rows <= 0 || n <= 0) return 0;
+  if (tenants <= 0 || n_rows % tenants != 0 ||
+      smem_bytes < repro::synapse_matmul_smem(n)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaError_t err = repro::set_smem(synapse_matmul_kernel, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int n_tblk = (n + T - 1) / T;
   const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  synapse_matmul_kernel<<<(unsigned)c * n_tblk, T, smem_bytes, stream>>>(
-      spikes, w, out, n, n_tblk, vec, silent_count);
+  synapse_matmul_kernel<<<(unsigned)n_rows * n_tblk, T, smem_bytes,
+                          stream>>>(spikes, w, out, n_rows, tenants, n,
+                                    n_tblk, vec, silent_count);
   return (int)cudaGetLastError();
 }

@@ -45,26 +45,34 @@ _LIF = [_F] * 8 + [_I]          # decay_v .. v_threshold, arp_steps
 SIGNATURES = {
     # v, c, refrac, cur -> v', c', refrac', spikes; n; constants; stream
     "repro_lif_step": [_P] * 8 + [_L] + _LIF + [_P],
-    # spikes, w, out, C, N, silent-block counter (or NULL), shared bytes,
-    # stream
-    "repro_synapse_matmul": [_P, _P, _P, _I, _I, _P, _I, _P],
-    # tbl, idx, w, out, C, N, T, K, staged, CTAs, shared bytes, stream
-    "repro_ell_gather": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+    # spikes, w, out, rows (B * C), B, N, silent-block counter (or NULL),
+    # shared bytes, stream
+    "repro_synapse_matmul": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
+    # tbl, idx, w, out, rows (B * C), B, w rows, N, T, K, staged, CTAs,
+    # shared bytes, stream
+    "repro_ell_gather": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     # s_loc, w, tbl, idx, rem_w, ext, v, c, refrac -> v', c', refrac',
-    # spikes; C, N, T, K; constants; silent-block counter; x_pre, x_post
-    # -> x_pre', x_post' (or NULL); dp, dm; flags (or NULL); v_floor,
-    # v_ceil; staged, CTAs, shared bytes; claim counter; stream
-    "repro_fused_step": ([_P] * 13 + [_I] * 4 + _LIF + [_P] + [_P] * 4
+    # spikes; rows (B * C), B, w rows, rem_w rows, N, T, K; constants;
+    # silent-block counter; x_pre, x_post -> x_pre', x_post' (or NULL);
+    # dp, dm; flags (or NULL); v_floor, v_ceil; staged, CTAs, shared
+    # bytes; claim counter; stream
+    "repro_fused_step": ([_P] * 13 + [_I] * 7 + _LIF + [_P] + [_P] * 4
                          + [_F] * 2 + [_P] + [_F] * 2 + [_I] * 3 + [_P] * 2),
-    # w, x_pre_exc, spk_exc, spikes, x_post -> w'; C, N; a_plus, a_minus,
-    # lr, w_max; stream
-    "repro_stdp_dense_update": [_P] * 6 + [_I] * 2 + [_F] * 4 + [_P],
-    # tbl, idx, w, spikes, x_post -> w'; C, N, T, K; a_plus, a_minus, lr,
-    # w_max; staged, CTAs, shared bytes; stream
-    "repro_stdp_remote_update": ([_P] * 6 + [_I] * 4 + [_F] * 4 + [_I] * 3
-                                 + [_P]),
+    # w, x_pre_exc, spk_exc, spikes, x_post -> w'; C, N; active (or NULL),
+    # columns per tenant; a_plus, a_minus, lr, w_max; stream
+    "repro_stdp_dense_update": ([_P] * 6 + [_I] * 2 + [_P, _I] + [_F] * 4
+                                + [_P]),
+    # tbl, idx, w, spikes, x_post -> w'; rows (B * C), B, w rows; active
+    # (or NULL); N, T, K; a_plus, a_minus, lr, w_max; staged, CTAs, shared
+    # bytes; stream
+    "repro_stdp_remote_update": ([_P] * 6 + [_I] * 3 + [_P] + [_I] * 3
+                                 + [_F] * 4 + [_I] * 3 + [_P]),
     # col_ids -> counts, currents; C, N; seed word, t; lam, j_ext; stream
     "repro_keyed_drive": [_P] * 3 + [_I] * 2 + [_U] * 2 + [_F] * 2 + [_P],
+    # col_ids -> counts, currents; B, C, N; seeds (B,), the seed's
+    # stream; steps, rates (B,); j_ext; stream
+    "repro_keyed_drive_tenants": ([_P] * 3 + [_I] * 3 + [_P, _U] + [_P] * 2
+                                  + [_F, _P]),
 }
 
 # the ELL kernels count their wide path (kernels/plan.py) apart

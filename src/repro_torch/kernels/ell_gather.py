@@ -8,6 +8,12 @@ CTAs stage their column's table row in shared memory and gather from
 there; a table too wide for that takes the wide path, read through L2
 (``plan.py`` chooses from the shapes; its launches count as
 ``ell_gather.wide``). Its plain version is ``ref.ell_gather_ref``.
+
+Tenant axis (the batched service): a (B*C, T) table of B tenants gathers
+through the (C, N, K) idx they share, and through weights of C rows
+(shared) or B*C rows, in one launch; the items go column by column, a
+column's tenants side by side, so they read its idx and weights from HBM
+about once.
 """
 from __future__ import annotations
 
@@ -15,25 +21,28 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.plan import plan, sm_count
-from repro_torch.kernels.ref import ell_gather_ref
+from repro_torch.kernels.ref import ell_gather_ref, tenants_of
 
 
 def ell_gather(s_flat: torch.Tensor, idx: torch.Tensor,
                w: torch.Tensor) -> torch.Tensor:
-    """(C, T) table, (C, N, K) int32 idx / float32 w -> (C, N)."""
+    """(C, T) table, (C, N, K) int32 idx / float32 w -> (C, N); a (B*C, T)
+    table gives (B*C, N), with w of C or B*C rows."""
     if s_flat.device.type == "cpu":
         return ell_gather_ref(s_flat, idx, w)
     c, n, k = idx.shape
-    t = s_flat.shape[1]
+    rows, t = s_flat.shape
+    b = tenants_of(rows, c, "ell_gather")
+    w_rows = w.shape[0] if w.shape[0] in (c, rows) else c
     _build.check_args("ell_gather", s_flat.device,
-                      s_flat=(s_flat, torch.float32, (c, t)),
+                      s_flat=(s_flat, torch.float32, (rows, t)),
                       idx=(idx, torch.int32, (c, n, k)),
-                      w=(w, torch.float32, (c, n, k)))
-    out = torch.empty((c, n), dtype=torch.float32, device=s_flat.device)
-    p = plan("ell_gather", c, n, t, sm_count(s_flat.device))
+                      w=(w, torch.float32, (w_rows, n, k)))
+    out = torch.empty((rows, n), dtype=torch.float32, device=s_flat.device)
+    p = plan("ell_gather", rows, n, t, sm_count(s_flat.device))
     _build.launch("ell_gather" if p.staged else "ell_gather.wide",
                   "repro_ell_gather", s_flat.device,
                   s_flat.data_ptr(), idx.data_ptr(), w.data_ptr(),
-                  out.data_ptr(), c, n, t, k, int(p.staged), p.ctas,
-                  p.smem_bytes)
+                  out.data_ptr(), rows, b, w_rows, n, t, k, int(p.staged),
+                  p.ctas, p.smem_bytes)
     return out

@@ -16,6 +16,14 @@ is ``ref.fused_step_ref``.
 
 ``silent_blocks`` counts skipped (column, 128-source block) pairs, as in
 ``synapse_matmul``.
+
+Tenant axis (the batched service): B tenants in one launch. Every
+per-neuron input and output, the table and the guard flags have B*C rows,
+tenant after tenant; ``rem_flat`` keeps its C rows, and ``w_local`` and
+``rem_w`` have C rows (static runs: every tenant reads the one copy) or
+B*C (STDP: each tenant's own). The items go column by column, a column's
+tenants side by side, so its weight and ELL rows come from HBM about once
+(csrc/fused_step.cu).
 """
 from __future__ import annotations
 
@@ -25,7 +33,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.lif_step import _c_lif
 from repro_torch.kernels.plan import plan, sm_count
 from repro_torch.kernels.ref import (fused_step_ref, lif_constants,
-                                     silent_block_count, stdp_constants)
+                                     silent_block_count, stdp_constants,
+                                     tenants_of)
 from repro_torch.kernels.synapse_matmul import _counter_arg, _counter_ptr
 
 
@@ -40,6 +49,8 @@ def fused_step(ncfg, v, c, refrac, s_loc, w_local, s_flat, rem_flat, rem_w,
     ``(v', c', refrac', spikes)``, with ``scfg`` followed by ``(x_pre',
     x_post')`` and with ``gcfg`` by the (C,) int32 guard flags of ``v'``
     (bit 0 non-finite, bit 1 outside ``[gcfg.v_floor, gcfg.v_ceil]``).
+    With B tenants, C above is B*C but for ``rem_flat`` (and for
+    ``w_local`` and ``rem_w`` when shared).
     """
     if v.device.type == "cpu":
         if silent_blocks is not None:
@@ -49,7 +60,10 @@ def fused_step(ncfg, v, c, refrac, s_loc, w_local, s_flat, rem_flat, rem_w,
                               scfg=scfg, gcfg=gcfg)
     nc, n = v.shape
     t = s_flat.shape[1]
-    k = rem_flat.shape[-1]
+    cols, _, k = rem_flat.shape
+    b = tenants_of(nc, cols, "fused_step")
+    w_rows = cols if w_local.shape[0] == cols else nc
+    rw_rows = cols if rem_w.shape[0] == cols else nc
     f32 = torch.float32
     traces = {}
     if scfg is not None:
@@ -58,10 +72,10 @@ def fused_step(ncfg, v, c, refrac, s_loc, w_local, s_flat, rem_flat, rem_w,
                       v=(v, f32, (nc, n)), c=(c, f32, (nc, n)),
                       refrac=(refrac, torch.int32, (nc, n)),
                       s_loc=(s_loc, f32, (nc, n)),
-                      w_local=(w_local, f32, (nc, n, n)),
+                      w_local=(w_local, f32, (w_rows, n, n)),
                       s_flat=(s_flat, f32, (nc, t)),
-                      rem_flat=(rem_flat, torch.int32, (nc, n, k)),
-                      rem_w=(rem_w, f32, (nc, n, k)),
+                      rem_flat=(rem_flat, torch.int32, (cols, n, k)),
+                      rem_w=(rem_w, f32, (rw_rows, n, k)),
                       ext=(ext, f32, (nc, n)), **traces,
                       **_counter_arg(silent_blocks))
     v_out, c_out, s_out = (torch.empty_like(v) for _ in range(3))
@@ -87,7 +101,7 @@ def fused_step(ncfg, v, c, refrac, s_loc, w_local, s_flat, rem_flat, rem_w,
                   rem_flat.data_ptr(), rem_w.data_ptr(), ext.data_ptr(),
                   v.data_ptr(), c.data_ptr(), refrac.data_ptr(),
                   v_out.data_ptr(), c_out.data_ptr(), r_out.data_ptr(),
-                  s_out.data_ptr(), nc, n, t, k,
+                  s_out.data_ptr(), nc, b, w_rows, rw_rows, n, t, k,
                   *_c_lif(lif_constants(ncfg, v.dtype)),
                   _counter_ptr(silent_blocks), *stdp_args, *guard_args,
                   int(p.staged), p.ctas, p.smem_bytes, next_item.data_ptr())

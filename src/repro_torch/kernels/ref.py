@@ -13,6 +13,14 @@ the version a kernel wrapper takes for a tensor on the CPU. On the card
 product summed in the CUDA kernel's order and rounding. Products that the
 reference accumulates in float32 (``preferred_element_type=jnp.float32``)
 accumulate in float32 here.
+
+Each takes the kernels' tenant axis too (the batched service): the
+per-tenant inputs then have B * C rows, tenant after tenant, and a leaf
+that the tenants share keeps its C rows. A version whose arithmetic
+reduces (a product, a gather's sum) or gathers through a shared index
+runs once per tenant (:func:`per_tenant`), so each tenant's result is the
+single-tenant version's to the bit; the elementwise ones run on all rows
+at once, which gives the same bits.
 """
 from __future__ import annotations
 
@@ -22,9 +30,39 @@ BLK = 128   # source-block width of the block-event skip (csrc/kernels.cuh)
 DRIVE_STREAM = 0xE57   # the drive's key: PRNGKey(seed + DRIVE_STREAM)
 
 
+def tenants_of(rows: int, shared_rows: int, what: str) -> int:
+    """B of a tenant-axis call: ``rows`` per-tenant rows (B * C) over the
+    ``shared_rows`` (C) of a leaf the tenants share."""
+    if shared_rows <= 0 or rows % shared_rows:
+        raise ValueError(f"{what}: {rows} rows are not a whole number of "
+                         f"tenants of {shared_rows} columns")
+    return rows // shared_rows
+
+
+def per_tenant(fn, tenants: int, rows: int, *xs):
+    """``fn`` once per tenant, the results joined along the rows: each
+    tensor of ``rows`` (B * C) rows is cut into the tenants' C rows, any
+    other (a shared leaf of C rows, None) passes whole. A tuple result is
+    joined leaf by leaf."""
+    if tenants == 1:
+        return fn(*xs)
+    c = rows // tenants
+    outs = [fn(*(x[i * c:(i + 1) * c]
+                 if isinstance(x, torch.Tensor) and x.shape[0] == rows
+                 else x for x in xs)) for i in range(tenants)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(leaf) for leaf in zip(*outs))
+    return torch.cat(outs)
+
+
 def synapse_matmul_ref(spikes: torch.Tensor, w_local: torch.Tensor
                        ) -> torch.Tensor:
-    """Local synaptic delivery: (C,N) x (C,N,N)[src,tgt] -> (C,N)."""
+    """Local synaptic delivery: (C,N) x (C,N,N)[src,tgt] -> (C,N); with
+    (B*C, N) spikes, each tenant's over the shared weights."""
+    b = tenants_of(spikes.shape[0], w_local.shape[0], "synapse_matmul")
+    if b > 1:
+        return per_tenant(synapse_matmul_ref, b, spikes.shape[0], spikes,
+                          w_local)
     out = torch.einsum("cs,cst->ct", spikes.float(), w_local.float())
     return out.to(spikes.dtype)
 
@@ -36,6 +74,10 @@ def synapse_matmul_chain_ref(spikes: torch.Tensor, w_local: torch.Tensor
     over the column's spiking sources in ascending order, each step
     rounded once to float32 (``__fmaf_rn``). The kernel's result, to the
     bit; float32 only."""
+    b = tenants_of(spikes.shape[0], w_local.shape[0], "synapse_matmul")
+    if b > 1:
+        return per_tenant(synapse_matmul_chain_ref, b, spikes.shape[0],
+                          spikes, w_local)
     c, n = spikes.shape
     active = spikes != 0
     counts = active.sum(dim=1)
@@ -57,8 +99,13 @@ def ell_gather_ref(s_flat: torch.Tensor, idx: torch.Tensor,
                    w: torch.Tensor) -> torch.Tensor:
     """Remote ELL delivery: gather+reduce.
 
-    s_flat (C, T) neighbour-spike table, idx/w (C, N, K) -> (C, N).
+    s_flat (C, T) neighbour-spike table, idx/w (C, N, K) -> (C, N); with
+    (B*C, T) tables, each tenant's through the shared idx (and the shared
+    weights, or its own of B*C rows).
     """
+    b = tenants_of(s_flat.shape[0], idx.shape[0], "ell_gather")
+    if b > 1:
+        return per_tenant(ell_gather_ref, b, s_flat.shape[0], s_flat, idx, w)
     c, n, k = idx.shape
     g = torch.gather(s_flat, 1, idx.reshape(c, n * k).long())
     out = (g.reshape(c, n, k).float() * w.float()).sum(dim=-1)
@@ -191,7 +238,7 @@ _STDP_CHUNK = 1 << 26
 
 
 def stdp_dense_update_ref(w_local, x_pre_exc, spk_exc, spikes, x_post, *,
-                          a_plus, a_minus, lr, w_max):
+                          a_plus, a_minus, lr, w_max, active=None):
     """Dense local STDP update (mirrors core/plasticity.py local branch):
     ``w' = where(w > 0, clip(w + lr*(a_plus*pot - a_minus*dep), 0, w_max),
     w)`` with ``pot[c,s,t] = x_pre_exc[c,s]*spikes[c,t]`` and
@@ -200,10 +247,13 @@ def stdp_dense_update_ref(w_local, x_pre_exc, spk_exc, spikes, x_post, *,
     Grouped as XLA groups the reference (jitted ``ref`` and the Pallas
     kernel alike): ``w' = fma(lr, fma(a_plus, pot, -(a_minus*dep)), w)``
     before the clip, for any ``lr``. Out of place, a chunk of columns at
-    a time."""
+    a time. ``active`` ((B,) bool or int over tenants of C = rows / B
+    columns), when given: an inactive tenant's weights come back as they
+    were (:func:`tenant_rows`)."""
     a_plus, a_minus, lr, w_max = map(_f32, (a_plus, a_minus, lr, w_max))
     out = torch.empty_like(w_local)
     n_cols, n = spikes.shape
+    keep = tenant_rows(active, n_cols)
     step = max(1, _STDP_CHUNK // max(1, n * n))
     for c0 in range(0, n_cols, step):
         cs = slice(c0, c0 + step)
@@ -211,12 +261,24 @@ def stdp_dense_update_ref(w_local, x_pre_exc, spk_exc, spikes, x_post, *,
         pot = x_pre_exc[cs, :, None] * spikes[cs, None, :]
         dep = spk_exc[cs, :, None] * x_post[cs, None, :]
         new = _fma_lr(_fma_sparse(pot, a_plus, -(a_minus * dep)), lr, w)
-        out[cs] = torch.where(w > 0, torch.clamp(new, 0.0, w_max), w)
+        new = torch.where(w > 0, torch.clamp(new, 0.0, w_max), w)
+        if keep is not None:
+            new = torch.where(keep[cs, None, None], new, w)
+        out[cs] = new
     return out
 
 
+def tenant_rows(active, rows: int):
+    """The (rows,) bool mask of the rows of the active tenants, ``active``
+    a (B,) mask over tenants of rows / B rows each; None for None."""
+    if active is None:
+        return None
+    b = active.shape[0]
+    return (active != 0).repeat_interleave(tenants_of(rows, b, "active"))
+
+
 def stdp_remote_update_ref(table, rem_flat, rem_w, spikes, x_post, *,
-                          a_plus, a_minus, lr, w_max):
+                          a_plus, a_minus, lr, w_max, active=None):
     """The remote ELL rule of the reference (``core/plasticity.py:115-133``),
     its ``* 0.5`` on the depression term kept as written:
     ``dw = lr * (a_plus*pre*spk - a_minus*pre*x_post*0.5)`` with ``pre``
@@ -225,7 +287,24 @@ def stdp_remote_update_ref(table, rem_flat, rem_w, spikes, x_post, *,
     positive weights. Grouped as XLA rewrites and fuses it:
     ``fma(lr, fma(pre, spk*a_plus, -(pre*(x_post*a_minus))*0.5), rem_w)``.
     Out of place. Finding the rows of the neurons that spiked makes the
-    host wait for the device once per call."""
+    host wait for the device once per call (once per tenant).
+
+    Tenant axis: ``table``, ``spikes`` and ``x_post`` of B*C rows through
+    the shared ``rem_flat`` (C rows), ``rem_w`` of C or B*C rows, the
+    result of B*C rows; ``active`` as in :func:`stdp_dense_update_ref`."""
+    kw = dict(a_plus=a_plus, a_minus=a_minus, lr=lr, w_max=w_max)
+    rows = table.shape[0]
+    b = tenants_of(rows, rem_flat.shape[0], "stdp_remote_update")
+    if b > 1 or active is not None:
+        out = per_tenant(
+            lambda *xs: stdp_remote_update_ref(*xs, **kw), b, rows, table,
+            rem_flat, rem_w, spikes, x_post)
+        keep = tenant_rows(active, rows)
+        if keep is None:
+            return out
+        if rem_w.shape[0] != rows:
+            rem_w = rem_w.repeat(b, 1, 1)
+        return torch.where(keep[:, None, None], out, rem_w)
     a_plus, a_minus, lr, w_max = map(_f32, (a_plus, a_minus, lr, w_max))
     c, n, k = rem_flat.shape
     pre = torch.gather(table, 1, rem_flat.reshape(c, n * k).long()
@@ -284,6 +363,16 @@ def keyed_poisson_ref(seed: int, t: int, col_ids: torch.Tensor, n: int,
     base = prng.fold_in(prng.prng_key(seed + DRIVE_STREAM, col_ids.device),
                         t)
     return prng.poisson(prng.fold_in(base, col_ids.long()), lam, (n,))
+
+
+def keyed_poisson_tenants_ref(seeds, t, col_ids: torch.Tensor, n: int,
+                              lam) -> torch.Tensor:
+    """:func:`keyed_poisson_ref` of B tenants, (B*C, N): tenant b's under
+    seed ``seeds[b]`` at step ``t[b]`` and rate ``lam[b]`` ((B,) tensors
+    on the CPU, or sequences)."""
+    return torch.cat([keyed_poisson_ref(int(s), int(tt), col_ids, n,
+                                        float(lm))
+                      for s, tt, lm in zip(seeds, t, lam)])
 
 
 def silent_block_count(spikes: torch.Tensor) -> torch.Tensor:

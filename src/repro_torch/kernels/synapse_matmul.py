@@ -13,6 +13,11 @@ listed sources in ascending order, bitwise ``ref.synapse_matmul_chain_ref``
 (and ``fused_step``'s local product); its plain version is
 ``ref.synapse_matmul_ref``.
 
+Tenant axis (the batched service): (B*C, N) spikes of B tenants over the
+(C, N, N) weights they share, in one launch; the CTAs go column by
+column, a column's tenants side by side, so the weight rows they both
+need come from HBM once.
+
 ``silent_blocks``, when given, is a one-element int64 tensor on the
 same device to which the call adds the number of (column, 128-source
 block) pairs it skipped.
@@ -23,27 +28,31 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.plan import plan, sm_count
-from repro_torch.kernels.ref import silent_block_count, synapse_matmul_ref
+from repro_torch.kernels.ref import (silent_block_count, synapse_matmul_ref,
+                                     tenants_of)
 
 
 def synapse_matmul(spikes: torch.Tensor, w_local: torch.Tensor, *,
                    silent_blocks: torch.Tensor | None = None) -> torch.Tensor:
-    """(C, N) x (C, N, N)[src, tgt] -> (C, N)."""
+    """(C, N) x (C, N, N)[src, tgt] -> (C, N); (B*C, N) spikes give
+    (B*C, N)."""
     if spikes.device.type == "cpu":
         if silent_blocks is not None:
             silent_blocks += silent_block_count(spikes)
         return synapse_matmul_ref(spikes, w_local)
-    c, n = spikes.shape
+    rows, n = spikes.shape
+    c = w_local.shape[0]
+    b = tenants_of(rows, c, "synapse_matmul")
     f32 = torch.float32
     _build.check_args("synapse_matmul", spikes.device,
-                      spikes=(spikes, f32, (c, n)),
+                      spikes=(spikes, f32, (rows, n)),
                       w_local=(w_local, f32, (c, n, n)),
                       **_counter_arg(silent_blocks))
     out = torch.empty_like(spikes)
-    p = plan("synapse_matmul", c, n, 0, sm_count(spikes.device))
+    p = plan("synapse_matmul", rows, n, 0, sm_count(spikes.device))
     _build.launch("synapse_matmul", "repro_synapse_matmul", spikes.device,
-                  spikes.data_ptr(), w_local.data_ptr(), out.data_ptr(), c, n,
-                  _counter_ptr(silent_blocks), p.smem_bytes)
+                  spikes.data_ptr(), w_local.data_ptr(), out.data_ptr(), rows,
+                  b, n, _counter_ptr(silent_blocks), p.smem_bytes)
     return out
 
 

@@ -66,7 +66,7 @@ def test_staging_a_row_too_wide_is_an_error(cuda_device):
     with pytest.raises(RuntimeError, match="CUDA error"):
         _build.launch("ell_gather", "repro_ell_gather", cuda_device,
                       tbl.data_ptr(), idx.data_ptr(), w.data_ptr(),
-                      out.data_ptr(), c, n, t, k, 1, 1,
+                      out.data_ptr(), c, 1, c, n, t, k, 1, 1,
                       plan.smem_bytes("ell_gather", True, n, t))
     assert _build.LAUNCHES["ell_gather"] == 0
 
@@ -94,8 +94,8 @@ def test_synapse_matmul_matches_the_fma_chain(cuda_device):
     _build.reset_launches()
     with pytest.raises(RuntimeError, match="CUDA error"):
         _build.launch("synapse_matmul", "repro_synapse_matmul", cuda_device,
-                      s.data_ptr(), w.data_ptr(), out.data_ptr(), c, n, None,
-                      p.smem_bytes - 16)
+                      s.data_ptr(), w.data_ptr(), out.data_ptr(), c, 1, n,
+                      None, p.smem_bytes - 16)
     assert _build.LAUNCHES["synapse_matmul"] == 0
 
 
@@ -141,8 +141,8 @@ def test_stdp_remote_update_matches_plain(cuda_device):
         _build.launch("stdp_remote_update", "repro_stdp_remote_update",
                       cuda_device, tbl.data_ptr(), idx.data_ptr(),
                       w.data_ptr(), vec.data_ptr(), vec.data_ptr(),
-                      torch.empty_like(w).data_ptr(), c, n, t, k, 0.01, 0.012,
-                      1.0, 0.84, 1, 1,
+                      torch.empty_like(w).data_ptr(), c, 1, c, None, n, t, k,
+                      0.01, 0.012, 1.0, 0.84, 1, 1,
                       plan.smem_bytes("stdp_remote_update", True, n, t))
     assert _build.LAUNCHES["stdp_remote_update"] == 0
 
@@ -388,3 +388,92 @@ def test_plastic_mesh_step_never_waits_for_the_card(cuda_device, wire,
     assert _build.LAUNCHES["stdp_remote_update"] == 3
     assert (final.plastic.trace_ext is not None) == (wire == "aer_sparse")
     assert float(res.spikes) > 0
+
+
+@pytest.mark.cuda
+def test_tenant_axis_kernels_match_plain(cuda_device):
+    """Every tenant-axis kernel, one launch for three tenants of five
+    random columns: to the bit against one launch per tenant, and against
+    its plain version with the tenant axis (shared and per-tenant
+    weights, the STDP and guard epilogues, one tenant inactive under
+    both STDP kernels): the checks of
+    ``chip_smoke.Smoke.check_tenant_kernels``, which raises on a miss."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    chip_smoke.Smoke(torch, str(cuda_device)).check_tenant_kernels()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["cuda_fused", "cuda"])
+def test_batched_service_equals_dedicated_runs(cuda_device, impl):
+    """Three tenants (one with nu_scale 1.5) on two slots of a 4x4x64
+    server: one launch of each kernel per loop step for all the slots,
+    the static weights one tensor, and every job's spikes, events and
+    per-step spikes equal to its dedicated run on the card."""
+    from repro_torch.core import network as net
+    from repro_torch.launch.serve import BatchedSimServer, SimJob
+    cfg = DPSNNConfig(grid_h=4, grid_w=4, neurons_per_column=64, seed=0)
+    params, _ = sim.build(cfg, device=cuda_device)
+    srv = BatchedSimServer(cfg, slots=2, chunk=8, impl=impl, params=params,
+                           device=cuda_device)
+    jobs = [SimJob(job_id="a", seed=0, n_steps=20),
+            SimJob(job_id="b", seed=5, n_steps=13, nu_scale=1.5),
+            SimJob(job_id="c", seed=-3, n_steps=9)]
+    for job in jobs:
+        srv.submit(job)
+    _build.reset_launches()
+    results = {r.job_id: r for r in srv.drain()}
+    loop = srv.stats["loop_steps"]
+    kernels = (["fused_step"] if impl == "cuda_fused" else
+               ["synapse_matmul", "ell_gather", "lif_step"])
+    for name in kernels + ["keyed_drive"]:
+        assert _build.LAUNCHES[name] == loop, name
+    assert srv.params.w_local.data_ptr() == params.w_local.data_ptr()
+    # the per-step rate of simulation.run's rate_trace
+    f32 = torch.float32
+    per_step = float(torch.tensor(sim._recip(cfg.n_neurons), dtype=f32)
+                     * torch.tensor(sim._recip(cfg.neuron.dt_ms * 1e-3),
+                                    dtype=f32))
+    for job in jobs:
+        state = net.init_state(cfg, range(cfg.n_columns), device=cuda_device,
+                               seed=job.seed)
+        one = sim.run(cfg, params, state, job.n_steps, impl=impl,
+                      seed=job.seed, nu_scale=job.nu_scale)
+        r = results[job.job_id]
+        assert (r.spikes, r.events) == (float(one.spikes), float(one.events))
+        counts = torch.from_numpy(r.raster).to(cuda_device).sum((1, 2))
+        assert torch.equal(counts.to(f32) * per_step, one.rate_trace)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["cuda_fused", "cuda"])
+def test_batched_step_never_waits_for_the_card(cuda_device, impl):
+    """Plastic guarded steps of three tenants under sync debug mode
+    "error": the batched step (per-tenant ring slots, drive, guard, STDP
+    with the tenants' active mask, the freeze) makes the host wait for
+    nothing."""
+    from repro_torch.core import batched
+    cfg = DPSNNConfig(grid_h=4, grid_w=4, neurons_per_column=48, seed=3,
+                      stdp=True, guard=GuardConfig(enabled=True))
+    params, _ = sim.build(cfg, device=cuda_device)
+    seeds = [3, 4, 5]
+    bp = batched.batch_params(cfg, params, 3)
+    st = batched.init_tenants(cfg, seeds, cuda_device)
+    step = batched.make_batched_step(cfg, impl=impl)
+    dev_seeds = torch.tensor(seeds, dtype=torch.int32, device=cuda_device)
+    lam = batched.tenant_rates(cfg, [1.0, 0.8, 1.2], 3).to(cuda_device)
+    active = torch.tensor([True, True, False], device=cuda_device)
+    chaos = torch.full((3,), -1, dtype=torch.int32, device=cuda_device)
+    bp, st, _ = step(bp, st, dev_seeds, lam, active, chaos)   # builds
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            bp, st, frame = step(bp, st, dev_seeds, lam, active, chaos)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert _build.LAUNCHES["stdp_remote_update"] == 3
+    assert _build.LAUNCHES["keyed_drive"] == 3
+    assert st.t.tolist() == [4, 4, 0]
+    assert not bool(frame[2].any())
