@@ -111,7 +111,20 @@ then, on the card:
    bounds (``fused_step`` also as one launch per tenant); the
    tenant-axis kernels at B = 4 join the ``{"kernels": ...}`` line with
    their library calls (``torch.bmm`` for ``synapse_matmul``, cuSPARSE
-   ``A @ X`` of B columns for ``ell_gather``).
+   ``A @ X`` of B columns for ``ell_gather``);
+7. drives the batched service over shard meshes and ranks
+   (``exchange.make_batched_distributed_run``) on the same grid: 6b's
+   four tenants for 20 + 100 steps from their seeds on in-process meshes
+   of 2x2 and 24x24 shards under ``cuda_fused``, on the dense wire and on
+   AER at a bound that cannot overflow (0 saturated steps), 2x2 under
+   ``cuda``, and the first two tenants plastic on 2x2; then 2 gloo ranks
+   with 2 tenants, on one spatial grid and over 2 batch shards, through
+   the launcher. Every tenant equals its dedicated single-shard run to
+   the bit (spikes, per-step spikes, v, and the plastic weights and
+   traces; events within 1e-6 past 2**24), with one ``fused_step`` (or
+   one of each staged kernel) and one ``keyed_drive`` launch per step for
+   all tenants and shards; each case prints its ms per loop step,
+   tenant-steps/s, device busy share and peak memory.
 
 Every phase raises on failure and the script exits non-zero. Without a
 card, or without the rest of the repository beside it, it exits
@@ -210,6 +223,10 @@ TENANT_B = 4
 # the kernels that take the tenant axis (lif_step runs on its rows as is)
 TENANT_KERNELS = ("keyed_drive", "synapse_matmul", "ell_gather",
                   "fused_step", "stdp_dense_update", "stdp_remote_update")
+# phase 7: the plastic tenants of the batched mesh (the first of 6b's),
+# and the steps each case's profile covers
+PLASTIC_TENANTS = 2
+PROFILE_STEPS = 10
 
 
 def log(*args):
@@ -464,8 +481,12 @@ class Smoke:
         torch.cuda.empty_cache()
 
         # 6. the batched multi-tenant service, held to phase 3 and to each
-        # tenant's dedicated run
-        self.service_path(cfg, fused)
+        # tenant's dedicated run; 7. the batched service over shard meshes
+        # and ranks, each tenant held to its dedicated run
+        params, _ = self.sim.build(cfg, device=self.dev)
+        self.service_path(cfg, fused, params)
+        self.batched_mesh_path(cfg, params)
+        del params
 
         tenant = {f"{name}[B={TENANT_B}]": name for name in TENANT_KERNELS}
         names = {**{name: name for name in (*TPU_KERNELS, *PORT_KERNELS)},
@@ -2674,7 +2695,7 @@ class Smoke:
         self.sync()
         return srv, results, dict(self.ops.LAUNCHES)
 
-    def service_path(self, cfg, fused):
+    def service_path(self, cfg, fused, params):
         """Phase 6: the batched service on ``cfg`` (6a-6e), its timing at
         B = SERVICE_WIDTHS, and the tenant-axis kernels' entries."""
         t0 = time.perf_counter()
@@ -2687,7 +2708,6 @@ class Smoke:
                   "passed through) equal to their plain versions to the "
                   "bit; max abs err " + ", ".join(
                       f"{k} {v:.2e}" for k, v in errs.items()))
-        params, _ = self.sim.build(cfg, device=self.dev)
         out = dict(b1=self.service_one(cfg, params, fused),
                    b4=self.service_four(cfg, params),
                    recycle=self.service_recycle(cfg, params),
@@ -3185,6 +3205,262 @@ class Smoke:
                 f"{e['bound_by']}, {e['bytes'] / 1e9:.3f} GB; equal to the "
                 f"plain version to the bit; launches {e['launches']} "
                 f"({e['launches_from']}))")
+
+    # ------------------------------------------------------------ phase 7
+    def tenant_oracle(self, cfg, params, impl, tenants, steps):
+        """The oracle of phase 7: each tenant's dedicated single-shard run
+        of ``steps`` from its seed under ``impl`` (``tenants``: (seed,
+        nu_scale) pairs): per-step spikes, totals, and the final v (and,
+        under STDP, weights and traces), all on the card."""
+        out = []
+        for seed, nu in tenants:
+            one = self.dedicated(cfg, params, seed, steps, impl, nu)
+            got = dict(trace=one.rate_trace, spikes=float(one.spikes),
+                       events=float(one.events), v=one.state.lif.v)
+            if cfg.stdp:
+                got.update(w_local=one.params.w_local,
+                           rem_w=one.params.rem_w,
+                           x_pre=one.state.stdp.x_pre,
+                           x_post=one.state.stdp.x_post)
+            out.append(got)
+            del one
+        return out
+
+    def batched_mesh_run(self, cfg, mesh, params, impl, tenants):
+        """``tenants`` over ``mesh`` through
+        ``exchange.make_batched_distributed_run``: WARMUP_STEPS untimed
+        from the seeds, then SERVICE_TIMED timed from there (the launch
+        counts set to 0 just before and read just after; device time by
+        CUDA events, host time by the wall clock), the peak memory of
+        both."""
+        torch = self.torch
+        seeds, nu = [s for s, _ in tenants], [x for _, x in tenants]
+
+        def runner(k):
+            return self.ex.make_batched_distributed_run(
+                cfg, mesh, n_steps=k, batch=len(seeds), impl=impl,
+                with_stimulus=True, with_state=True, params=params)[0]
+        torch.cuda.empty_cache()
+        self.sync()
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        warm_res, state = runner(WARMUP_STEPS)(seeds, nu)
+        timed = runner(SERVICE_TIMED)
+        self.sync()
+        self.ops.reset_launches()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        w0 = time.perf_counter()
+        e0.record()
+        res, final = timed(seeds, nu, state=state)
+        e1.record()
+        self.sync()
+        wall = time.perf_counter() - w0
+        peak_gb = torch.cuda.max_memory_allocated(self.dev) / 1e9
+        launches = dict(self.ops.LAUNCHES)
+        del state
+        # the profile's runners, built outside its window (at 24x24 the
+        # shards' column ids alone are hundreds of small launches)
+        runners = {k: runner(k) for k in (2, PROFILE_STEPS)}
+
+        def run_k(k):
+            return runners[k](seeds, nu, state=final)
+        return dict(res=res, final=final, warm=warm_res, run_k=run_k,
+                    ms=e0.elapsed_time(e1) / SERVICE_TIMED,
+                    wall_ms=wall * 1e3 / SERVICE_TIMED, peak_gb=peak_gb,
+                    launches=launches)
+
+    def hold_tenants(self, name, spec, out, oracle):
+        """Every tenant of a batched mesh run against its dedicated run:
+        spikes, per-step spikes, v (and under STDP the weights and
+        traces) to the bit, events within EVENTS_RTOL past 2**24."""
+        res, final = out["res"], out["final"]
+        trace = self.torch.cat([out["warm"].rate_trace, res.rate_trace], 1)
+        leaves = dict(v=final.lif.v)
+        if final.plastic is not None:
+            pl = final.plastic
+            leaves.update(w_local=pl.w_local, rem_w=pl.rem_w,
+                          x_pre=pl.traces.x_pre, x_post=pl.traces.x_post)
+        for i, one in enumerate(oracle):
+            if float(res.spikes[i]) != one["spikes"]:
+                raise AssertionError(f"{name} tenant {i}: "
+                                     f"{float(res.spikes[i])} spikes, "
+                                     f"dedicated {one['spikes']}")
+            self.equal(f"{name} tenant {i} per-step spikes", trace[i],
+                       one["trace"])
+            for leaf, x in leaves.items():
+                self.equal(f"{name} tenant {i} {leaf}",
+                           self.part.columns_to_global(x[:, i], spec),
+                           one[leaf])
+            if not self.ld.events_agree(float(res.events[i]),
+                                        one["events"]):
+                raise AssertionError(f"{name} tenant {i}: events "
+                                     f"{float(res.events[i])} vs "
+                                     f"{one['events']}")
+
+    def batched_mesh_path(self, cfg, params):
+        """Phase 7: the multi-rank batched service at full width, 6b's
+        tenants (seeds 42-45 at nu_scale 1.0, 0.8, 1.0, 1.5) on in-process
+        meshes of 2x2 and 24x24 shards, on the dense wire and on AER at a
+        bound that cannot overflow, one case under ``cuda``, 2 plastic
+        tenants on 2x2, then 2 gloo ranks with 2 tenants, with and
+        without batch shards. Each tenant is held to its dedicated
+        single-shard run, and each in-process run to one ``fused_step``
+        (or one of each staged kernel) and one ``keyed_drive`` launch per
+        step for all its tenants and shards."""
+        torch = self.torch
+        t0 = time.perf_counter()
+        steps = WARMUP_STEPS + SERVICE_TIMED
+        aer = self.wire_cfg(cfg, "aer_sparse", AER_FREE_HZ)
+        pcfg = dataclasses.replace(cfg, stdp=True)
+        per_step = {"cuda_fused": dict(fused_step=SERVICE_TIMED),
+                    "cuda": dict(lif_step=SERVICE_TIMED,
+                                 synapse_matmul=SERVICE_TIMED,
+                                 ell_gather=SERVICE_TIMED)}
+        cases = [  # (name, shape, cfg, impl, tenants), grouped by oracle
+            ("2x2 cuda_fused", (2, 2), cfg, "cuda_fused", SERVICE_TENANTS),
+            ("24x24 cuda_fused", (24, 24), cfg, "cuda_fused",
+             SERVICE_TENANTS),
+            (f"2x2 aer at {AER_FREE_HZ:g} Hz", (2, 2), aer, "cuda_fused",
+             SERVICE_TENANTS),
+            (f"24x24 aer at {AER_FREE_HZ:g} Hz", (24, 24), aer, "cuda_fused",
+             SERVICE_TENANTS),
+            ("2x2 cuda", (2, 2), cfg, "cuda", SERVICE_TENANTS),
+            ("2x2 plastic cuda_fused", (2, 2), pcfg, "cuda_fused",
+             SERVICE_TENANTS[:PLASTIC_TENANTS])]
+        rows, built, oracle = [], {}, {}
+        for name, shape, run_cfg, impl, tenants in cases:
+            name = f"batched mesh {name}"
+            key = (impl, run_cfg.stdp)
+            if key not in oracle:
+                oracle.clear()
+                torch.cuda.empty_cache()
+                oracle[key] = self.tenant_oracle(
+                    dataclasses.replace(run_cfg, conn=cfg.conn), params,
+                    impl, tenants, steps)
+            mesh = self.LocalMesh(*shape, self.dev)
+            spec = self.part.make_tile_spec(cfg, *shape)
+            if shape not in built:
+                built.clear()
+                torch.cuda.empty_cache()
+                ids = self.ex.shard_col_ids(cfg, spec, mesh, self.dev).long()
+                built[shape] = self.net.NetworkParams(*(x[ids]
+                                                        for x in params))
+            out = self.batched_mesh_run(run_cfg, mesh, built[shape], impl,
+                                        tenants)
+            b = len(tenants)
+            want = dict(per_step[impl], keyed_drive=SERVICE_TIMED)
+            if run_cfg.stdp:
+                want.update(stdp_dense_update=SERVICE_TIMED,
+                            stdp_remote_update=SERVICE_TIMED)
+            if out["launches"] != self.expected_launches(**want):
+                raise AssertionError(f"{name} launches {out['launches']}")
+            sat = int(out["warm"].aer_saturated.sum()
+                      + out["res"].aer_saturated.sum())
+            if sat:
+                raise AssertionError(f"{name}: {sat} saturated steps")
+            self.hold_tenants(name, spec, out, oracle[key])
+            prof = self.profile(name, out["run_k"], out["wall_ms"],
+                                steps=PROFILE_STEPS)
+            ring = out["final"].hist_ext
+            row = dict(case=name, mesh=list(shape), impl=impl, tenants=b,
+                       wire=run_cfg.conn.exchange_mode, stdp=run_cfg.stdp,
+                       tile=f"{spec.tile_h}x{spec.tile_w}",
+                       ms_per_step=out["ms"], wall_ms_per_step=out["wall_ms"],
+                       tenant_steps_per_s=b * 1e3 / out["wall_ms"],
+                       device_ms_per_step=prof["device_ms_per_step"],
+                       busy_share=prof["busy_share_unprofiled"],
+                       outside_kernels_ms_per_step=prof[
+                           "outside_ms_per_step"],
+                       largest_outside_op=prof["largest_op"],
+                       saturated_steps=sat,
+                       ring_mb_per_tenant=ring.numel() * 4 / 1e6 / b,
+                       peak_memory_gb=out["peak_gb"],
+                       launches_per_step={k: v / SERVICE_TIMED
+                                          for k, v in out["launches"].items()
+                                          if v})
+            rows.append(row)
+            log(f"phase 7 {name}, {b} tenants: tiles {row['tile']}, "
+                f"{row['ms_per_step']:.4f} ms per loop step (device events), "
+                f"wall {row['wall_ms_per_step']:.4f} ms, "
+                f"{row['tenant_steps_per_s']:.1f} tenant-steps/s (wall), "
+                f"device {row['device_ms_per_step']:.4f} ms/step, busy share "
+                f"{row['busy_share']:.3f} (the profiled device time, with one "
+                f"copy of the ring, over the unprofiled wall), outside the "
+                f"kernels "
+                f"{row['outside_kernels_ms_per_step']:.4f} ms (largest op "
+                f"{row['largest_outside_op'][0]} "
+                f"{row['largest_outside_op'][1]:.1f} us), saturated steps "
+                f"{sat}, ring {row['ring_mb_per_tenant']:.1f} MB per tenant, "
+                f"peak memory {row['peak_memory_gb']:.2f} GB, launches per "
+                f"step {row['launches_per_step']}; every tenant's spikes, "
+                f"per-step spikes, v"
+                + (", w_local, rem_w, x_pre, x_post" if run_cfg.stdp else "")
+                + f" equal its dedicated {impl} run to the bit, events "
+                + ", ".join(f"{float(x):.6e}" for x in out["res"].events))
+            del out, ring
+        built.clear()
+        oracle.clear()
+        torch.cuda.empty_cache()
+        ranks = self.batched_rank_path(cfg)
+        self.report["batched_mesh_path"] = dict(
+            meshes=rows, ranks=ranks, seconds=time.perf_counter() - t0)
+        self.note(f"phase 7: {len(rows)} batched meshes (2x2 and 24x24 "
+                  f"cuda_fused, dense and AER at {AER_FREE_HZ:g} Hz with no "
+                  f"saturated step, 2x2 cuda, {PLASTIC_TENANTS} plastic "
+                  f"tenants on 2x2) and 2 gloo ranks with 2 tenants (1 and 2 "
+                  f"batch shards): every tenant equal to its dedicated "
+                  f"single-shard run to the bit; one launch of each kernel "
+                  f"per step for all tenants and shards")
+        log(f"phase 7 took {time.perf_counter() - t0:.1f} s")
+
+    def batched_rank_path(self, cfg):
+        """Phase 7, ranks: 2 gloo ranks on this card with 2 tenants (seeds
+        42, 43), on one spatial grid and over 2 batch shards, through the
+        launcher; each tenant held to its dedicated single-tenant run by
+        the launcher's own check (spikes and events per tenant, v from
+        the saved states)."""
+        import tempfile
+
+        ld, out, ref = self.ld, [], None
+        for shards in (1, 2):
+            with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+                args = ld.make_parser().parse_args(
+                    ["--ranks", "2", "--batch", "2", "--batch-shards",
+                     str(shards), "--grid", f"{cfg.grid_h}x{cfg.grid_w}",
+                     "--neurons", str(cfg.neurons_per_column),
+                     "--steps", str(WARMUP_STEPS + SERVICE_TIMED),
+                     "--seed", str(cfg.seed), "--impl", "cuda_fused",
+                     "--device", self.dev.type,
+                     "--timeout", str(RANK_TIMEOUT_S), "--state-dir", d])
+                w0 = time.perf_counter()
+                row = ld.launch(args)
+                row["launch_wall_s"] = time.perf_counter() - w0
+                if ref is None:
+                    ref = ld.single_process_reference(args)
+                if not ld.report_check(args, row, ref, ["v"]):
+                    raise AssertionError(f"2 ranks, {shards} batch shards: "
+                                         f"a tenant differs from its "
+                                         f"dedicated run")
+            per_step = {k: v / row["steps"] for k, v in row["launches"].items()
+                        if v}
+            if per_step != {"fused_step": 1.0, "keyed_drive": 1.0} \
+                    or row["library_build_s_max"] != 0.0:
+                raise AssertionError(f"2 ranks, {shards} batch shards: rank 0 "
+                                     f"launches {row['launches']}, build "
+                                     f"{row['library_build_s_max']} s")
+            out.append(row)
+            log(f"phase 7 2 ranks x 2 tenants, {shards} batch shard(s) (gloo, "
+                f"every rank on this card, time-sliced: no scaling figure): "
+                f"process grid {row['process_grid']}, tiles {row['tile']}, "
+                f"{row['step_ms']:.4f} ms per loop step (wall, "
+                f"{row['steps']} steps), "
+                f"{row['batch_size'] * 1e3 / row['step_ms']:.1f} tenant-steps"
+                f"/s, rank 0 peak memory {row['peak_memory_gb']:.2f} GB, "
+                f"rank 0 launches per step {per_step}, launch "
+                f"{row['launch_wall_s']:.1f} s; per-tenant spikes "
+                f"{row['per_tenant_spikes']} and v equal the dedicated runs; "
+                f"device time not measured (other processes)")
+        return out
+
 
 if __name__ == "__main__":
     sys.exit(main())

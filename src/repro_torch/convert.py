@@ -16,8 +16,14 @@ last part). The batched service's tenants (every state leaf, and the
 plastic weights under STDP, with a leading tenant axis, as the
 reference's ``init_tenants`` and ``run_chunk`` give them) come across
 with the same functions, but for their step counters, which stay on the
-device (:func:`tenants_state_from_numpy`). This module imports neither
-JAX nor the reference: the caller hands it arrays.
+device (:func:`tenants_state_from_numpy`). The batched distributed
+state (``exchange.make_batched_distributed_run(..., with_state=True)``)
+has the reference's layout, every leaf (n_shards, b_local, ...), and
+comes across with the ``DistState`` functions as it is;
+:func:`merge_batch_shards` folds the batch shards of a run over several
+(the reference's batch-major shard axis) into the (S, B, ...) layout of
+one process holding every tenant. This module imports neither JAX nor
+the reference: the caller hands it arrays.
 """
 from __future__ import annotations
 
@@ -111,9 +117,10 @@ def state_to_numpy(state: NetworkState) -> dict:
 def dist_state_from_numpy(leaves, device="cuda") -> DistState:
     """The stacked ``DistState`` from its leaves (a mapping with the
     names of ``DIST_LEAVES``, each (S, ...) in process-major shard order,
-    e.g. the reference's stacked state as numpy). ``t`` stays on the
-    host; ``ext_pending`` may be absent (unpipelined), and so may the
-    plastic leaves (a static state)."""
+    e.g. the reference's stacked state as numpy, or (S, b_local, ...),
+    the batched runner's layout). ``t`` stays on the host;
+    ``ext_pending`` may be absent (unpipelined), and so may the plastic
+    leaves (a static state)."""
     def get(name, dev=device):
         return _tensor(leaves[name], dev) if name in leaves else None
 
@@ -135,7 +142,9 @@ def dist_state_from_numpy(leaves, device="cuda") -> DistState:
 
 
 def dist_state_to_numpy(state: DistState) -> dict:
-    """The leaves of ``DIST_LEAVES`` that the state has, as numpy."""
+    """The leaves of ``DIST_LEAVES`` that the state has, as numpy, in the
+    state's layout ((S, ...), or the batched runner's (S, b_local,
+    ...))."""
     leaves = dict(state._asdict(), v=state.lif.v, c=state.lif.c,
                   refrac=state.lif.refrac)
     if state.plastic is not None:
@@ -143,3 +152,17 @@ def dist_state_to_numpy(state: DistState) -> dict:
                       **state.plastic.traces._asdict())
     return {name: leaves[name].cpu().numpy() for name in DIST_LEAVES
             if leaves.get(name) is not None}
+
+
+def merge_batch_shards(leaves: dict, batch_shards: int) -> dict:
+    """(K*S, b_local, ...) leaves of a batched run over K batch shards
+    (the reference's batch-major (n_shards, b_local, ...) state, or the
+    ranks' saved states stacked in rank order) -> (S, K*b_local, ...):
+    every tenant on each of the S spatial shards, in tenant order, the
+    layout of one process holding them all."""
+    out = {}
+    for name, x in leaves.items():
+        s = x.shape[0] // batch_shards
+        y = np.moveaxis(x.reshape(batch_shards, s, *x.shape[1:]), 0, 1)
+        out[name] = y.reshape(s, batch_shards * x.shape[1], *x.shape[2:])
+    return out

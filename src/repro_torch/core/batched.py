@@ -38,6 +38,12 @@ finished and quarantined slots frozen (the small leaves by
 ``torch.where``, the plastic weights by the STDP kernels' ``active``
 pass-through), and :func:`insert_tenant` swaps a fresh tenant into a
 dead slot between chunks (``launch/serve.py``).
+
+This engine runs the tenants on one shard. Over a shard mesh (in one
+process, or over ranks with the tenants sharded over batch shards) they
+run in lockstep, one host ``t``, without recycling, through
+``exchange.make_batched_distributed_run``, on the same tenant axis of
+the kernels.
 """
 from __future__ import annotations
 
@@ -66,12 +72,13 @@ class BatchedChunkResult(NamedTuple):
     steps_taken: int           # loop steps the reference's loop runs
 
 
-def _map(fn, *trees):
+def map_leaves(fn, *trees):
     """``fn`` over the tensor leaves of NamedTuple trees (None passes)."""
     if trees[0] is None:
         return None
     if isinstance(trees[0], tuple):
-        return type(trees[0])(*(_map(fn, *sub) for sub in zip(*trees)))
+        return type(trees[0])(*(map_leaves(fn, *sub)
+                                for sub in zip(*trees)))
     return fn(*trees)
 
 
@@ -84,7 +91,7 @@ def init_tenants(cfg: DPSNNConfig, seeds, device="cuda") -> NetworkState:
     stencil = build_stencil(cfg)
     states = [net.init_state(cfg, col_ids, stencil, dev, seed=int(s))
               for s in seeds]
-    return _map(lambda *xs: torch.stack(xs).to(dev), *states)
+    return map_leaves(lambda *xs: torch.stack(xs).to(dev), *states)
 
 
 def batch_params(cfg: DPSNNConfig, params: NetworkParams,
@@ -274,15 +281,16 @@ def make_batched_step(cfg: DPSNNConfig, *, impl: str = "cuda_fused"):
                                new.reshape(old.shape), old)
 
         state = NetworkState(
-            lif=_map(freeze, LIFState(*lif), bstate.lif),
+            lif=map_leaves(freeze, LIFState(*lif), bstate.lif),
             hist=hist,
             t=t + active.to(i32),
             spike_count=freeze(bstate.spike_count + spk.sum((1, 2)),
                                bstate.spike_count),
             event_count=freeze(bstate.event_count + events,
                                bstate.event_count),
-            stdp=_map(freeze, traces, bstate.stdp) if cfg.stdp else None,
-            guard=_map(freeze, guard, bstate.guard) if gcfg.enabled
+            stdp=(map_leaves(freeze, traces, bstate.stdp) if cfg.stdp
+                  else None),
+            guard=map_leaves(freeze, guard, bstate.guard) if gcfg.enabled
             else None,
         )
         return new_params, state, (spk != 0) & keep
@@ -411,7 +419,7 @@ def insert_tenant(cfg: DPSNNConfig, params: NetworkParams,
         out[slot] = row
         return out
 
-    bstate = _map(put, bstate, fresh)
+    bstate = map_leaves(put, bstate, fresh)
     if cfg.stdp and fresh_params is not None:
         params.w_local[slot] = fresh_params.w_local
         params.rem_w[slot] = fresh_params.rem_w

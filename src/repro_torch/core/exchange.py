@@ -45,6 +45,15 @@ static and plastic).
   (or ``synapse_matmul`` + ``ell_gather`` + ``lif_step``) launch and one
   ``keyed_drive`` launch per step over ``(S_local * C, ...)``, whatever
   the shard count.
+* The batched multi-tenant service over the mesh
+  (:func:`make_batched_distributed_run`): b tenants share the network
+  and advance in lockstep, every state leaf (b, S_local, ...); the
+  kernels take the tenant-major (b * S_local * C, ...) rows against the
+  shared network's S_local * C (their tenant axis), the drive is one
+  ``keyed_drive_tenants`` launch, and each halo send carries every
+  tenant's strip in one message, an AER list per (tenant, shard). With
+  batch shards (``runtime/sharding.py``) each process holds its shard's
+  tenants and only the per-tenant totals cross the tenant axis.
 
 The step follows the reference's schedule (``dist_step``): the exchange
 of step t-1's spikes is issued first and its frame written into the
@@ -70,6 +79,7 @@ import torch
 from repro_torch.configs.base import DPSNNConfig
 from repro_torch.core import network as net
 from repro_torch.core import plasticity as plast
+from repro_torch.core.batched import map_leaves, tenant_rates
 from repro_torch.core.connectivity import (StencilSpec, build_stencil,
                                            neuron_types)
 from repro_torch.core.network import NetworkParams
@@ -78,7 +88,9 @@ from repro_torch.core.partition import (TileSpec, make_tile_spec,
                                         shard_tile_coords, tile_column_ids)
 from repro_torch.core.plasticity import STDPState
 from repro_torch.core.simulation import _recip
+from repro_torch.kernels import ops
 from repro_torch.kernels.ref import stdp_constants
+from repro_torch.runtime.sharding import local_tenants
 from repro_torch.runtime.transport import assert_axis_sizes
 
 # ---------------------------------------------------------------------------
@@ -102,8 +114,9 @@ def halo_ring_widths(radius: int, tile_dim: int) -> list:
 def _collect_rings(f: tuple, axis: int, direction: int, radius: int,
                    send_fn) -> tuple:
     """The radius-deep halo beyond one face of the stacked tiles ``f`` (a
-    tuple of ``(*local, h, w, N)`` payloads: the spike frame, and the
-    trace frame under STDP) along shard-grid ``axis``, by chained rings:
+    tuple of ``(*local, h, w, N)`` payloads, or ``(*local, b, h, w, N)``
+    with a tenant axis: the spike frame, and the trace frame under STDP)
+    along shard-grid ``axis``, by chained rings:
     round k forwards the strips received in round k-1, so ring-k data
     crosses k hops with nearest-neighbour sends only. The payloads slice
     and travel in lockstep (``send_fn`` takes and returns the tuple), so
@@ -111,7 +124,7 @@ def _collect_rings(f: tuple, axis: int, direction: int, radius: int,
     collects toward increasing coordinate (each ring contributes its
     leading rows/cols), ``-1`` the mirror. Shards at the open boundary
     receive zeros and forward them on."""
-    dim = 2 + axis                      # the tile axis behind the mesh axes
+    dim = f[0].dim() - 3 + axis         # the tile axis behind the stack
     parts = []
     cur = f
     for w in halo_ring_widths(radius, f[0].shape[dim]):
@@ -133,30 +146,47 @@ def _extend_tree(payload: tuple, send_fn, r: int) -> tuple:
         return payload
     east = _collect_rings(payload, 1, +1, r, send_fn)
     west = _collect_rings(payload, 1, -1, r, send_fn)
-    wide = tuple(torch.cat(xs, 3) for xs in zip(west, payload, east))
+    wide = tuple(torch.cat(xs, -2) for xs in zip(west, payload, east))
     south = _collect_rings(wide, 0, +1, r, send_fn)
     north = _collect_rings(wide, 0, -1, r, send_fn)
-    return tuple(torch.cat(xs, 2) for xs in zip(north, wide, south))
+    return tuple(torch.cat(xs, -3) for xs in zip(north, wide, south))
 
 
 def _payload(mesh, frame: torch.Tensor, trace) -> tuple:
-    """The stacked ``(spikes,)`` or ``(spikes, traces)`` tiles."""
-    s_local, th, tw, n = frame.shape
-    return tuple(x.reshape(*mesh.local, th, tw, n)
-                 for x in (frame, trace) if x is not None)
+    """The stacked ``(spikes,)`` or ``(spikes, traces)`` tiles in the
+    transport's layout: (S_local, th, tw, N) frames as (*local, th, tw,
+    N); the tenant axis of (b, S_local, th, tw, N) frames behind the mesh
+    axes, (*local, b, th, tw, N), so that one message carries every
+    tenant's strip."""
+    def lay(x):
+        if x.dim() == 4:
+            return x.reshape(*mesh.local, *x.shape[1:])
+        return x.reshape(x.shape[0], *mesh.local, *x.shape[2:]).movedim(0, 2)
+    return tuple(lay(x) for x in (frame, trace) if x is not None)
 
 
-def _unstack(ext: tuple, s_local: int) -> tuple:
-    """Extended ``(*local, ...)`` payloads -> ``(ext_frame, ext_trace or
-    None)``, each (S_local, th+2r, tw+2r, N)."""
-    out = tuple(x.reshape(s_local, *x.shape[2:]) for x in ext)
+def _unlay(x: torch.Tensor, tenants: bool) -> torch.Tensor:
+    """Inverse of :func:`_payload`'s layout for any (*local, ...) tensor
+    (frames, or a send's (*local[, b]) flags): (S_local, ...), or with
+    ``tenants`` (*local, b, ...) -> (b, S_local, ...)."""
+    if not tenants:
+        return x.reshape(-1, *x.shape[2:])
+    x = x.movedim(2, 0)
+    return x.reshape(x.shape[0], -1, *x.shape[3:])
+
+
+def _unstack(ext: tuple, tenants: bool) -> tuple:
+    """Extended payloads -> ``(ext_frame, ext_trace or None)`` in the
+    state's layout (:func:`_unlay`)."""
+    out = tuple(_unlay(x, tenants) for x in ext)
     return out if len(out) == 2 else (out[0], None)
 
 
 def exchange_halo(frame: torch.Tensor, spec: TileSpec, mesh,
                   trace: torch.Tensor | None = None):
     """(S_local, th, tw, N) interior spike frames -> (S_local, th+2r,
-    tw+2r, N) extended frames, over ``mesh``'s shifts. Each direction
+    tw+2r, N) extended frames, over ``mesh``'s shifts ((b, S_local, ...)
+    frames of b tenants in one message per send). Each direction
     runs ``ceil(r / tile_dim)`` chained rounds; with ``r`` inside one
     tile that is 4 shifts per step. With ``trace`` (the (S_local, th,
     tw, N) pre-synaptic traces) its strips ride the same rounds, moved
@@ -167,7 +197,7 @@ def exchange_halo(frame: torch.Tensor, spec: TileSpec, mesh,
                 *(mesh.move(x, axis, direction) for x in p[1:]))
 
     ext = _extend_tree(_payload(mesh, frame, trace), send, spec.radius)
-    ext_frame, ext_trace = _unstack(ext, frame.shape[0])
+    ext_frame, ext_trace = _unstack(ext, frame.dim() == 5)
     return ext_frame if trace is None else (ext_frame, ext_trace)
 
 
@@ -317,8 +347,10 @@ def _make_mode_send(modes: dict, shift, move, *, rate_bound_hz: float,
     and dense on every ring, or, with ``sparse_trace`` (the flat AER
     wire), as its values at the send's own event addresses (zeros
     elsewhere on arrival). Axis 1 is the horizontal phase, 0 the
-    vertical one. Returns ``(send_fn, flags)``, ``flags`` the list of
-    each AER send's (*local,) overflow flags."""
+    vertical one. Every strip of the stack (each shard's, and each
+    tenant's under a tenant axis: the capacity is per tenant) is its own
+    list. Returns ``(send_fn, flags)``, ``flags`` the list of each AER
+    send's (*local[, b]) overflow flags."""
     flags = []
     rings: dict = {}
 
@@ -329,12 +361,12 @@ def _make_mode_send(modes: dict, shift, move, *, rate_bound_hz: float,
         if modes[(key[0], k)] != "aer_sparse":
             return (shift(x, axis, direction),
                     *(move(y, axis, direction) for y in p[1:]))
-        local, strip = x.shape[:2], x.shape[2:]
+        lead, strip = x.shape[:-3], x.shape[-3:]
         cap = aer_capacity(math.prod(strip), rate_bound_hz, capacity_factor,
                            dt_ms)
         events, over = aer_encode_stack(x.reshape(-1, *strip), cap)
-        flags.append(over.reshape(local))
-        events = events.reshape(*local, cap + 1)
+        flags.append(over.reshape(lead))
+        events = events.reshape(*lead, cap + 1)
         got = move(events, axis, direction)
         out = aer_decode_stack(got.reshape(-1, cap + 1), strip,
                                x.dtype).reshape(x.shape)
@@ -363,17 +395,17 @@ def exchange_halo_modes(frame: torch.Tensor, spec: TileSpec, mesh, *,
     each (phase, ring) send dense or AER; the ``trace`` frame, when
     given, rides raw f32 on every ring (see :func:`_make_mode_send` for
     ``sparse_trace``). Returns ``(ext_frame, ext_trace or None,
-    saturated)``, ``saturated`` the (S_local,) bool flags (None without
-    an AER ring)."""
-    s_local = frame.shape[0]
+    saturated)``, ``saturated`` the frame's leading (S_local,) or (b,
+    S_local) bool flags (None without an AER ring)."""
+    tenants = frame.dim() == 5
     send, flags = _make_mode_send(
         modes, mesh.shift, mesh.move, rate_bound_hz=rate_bound_hz,
         capacity_factor=capacity_factor, dt_ms=dt_ms,
         sparse_trace=sparse_trace)
     ext = _extend_tree(_payload(mesh, frame, trace), send, spec.radius)
     sat = _saturated(flags)
-    return (*_unstack(ext, s_local),
-            None if sat is None else sat.reshape(s_local))
+    return (*_unstack(ext, tenants),
+            None if sat is None else _unlay(sat, tenants))
 
 
 def exchange_halo_aer(frame: torch.Tensor, spec: TileSpec, mesh, *,
@@ -435,7 +467,7 @@ def exchange_halo_hier(frame: torch.Tensor, spec: TileSpec, mesh, *,
         (ly, lx), (ny, nx) = mesh.local, mesh.node_local
         sat = sat.repeat_interleave(ly // ny, 0).repeat_interleave(
             lx // nx, 1).reshape(s_local)
-    return (*_unstack(ext, s_local), sat)
+    return (*_unstack(ext, False), sat)
 
 
 def make_exchange(cfg: DPSNNConfig, spec: TileSpec, mesh):
@@ -500,7 +532,10 @@ class PlasticState(NamedTuple):
 class DistState(NamedTuple):
     """Stacked per-shard state: every leaf has the leading local-shard
     axis S (the reference's ``stacked_state_template`` layout). ``t`` is
-    a host (CPU) int32 tensor, as the single shard's is."""
+    a host (CPU) int32 tensor, as the single shard's is. Inside the
+    batched runner (:func:`make_batched_distributed_run`) every leaf
+    has the tenant axis in front, (b, S, ...), so the kernels' rows are
+    tenant-major; the runner hands its state out as (S, b, ...)."""
     lif: LIFState            # leaves (S, C, N), C = tile columns
     hist_ext: torch.Tensor   # (S, D, th+2r, tw+2r, N) halo-extended ring
     pending: torch.Tensor    # (S, th, tw, N) spikes of step t-1
@@ -537,11 +572,14 @@ def build_shard(cfg: DPSNNConfig, spec: TileSpec, mesh) -> NetworkParams:
 
 
 def init_shard(cfg: DPSNNConfig, spec: TileSpec, stencil: StencilSpec,
-               mesh, params: NetworkParams | None = None) -> DistState:
+               mesh, params: NetworkParams | None = None, *,
+               seed: int | None = None) -> DistState:
     """Initial stacked state, deterministic per global column id, so any
     mesh starts where the single shard starts. Under ``cfg.stdp`` the
     live weights start as ``params``' (the mesh's :func:`build_shard`,
-    built here when not given), the traces at zero."""
+    built here when not given), the traces at zero. ``seed`` overrides
+    ``cfg.seed`` for the state draw (one tenant of the batched service);
+    the network always derives from ``cfg.seed``."""
     dev = mesh.device
     s_local = len(mesh.shards)
     c, n = spec.columns_per_tile, cfg.neurons_per_column
@@ -549,7 +587,7 @@ def init_shard(cfg: DPSNNConfig, spec: TileSpec, stencil: StencilSpec,
     d = stencil.max_delay + 1
     dtype = getattr(torch, cfg.dtype)
     lif = net.init_state(cfg, shard_col_ids(cfg, spec, mesh), stencil,
-                         device=dev).lif
+                         device=dev, seed=seed).lif
     ext_shape = (s_local, spec.tile_h + 2 * r, spec.tile_w + 2 * r, n)
 
     def zeros(*shape, dt=torch.float32):
@@ -608,7 +646,8 @@ def check_delays(stencil: StencilSpec, pipelined: bool) -> None:
 def dist_step(cfg: DPSNNConfig, params: NetworkParams, state: DistState, *,
               spec: TileSpec, stencil: StencilSpec, mesh,
               col_ids: torch.Tensor, impl: str = "ref",
-              exchange=None) -> DistState:
+              exchange=None, seeds: torch.Tensor | None = None,
+              lam: torch.Tensor | None = None) -> DistState:
     """One step of every local shard (``col_ids``: :func:`shard_col_ids`
     on the mesh's device; ``exchange``: :func:`make_exchange`, resolved
     here when not given). Writes ``state.hist_ext`` in place; every
@@ -618,23 +657,35 @@ def dist_step(cfg: DPSNNConfig, params: NetworkParams, state: DistState, *,
     where it binds them. Under ``cfg.stdp`` the step is the reference's
     plastic one: the live weights of ``state.plastic`` replace
     ``params``', the exchange carries the pre-trace halo, and one STDP
-    update runs over every local shard's columns."""
+    update runs over every local shard's columns.
+
+    With ``seeds`` and ``lam`` ((b,) int32 and float32 on the mesh's
+    device, :func:`make_batched_distributed_run`) the state carries b
+    tenants in lockstep, every leaf (b, S_local, ...): each tenant's
+    drive under its own seed and rate in one ``keyed_drive_tenants``
+    launch, the kernels over the tenant-major (b * S_local * C) rows
+    against the shared network's S_local * C, one halo message per send
+    for every tenant, and the counters per (tenant, shard)."""
     r = spec.radius
     th, tw = spec.tile_h, spec.tile_w
     n = cfg.neurons_per_column
-    s_local = state.pending.shape[0]
-    c_all = s_local * spec.columns_per_tile
-    d_slots = state.hist_ext.shape[1]
-    t = int(state.t[0])
+    lead = state.pending.shape[:-3]          # (S_local,) or (b, S_local)
+    rows = math.prod(lead) * spec.columns_per_tile
+    slot_dim = len(lead)                     # the ring's delay axis
+    d_slots = state.hist_ext.shape[slot_dim]
+    t = int(state.t.reshape(-1)[0])
     pipelined = cfg.exchange.pipelined
     hist_ext = state.hist_ext
     plastic = state.plastic
     pre_frame = traces0 = None
     if plastic is not None:
-        params = params._replace(w_local=plastic.w_local.reshape(c_all, n, n),
-                                 rem_w=plastic.rem_w.reshape(c_all, n, -1))
-        traces0 = STDPState(*(x.reshape(c_all, n) for x in plastic.traces))
-        pre_frame = plastic.traces.x_pre.reshape(s_local, th, tw, n)
+        params = params._replace(w_local=plastic.w_local.reshape(rows, n, n),
+                                 rem_w=plastic.rem_w.reshape(rows, n, -1))
+        traces0 = STDPState(*(x.reshape(rows, n) for x in plastic.traces))
+        pre_frame = plastic.traces.x_pre.reshape(*lead, th, tw, n)
+
+    def ring(k):
+        return hist_ext.select(slot_dim, k % d_slots)
 
     # (1) the halo exchange of step t-1's spikes (and, under STDP, of the
     # pre-traces x_pre(t-1)), first
@@ -648,21 +699,25 @@ def dist_step(cfg: DPSNNConfig, params: NetworkParams, state: DistState, *,
     # before the reads (delay-2 offsets read that very slot this step)
     new_ext_pending = None
     if pipelined:
-        hist_ext[:, (t - 2) % d_slots] = state.ext_pending
+        ring(t - 2).copy_(state.ext_pending)
         new_ext_pending = ext_frame
 
     # (3) the compute: local delivery from the pending frame (delay 1),
     # remote delivery from the extended ring (delays >= 2), the drive of
     # the shards' global columns, the neuron update
-    s_loc = state.pending.reshape(c_all, n)
-    per_offset = [
-        net.offset_slice(hist_ext[:, (t - delay) % d_slots], dy, dx, r,
-                         spec.tile_h, spec.tile_w, n)
-        for (dy, dx, _k, delay, _p) in stencil.offsets]
-    s_flat = torch.stack(per_offset, dim=3).reshape(
-        c_all, stencil.n_offsets * n)
-    ext_drive, ext_counts = net.external_drive(cfg, t, col_ids)
-    lif0 = LIFState(*(x.reshape(c_all, n) for x in state.lif))
+    s_loc = state.pending.reshape(rows, n)
+    per_offset = [net.offset_slice(ring(t - delay), dy, dx, r, th, tw, n)
+                  for (dy, dx, _k, delay, _p) in stencil.offsets]
+    s_flat = torch.stack(per_offset, dim=-2).reshape(
+        rows, stencil.n_offsets * n)
+    if seeds is None:
+        ext_drive, ext_counts = net.external_drive(cfg, t, col_ids)
+    else:
+        steps = torch.full(seeds.shape, t, dtype=torch.int32,
+                           device=seeds.device)
+        ext_drive, ext_counts = ops.keyed_drive_tenants(
+            seeds, steps, col_ids, n, lam, cfg.conn.j_ext)
+    lif0 = LIFState(*(x.reshape(rows, n) for x in state.lif))
     new_traces = None
     if impl == "cuda_fused":
         lif, spikes, new_traces, _ = net.fused_stage(
@@ -690,13 +745,13 @@ def dist_step(cfg: DPSNNConfig, params: NetworkParams, state: DistState, *,
                                 pre_frame.dtype)["dp"]
             pre_ext = torch.where(ext_frame > 0, pre_ext,
                                   plastic.trace_ext * dp)
-            pre_ext[:, r:r + th, r:r + tw] = pre_frame
+            pre_ext[..., r:r + th, r:r + tw, :] = pre_frame
         if plastic.trace_ext is not None:
             trace_ext = pre_ext
         table = torch.stack([
             net.offset_slice(pre_ext, dy, dx, r, th, tw, n)
-            for (dy, dx, _k, _delay, _p) in stencil.offsets], dim=3).reshape(
-                c_all, stencil.n_offsets * n)
+            for (dy, dx, _k, _delay, _p) in stencil.offsets], dim=-2).reshape(
+                rows, stencil.n_offsets * n)
         new_params, traces = plast.stdp_update(
             cfg, cfg.stdp_cfg, params, traces0, spikes,
             neuron_types(cfg, spikes.device), pre_trace_table=table,
@@ -713,15 +768,16 @@ def dist_step(cfg: DPSNNConfig, params: NetworkParams, state: DistState, *,
     # (4) unpipelined: the exchanged frame t-1 goes into the ring after
     # the compute (first read at t+1)
     if not pipelined:
-        hist_ext[:, (t - 1) % d_slots] = ext_frame
+        ring(t - 1).copy_(ext_frame)
 
-    # (5) per-shard events and ISI statistics: integer-valued f32 sums,
-    # exact in any order while below 2**24
+    # (5) events and ISI statistics per (tenant,) shard: integer-valued
+    # f32 sums, exact in any order while below 2**24
     def per_shard(x):
-        return x.reshape(s_local, -1).sum(1)
+        return x.reshape(*lead, -1).sum(-1)
 
     k_tot = params.rem_w.shape[-1]
-    events = (per_shard(spikes * (params.local_outdeg + k_tot))
+    outdeg = params.local_outdeg          # the tenants share it
+    events = (per_shard(spikes.reshape(-1, *outdeg.shape) * (outdeg + k_tot))
               + per_shard(ext_counts).to(torch.float32))
     spiked = spikes.reshape(state.last_spike_t.shape) > 0
     contrib = spiked & (state.last_spike_t >= 0)
@@ -754,7 +810,8 @@ class DistResult(NamedTuple):
     the single shard's ``SimResult.rate_trace``; ``aer_saturated`` step
     i is 1 iff a send of any shard of any process overflowed its event
     list at step i (the reference's ``pmax``), all zeros under
-    dense_packed and within the rate bound."""
+    dense_packed and within the rate bound. The batched runner's totals
+    are (batch,) per tenant, its ``rate_trace`` (batch, n_steps)."""
     rate_hz: torch.Tensor
     events: torch.Tensor
     spikes: torch.Tensor
@@ -829,3 +886,135 @@ def make_distributed_run(cfg: DPSNNConfig, mesh, *, n_steps: int,
 
     return run, spec
 
+
+def _tenant_totals(mesh, x: torch.Tensor, tenants: range, batch: int
+                   ) -> torch.Tensor:
+    """(batch,) per-tenant totals of the (b_local, S_local) accumulators
+    ``x`` of this process's ``tenants``, on every process: each process
+    writes its float64 partial sums at its own tenants' indices of a zero
+    vector, which is summed over every process. Tenants of different
+    batch shards are disjoint and the sums integer-valued, so this is the
+    reference's spatial ``psum`` followed by its ``all_gather('batch')``,
+    exactly."""
+    full = torch.zeros((*x.shape[2:], batch), dtype=torch.float64,
+                       device=x.device)
+    mine = x.to(torch.float64).sum(1)              # (b_local, ...)
+    full[..., tenants.start:tenants.stop] = mine.movedim(0, -1)
+    return mesh.all_sum(full).to(torch.float32)
+
+
+def init_tenants(cfg: DPSNNConfig, spec: TileSpec, stencil: StencilSpec,
+                 mesh, seeds, params: NetworkParams | None = None
+                 ) -> DistState:
+    """The stacked state of one tenant per host int of ``seeds``, every
+    leaf (b, S_local, ...): tenant i's is :func:`init_shard` with
+    ``seed=seeds[i]``, its own copy of the live weights under
+    ``cfg.stdp``."""
+    states = [init_shard(cfg, spec, stencil, mesh, params, seed=int(s))
+              for s in seeds]
+    return map_leaves(lambda *xs: torch.stack(xs), *states)
+
+
+def make_batched_distributed_run(cfg: DPSNNConfig, mesh, *, n_steps: int,
+                                 batch: int, impl: str = "cuda_fused",
+                                 with_stimulus: bool = False,
+                                 with_state: bool = False,
+                                 params: NetworkParams | None = None):
+    """Batched multi-tenant distributed runner (the reference's function
+    of the same name): ``(run, spec)``.
+
+    ``batch`` tenants share the network (``params``: the local shards'
+    :func:`build_shard`, built here once from ``cfg.seed`` when not
+    given) and advance in lockstep over ``mesh``'s shards; the process
+    holds the tenants of ``sharding.local_tenants`` (all of them without
+    batch shards). ``run(seeds)``, or ``run(seeds, nu_scale)`` with
+    ``with_stimulus``, takes the (batch,) host seeds (and drive scales):
+    tenant i's state and drive draw from ``seeds[i]`` (and its rate is
+    scaled by ``nu_scale[i]``), so it equals the dedicated single-shard
+    ``simulation.run(seed=, nu_scale=)`` of the same network.
+    ``run(seeds, ..., state=)`` continues from a final state of this
+    runner's (the same tenants), leaving it as it was. Every step
+    is one :func:`dist_step` of all local tenants and shards: one
+    ``keyed_drive`` and one ``fused_step`` (or one of each staged kernel)
+    launch, and one message per halo send carrying every tenant's strip;
+    an AER list's capacity is per tenant.
+
+    Returns a :class:`DistResult` of (batch,) leaves on every process
+    (``rate_trace`` (batch, n_steps)); ``aer_saturated`` stays
+    (n_steps,), the OR over every rank and tenant. With ``with_state``
+    the run also returns the final :class:`DistState` with every leaf
+    (S_local, b_local, ...), the reference's (n_shards, b_local, ...)
+    layout of one process. Refuses the hierarchical exchange and a
+    batch the batch shards do not divide, with the reference's texts."""
+    if mesh.node is not None:
+        raise ValueError(
+            "the batched multi-tenant runner does not support the "
+            "hierarchical ('ndata','data','nmodel','model') mesh — run "
+            "tenants on a flat spatial mesh, or drop --ranks-per-node")
+    tenants = local_tenants(mesh, batch)
+    net.check_supported(cfg, impl, mesh=True)
+    spec = make_tile_spec(cfg, *mesh.shape)
+    assert_axis_sizes(spec, mesh)
+    stencil = build_stencil(cfg)
+    check_delays(stencil, cfg.exchange.pipelined)
+    if params is None:
+        params = build_shard(cfg, spec, mesh)
+    dev = mesh.device
+    col_ids = shard_col_ids(cfg, spec, mesh, dev)
+    exchange = make_exchange(cfg, spec, mesh)
+    f32 = torch.float32
+    per_step = float(torch.tensor(_recip(cfg.n_neurons), dtype=f32)
+                     * torch.tensor(_recip(cfg.neuron.dt_ms * 1e-3),
+                                    dtype=f32))
+    sim_s = n_steps * cfg.neuron.dt_ms * 1e-3
+
+    def run(seeds, nu_scale=None, state: DistState | None = None):
+        if (nu_scale is not None) != with_stimulus:
+            raise TypeError("run(seeds, nu_scale) takes nu_scale exactly "
+                            "when the runner was made with_stimulus")
+        seeds = [int(s) for s in seeds]
+        if len(seeds) != batch:
+            raise ValueError(f"{len(seeds)} seeds for batch={batch}")
+        mine = [seeds[i] for i in tenants]
+        lam = tenant_rates(cfg, None if nu_scale is None else
+                           [float(nu_scale[i]) for i in tenants],
+                           len(mine)).to(dev)
+        seeds_dev = torch.tensor(mine, dtype=torch.int32, device=dev)
+        if state is None:
+            state = init_tenants(cfg, spec, stencil, mesh, mine, params)
+        else:      # back to (b, S, ...); the run writes its own ring
+            state = map_leaves(lambda x: x.transpose(0, 1), state)
+            state = state._replace(hist_ext=state.hist_ext.clone())
+        step_spikes, step_sat = [], []
+        for _ in range(n_steps):
+            state = dist_step(cfg, params, state, spec=spec,
+                              stencil=stencil, mesh=mesh, col_ids=col_ids,
+                              impl=impl, exchange=exchange,
+                              seeds=seeds_dev, lam=lam)
+            step_spikes.append(state.pending.flatten(1).sum(1))
+            step_sat.append(state.aer_sat.any())
+        b = len(mine)
+        if n_steps:
+            trace = torch.stack(step_spikes, 1)          # (b, n_steps)
+            sat = torch.stack(step_sat)
+        else:
+            trace = torch.zeros((b, 0), device=dev)
+            sat = torch.zeros((0,), dtype=torch.bool, device=dev)
+        # one shard's worth of spikes per tenant: the spatial sum is the
+        # all-sum of the zero-padded per-tenant rows
+        trace = _tenant_totals(mesh, trace[:, None], tenants, batch)
+        spikes = _tenant_totals(mesh, state.spike_count, tenants, batch)
+        res = DistResult(
+            rate_hz=spikes * _recip(cfg.n_neurons * sim_s),
+            events=_tenant_totals(mesh, state.event_count, tenants, batch),
+            spikes=spikes,
+            state_checksum=_tenant_totals(mesh, state.lif.v.flatten(2).sum(2),
+                                          tenants, batch),
+            aer_saturated=mesh.all_max(sat.to(torch.int32)),
+            rate_trace=trace.T * per_step,
+        )
+        if not with_state:
+            return res
+        return res, map_leaves(lambda x: x.transpose(0, 1), state)
+
+    return run, spec

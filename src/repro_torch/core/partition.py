@@ -75,6 +75,18 @@ def process_grid(n_ranks: int) -> tuple[int, int]:
     return ry, n_ranks // ry
 
 
+def batch_ranks(n_ranks: int, batch_shards: int) -> int:
+    """The spatial ranks of each of ``batch_shards`` batch shards of
+    ``n_ranks`` (the batched service's placement, batch-major: ranks
+    ``[k*S, (k+1)*S)`` form shard k); raises with the reference's text
+    when the shards do not divide the ranks."""
+    if batch_shards < 1 or n_ranks % batch_shards:
+        raise ValueError(
+            f"{n_ranks} ranks do not split over {batch_shards} batch "
+            f"shards — pick batch_shards dividing the rank count")
+    return n_ranks // batch_shards
+
+
 def make_tile_spec(cfg: DPSNNConfig, row_shards: int,
                    col_shards: int) -> TileSpec:
     if cfg.grid_h % row_shards or cfg.grid_w % col_shards:

@@ -32,7 +32,11 @@ or from the command line (a staggered job mix, the metrics row)::
 Guarantees (tests/test_torch_serve.py): every job's trajectory is, to the
 bit, the dedicated single-tenant run ``simulation.run(seed=, nu_scale=)``
 of its seed; slot packing, batch-mates and recycling are invisible to it.
-The multi-rank batched service waits for ROADMAP.md queue 1 item 5.
+The server runs on one shard. Tenants over a shard mesh, in one process
+or over ranks with the tenant axis over batch shards, run through
+``exchange.make_batched_distributed_run`` (``launch_distributed --batch
+B [--batch-shards K]``), in lockstep and without slot recycling, as in
+the reference.
 """
 from __future__ import annotations
 

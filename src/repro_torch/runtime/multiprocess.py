@@ -24,6 +24,13 @@ processes (the port of ``repro/runtime/multiprocess.py``).
 * ``--stdp`` runs the plastic step: the pre-trace halo rides every wire
   beside the spikes, and with ``--state-dir`` each rank saves its live
   weights and traces with the rest of its state.
+* ``--batch B`` runs the batched multi-tenant service over the ranks
+  (:func:`worker_run_batched`): B tenants of seeds ``seed .. seed+B-1``
+  share the network, and ``--batch-shards K`` splits the ranks
+  batch-major into K batch shards of B / K tenants each, every shard a
+  full spatial grid (:func:`make_batched_process_mesh`). Per-tenant
+  totals reach every rank; with ``--state-dir`` each rank saves each of
+  its tenants' state apart (:func:`tenant_state_dir`).
 
 With ``--device cuda`` (the default) every rank runs its shard's kernels
 on ``cuda:0``: ranks that share one card time-slice it, so their step
@@ -77,12 +84,38 @@ def save_state(state_dir: str, rank: int, state) -> None:
              **convert.dist_state_to_numpy(state))
 
 
+def tenant_state_dir(state_dir: str, tenant: int) -> str:
+    """Where a batched run's ranks save tenant ``tenant``'s state: one
+    ``rank<s>.npz`` per spatial rank s, as :func:`save_state` writes a
+    single-tenant run's, so :func:`load_states` reads it back."""
+    return os.path.join(state_dir, f"tenant{tenant}")
+
+
 def load_states(state_dir: str, n_ranks: int) -> dict:
     """The ranks' saved states stacked in rank (= process-major shard)
     order: the layout of an in-process mesh's state."""
     parts = [np.load(os.path.join(state_dir, f"rank{r}.npz"))
              for r in range(n_ranks)]
     return {k: np.concatenate([p[k] for p in parts]) for k in parts[0].files}
+
+
+def _share_cores(dev) -> None:
+    """On the CPU the ranks share the host's cores: at most a fair share
+    of threads each, and at most what the environment allows
+    (OMP_NUM_THREADS)."""
+    import torch
+    import torch.distributed as dist
+
+    if dev.type == "cpu":
+        share = (os.cpu_count() or 1) // dist.get_world_size()
+        torch.set_num_threads(max(1, min(share, torch.get_num_threads())))
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
@@ -112,25 +145,17 @@ def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
     mesh = ProcessGroupMesh(device, compress=compress,
                             ranks_per_node=ranks_per_node)
     dev = mesh.device
-    if dev.type == "cpu":      # the ranks share the host's cores
-        share = (os.cpu_count() or 1) // dist.get_world_size()
-        # at most what the environment allows (OMP_NUM_THREADS)
-        torch.set_num_threads(max(1, min(share, torch.get_num_threads())))
+    _share_cores(dev)
     build_s = ops.library().build_seconds if dev.type == "cuda" else 0.0
     run, spec = exchange.make_distributed_run(
         cfg, mesh, n_steps=n_steps, impl=impl, with_state=True)
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
     run()                            # warm-up, untimed
-    sync()
+    _sync(dev)
     dist.barrier()
     ops.reset_launches()
     t0 = time.perf_counter()
     res, final = run()
-    sync()
+    _sync(dev)
     wall_s = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     # the kernel library is built once per checkout: a rank that had to
@@ -190,6 +215,120 @@ def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
         "halo_payload_bytes_per_step": payload["bytes_per_step"],
         # steps on which a send of some rank overflowed its event list
         # (spikes truncated from the wire, flagged); 0 under dense_packed
+        "aer_saturated_steps": int(sat.sum()),
+        "aer_saturated_per_step": sat.tolist(),
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+        "launches": launches,
+        "peak_memory_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                           if dev.type == "cuda" else None),
+        "library_build_s_max": float(most),
+    }
+
+
+def make_batched_process_mesh(batch_shards: int, *, device="cuda",
+                              compress: bool = True):
+    """The batched service's transport over the default process group:
+    the tenant axis shards over ``batch_shards`` process groups, each
+    running the spatial process grid of ``world / batch_shards`` ranks
+    (a ``ProcessGroupMesh`` with ``batch_shards``). Placement is
+    batch-major, process-major: ranks ``[k*S, (k+1)*S)`` form batch
+    shard k, so every halo message stays inside a batch shard and the
+    tenant axis never appears in a spike message; only the per-tenant
+    totals cross it. Raises with the reference's text when the shards do
+    not divide the ranks."""
+    import torch.distributed as dist
+
+    from repro_torch.core.partition import batch_ranks, process_grid
+    from repro_torch.runtime.sharding import service_mesh
+
+    spatial = batch_ranks(dist.get_world_size(), batch_shards)
+    return service_mesh(batch_shards, *process_grid(spatial), device,
+                        compress=compress)
+
+
+def worker_run_batched(cfg, n_steps: int, *, batch: int,
+                       batch_shards: int = 1, impl: str = "cuda_fused",
+                       compress: bool = True, device="cuda",
+                       state_dir: str = "") -> dict:
+    """Batched multi-tenant run on the ranks
+    (``exchange.make_batched_distributed_run``): ``batch`` tenants with
+    seeds ``cfg.seed + i`` share one network; the per-tenant totals reach
+    every rank, so the launcher can hold each tenant against its
+    dedicated single-process run. With ``state_dir`` each rank saves each
+    of its tenants' final state under :func:`tenant_state_dir`.
+
+    Timing as :func:`worker_run`: one untimed run, then one timed end to
+    end. The row has the reference's per-tenant keys, and rank 0's
+    launches in the timed run and, on the card, its peak memory."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import exchange
+    from repro_torch.core.batched import map_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.compression import halo_payload_bytes
+    from repro_torch.runtime.sharding import local_tenants
+
+    mesh = make_batched_process_mesh(batch_shards, device=device,
+                                     compress=compress)
+    dev = mesh.device
+    _share_cores(dev)
+    build_s = ops.library().build_seconds if dev.type == "cuda" else 0.0
+    run, spec = exchange.make_batched_distributed_run(
+        cfg, mesh, n_steps=n_steps, batch=batch, impl=impl, with_state=True)
+    seeds = [cfg.seed + i for i in range(batch)]
+    run(seeds)                       # warm-up, untimed
+    _sync(dev)
+    dist.barrier()
+    ops.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res, final = run(seeds)
+    _sync(dev)
+    wall_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    most = torch.tensor([build_s], dtype=torch.float64)
+    dist.all_reduce(most, op=dist.ReduceOp.MAX)
+    if state_dir:
+        for j, i in enumerate(local_tenants(mesh, batch)):
+            save_state(tenant_state_dir(state_dir, i), mesh.rank,
+                       map_leaves(lambda x, j=j: x[:, j], final))
+    per_spikes = [float(x) for x in res.spikes]
+    per_events = [float(x) for x in res.events]
+    events = sum(per_events)
+    acct_mode = ("auto" if cfg.exchange.exchange_mode == "auto"
+                 else cfg.conn.exchange_mode)
+    payload = halo_payload_bytes(cfg, spec, mode=acct_mode,
+                                 compress=compress)
+    sat = res.aer_saturated.cpu()
+    return {
+        "rank_count": dist.get_world_size(),
+        "batch_size": batch,
+        "batch_shards": batch_shards,
+        "process_grid": [batch_shards, *mesh.shape],
+        "grid": f"{cfg.grid_h}x{cfg.grid_w}",
+        "neurons": cfg.n_neurons,
+        "tile": f"{spec.tile_h}x{spec.tile_w}",
+        "steps": n_steps,
+        "wall_s": wall_s,
+        "step_ms": wall_s / n_steps * 1e3,
+        "spikes": sum(per_spikes),
+        "events": events,
+        "events_per_s": events / max(wall_s, 1e-12),
+        "events_per_s_per_tenant": events / max(wall_s, 1e-12) / batch,
+        "per_tenant_spikes": per_spikes,
+        "per_tenant_events": per_events,
+        "tenant_seeds": seeds,
+        "impl": impl,
+        "compress": compress,
+        "stdp": cfg.stdp,
+        "guard": cfg.guard.enabled,
+        "pipelined": cfg.exchange.pipelined,
+        "exchange_mode": acct_mode,
+        # one tenant's strips; a rank's messages carry b_local of them
+        "halo_payload_bytes_per_step": payload["bytes_per_step"],
         "aer_saturated_steps": int(sat.sum()),
         "aer_saturated_per_step": sat.tolist(),
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -277,7 +416,14 @@ def add_workload_args(ap: argparse.ArgumentParser) -> None:
                          "exchange (0 = flat)")
     ap.add_argument("--state-dir", default="",
                     help="write each rank's final state to "
-                         "STATE_DIR/rank<r>.npz")
+                         "STATE_DIR/rank<r>.npz (with --batch each "
+                         "tenant's to STATE_DIR/tenant<i>/rank<s>.npz)")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="batched service mode: run this many tenants "
+                         "with seeds seed..seed+B-1 (0 = single-tenant)")
+    ap.add_argument("--batch-shards", type=int, default=1,
+                    help="shard the tenant axis over this many process "
+                         "groups (must divide --batch and the rank count)")
 
 
 def main(argv=None) -> int:
@@ -297,15 +443,26 @@ def main(argv=None) -> int:
         ap.error("--rank/--nranks/--coordinator (or DPSNN_RANK/"
                  "DPSNN_NRANKS/DPSNN_COORDINATOR) are required")
 
+    if args.ranks_per_node and args.batch:
+        ap.error("--ranks-per-node applies to the plain distributed run "
+                 "only (not --batch / supervised mode)")
+
     import torch.distributed as dist
 
     cfg = build_cfg(args)
     init_worker(args.rank, args.nranks, args.coordinator, args.timeout)
     try:
-        out = worker_run(cfg, args.steps, impl=args.impl,
-                         compress=args.compress, device=args.device,
-                         state_dir=args.state_dir,
-                         ranks_per_node=args.ranks_per_node)
+        if args.batch:
+            out = worker_run_batched(
+                cfg, args.steps, batch=args.batch,
+                batch_shards=args.batch_shards, impl=args.impl,
+                compress=args.compress, device=args.device,
+                state_dir=args.state_dir)
+        else:
+            out = worker_run(cfg, args.steps, impl=args.impl,
+                             compress=args.compress, device=args.device,
+                             state_dir=args.state_dir,
+                             ranks_per_node=args.ranks_per_node)
     finally:
         dist.destroy_process_group()
     if args.rank == 0:

@@ -39,11 +39,17 @@ local shard's halo window out of the extended node frames.
   a broadcast from the corner to its node. The backend is whatever the
   group was initialised with: nothing picks another one.
 
+A payload may carry the batched service's tenant axis behind the mesh
+axes, ``(*local, b, ...)``: the moves cut the mesh axes only. A
+``ProcessGroupMesh`` may split its world into batch shards, each a
+spatial grid of its own (``runtime/sharding.py``).
+
 Both reduce run totals with :meth:`all_sum` and the saturation flags
-with :meth:`all_max`. ``priced_compress`` is the wire the byte
-accounting prices (``exchange.resolve_ring_modes``): a ``LocalMesh``
-stands for the packed rank wire whatever it moves in-process. Nothing
-here initialises a process group or touches a device at import.
+with :meth:`all_max`, over every process. ``priced_compress`` is the
+wire the byte accounting prices (``exchange.resolve_ring_modes``): a
+``LocalMesh`` stands for the packed rank wire whatever it moves
+in-process. Nothing here initialises a process group or touches a
+device at import.
 """
 from __future__ import annotations
 
@@ -52,8 +58,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core.network import resolve_device
-from repro_torch.core.partition import (NodeSpec, TileSpec, make_node_spec,
-                                        process_grid)
+from repro_torch.core.partition import (NodeSpec, TileSpec, batch_ranks,
+                                        make_node_spec, process_grid)
 
 AXIS_NAMES = ("data", "model")    # rows, cols: the reference's mesh axes
 
@@ -118,6 +124,8 @@ class _Transport:
     :meth:`node_move` in the transport's wire format."""
     compress: bool
     node: NodeSpec | None = None
+    batch_shards = 1       # the tenant axis: one batch shard, the first
+    batch_index = 0
 
     def _wire(self, move, x, axis, direction):
         if not self.compress:
@@ -211,16 +219,31 @@ class ProcessGroupMesh(_Transport):
     no card); with ``compress`` (the default) strips cross packed. With
     ``ranks_per_node`` consecutive ranks form node groups
     (``partition.make_node_spec``, whose error names a bad shape) and
-    every rank creates every node's process group, in the same order."""
+    every rank creates every node's process group, in the same order.
+
+    With ``batch_shards`` K (the batched service's tenant axis,
+    ``runtime/sharding.py``) the world splits batch-major into K batch
+    shards of S = world / K ranks: ranks ``[k*S, (k+1)*S)`` form batch
+    shard ``batch_index`` k, each over the process grid of S ranks, so
+    every shift stays inside a batch shard. ``rank`` is then the spatial
+    rank within the shard; the reductions still run over the world."""
 
     def __init__(self, device="cuda", compress: bool = True,
-                 ranks_per_node: int = 0):
+                 ranks_per_node: int = 0, batch_shards: int = 1):
         if not dist.is_initialized():
             raise RuntimeError(
                 "ProcessGroupMesh needs an initialised torch.distributed "
                 "process group (runtime/multiprocess.py::init_worker)")
-        rows, cols = process_grid(dist.get_world_size())
-        self.rank = dist.get_rank()
+        spatial = batch_ranks(dist.get_world_size(), batch_shards)
+        if ranks_per_node and batch_shards > 1:
+            raise ValueError(
+                "the batched multi-tenant runner does not support the "
+                "hierarchical ('ndata','data','nmodel','model') mesh — run "
+                "tenants on a flat spatial mesh, or drop --ranks-per-node")
+        rows, cols = process_grid(spatial)
+        self.batch_shards = batch_shards
+        self.batch_index, self.rank = divmod(dist.get_rank(), spatial)
+        self.base = self.batch_index * spatial   # the shard's first rank
         self.shape = (rows, cols)
         self.local = (1, 1)
         self.shards = (self.rank,)
@@ -258,7 +281,7 @@ class ProcessGroupMesh(_Transport):
         ty, tx = (ty + step, tx) if axis == 0 else (ty, tx + step)
         rows, cols = self.shape
         if 0 <= ty < rows and 0 <= tx < cols:
-            return ty * cols + tx
+            return self.base + ty * cols + tx
         return None
 
     def _node_peer(self, axis: int, step: int) -> int | None:

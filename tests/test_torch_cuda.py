@@ -477,3 +477,39 @@ def test_batched_step_never_waits_for_the_card(cuda_device, impl):
     assert _build.LAUNCHES["keyed_drive"] == 3
     assert st.t.tolist() == [4, 4, 0]
     assert not bool(frame[2].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["cuda_fused", "cuda"])
+def test_batched_mesh_equals_dedicated_runs(cuda_device, impl):
+    """Three tenants (seeds 0, 5, -3; one at nu_scale 1.5) over an
+    in-process 2x2 mesh of a 4x4x64 grid: one launch of each kernel per
+    step for every tenant and shard, and each tenant's spikes, events,
+    per-step spikes and v equal to its dedicated single-shard card run to
+    the bit."""
+    from repro_torch.core import exchange
+    from repro_torch.core import network as net
+    from repro_torch.core.partition import columns_to_global
+    from repro_torch.runtime.transport import LocalMesh
+    cfg = DPSNNConfig(grid_h=4, grid_w=4, neurons_per_column=64, seed=0)
+    params, _ = sim.build(cfg, device=cuda_device)
+    seeds, nu = [0, 5, -3], [1.0, 1.5, 1.0]
+    run, spec = exchange.make_batched_distributed_run(
+        cfg, LocalMesh(2, 2, cuda_device), n_steps=40, batch=3, impl=impl,
+        with_stimulus=True, with_state=True)
+    _build.reset_launches()
+    res, st = run(seeds, nu)
+    kernels = (["fused_step"] if impl == "cuda_fused" else
+               ["synapse_matmul", "ell_gather", "lif_step"])
+    for name in kernels + ["keyed_drive"]:
+        assert _build.LAUNCHES[name] == 40, name
+    for i, (seed, scale) in enumerate(zip(seeds, nu)):
+        state = net.init_state(cfg, range(cfg.n_columns), device=cuda_device,
+                               seed=seed)
+        one = sim.run(cfg, params, state, 40, impl=impl, seed=seed,
+                      nu_scale=scale)
+        assert float(res.spikes[i]) == float(one.spikes) > 0
+        assert float(res.events[i]) == float(one.events)
+        assert torch.equal(res.rate_trace[i], one.rate_trace)
+        assert torch.equal(columns_to_global(st.lif.v[:, i], spec),
+                           one.state.lif.v)

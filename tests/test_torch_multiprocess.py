@@ -76,10 +76,48 @@ def test_wire_options_equal_single_process(tmp_path, capsys, ranks, grid,
     assert row["pipelined"] == ("--pipelined" in flags)
 
 
-@pytest.mark.parametrize("flags,item", [(["--batch", "2"], "item 5"),
-                                        (["--checkpoint-every", "2"], "item 6"),
-                                        (["--supervise"], "item 6")])
+@pytest.mark.parametrize("shards", [1, 2])
+def test_real_ranks_batched_equal_dedicated_runs(tmp_path, capsys,
+                                                 monkeypatch, shards):
+    """2 ranks x 2 tenants (the reference's ``real_ranks`` tests): on one
+    spatial grid of two ranks, or with the tenant axis over the ranks
+    (``--batch-shards 2``: each rank holds one tenant's whole grid).
+    Every tenant equals its dedicated single-tenant single-process run,
+    v included; a run that disagrees exits 1 and says MISMATCH."""
+    argv = ["--ranks", "2", "--batch", "2", "--batch-shards", str(shards),
+            "--grid", "4x4", "--neurons", "32", "--steps", "20",
+            "--device", "cpu", "--timeout", TIMEOUT,
+            "--state-dir", str(tmp_path / "states"), "--json", "-"]
+    status = ld.main(argv)
+    out = capsys.readouterr().out
+    assert status == 0, out
+    assert "BITWISE-EQUAL vs 2 single-tenant single-process runs" in out
+    assert ", v)" in out
+    row = json.loads(out.strip().splitlines()[-1])
+    assert row["single_process_match"] is True
+    assert row["batch_size"] == 2 and row["batch_shards"] == shards
+    assert row["process_grid"] == ([2, 1, 1] if shards == 2 else [1, 1, 2])
+    assert row["tenant_seeds"] == [0, 1]
+    assert len(row["per_tenant_spikes"]) == 2
+    assert row["spikes"] == sum(row["per_tenant_spikes"])
+    assert row["aer_saturated_steps"] == 0 and row["device"] == "cpu"
+    # the same row with one tenant's spikes off by one: exit 1
+    bad = dict(row, per_tenant_spikes=[row["per_tenant_spikes"][0] + 1,
+                                       row["per_tenant_spikes"][1]])
+    monkeypatch.setattr(ld, "launch", lambda args: bad)
+    assert ld.main(argv) == 1
+    assert "MISMATCH vs single-tenant runs" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--batch", "3", "--batch-shards", "2"],
+     "batch=3 tenants do not divide over the mesh's batch axis of 2 shards"),
+    (["--checkpoint-every", "2"], "item 6"),
+    (["--supervise"], "item 6")])
 def test_unported_flags_are_refused(flags, item):
+    """What waits for ROADMAP queue 1 item 6 names it; a tenant split the
+    batch shards do not divide is refused with the reference's text,
+    before any rank starts."""
     with pytest.raises(SystemExit, match=item):
         ld.main(["--ranks", "2", *flags, "--device", "cpu"])
 
