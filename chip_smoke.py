@@ -124,7 +124,30 @@ then, on the card:
    traces; events within 1e-6 past 2**24), with one ``fused_step`` (or
    one of each staged kernel) and one ``keyed_drive`` launch per step for
    all tenants and shards; each case prints its ms per loop step,
-   tenant-steps/s, device busy share and peak memory.
+   tenant-steps/s, device busy share and peak memory;
+8. drives the integrity guard on the multi-rank step and the supervised
+   ranks on the same grid: (a) in-process meshes of 2x2 and 24x24 shards
+   on the dense wire, 2x2 on AER at the bound that cannot overflow, and
+   24x24 in nodes of 1x4, each with the guard on (every halo message
+   framed with a checksum word, ``fused_step``'s guard-flag instance over
+   all shards' rows, one launch per step) for phase 3's steps, equal to
+   phase 3 to the bit (spikes, per-step spikes, v) with no checksum
+   failure and every guard leaf of every shard equal to the plain
+   verdict from phase 3's per-column spike counts (a shard of one
+   column trips the reference's per-shard spike ceiling when more than
+   half its neurons fire in one step), its ms/step beside phase 5's
+   without the guard; a
+   bit flipped on a halo message at step 25 and a NaN at step 30 trip
+   every shard at that step with their codes; (b) 2 gloo ranks on this
+   card under the launcher's supervisor, a checkpoint every 20 of 80
+   steps, rank 1 killed at step 50 and the run restarted on 1 rank from
+   the resharded step-40 checkpoint: one restart, 10 lost steps, the
+   totals and the v of the final checkpoint equal to the single
+   process's run, with the checkpoint's bytes and seconds per save; (c)
+   the flip drill, ``--guard --chaos-flip-bit 0:25:3`` on 2 ranks, 60
+   steps, a checkpoint every 10: the guard trips, the ranks exit with its
+   code, and the restart rolls back to step 20 and finishes clean and
+   equal to the single process.
 
 Every phase raises on failure and the script exits non-zero. Without a
 card, or without the rest of the repository beside it, it exits
@@ -227,6 +250,15 @@ TENANT_KERNELS = ("keyed_drive", "synapse_matmul", "ell_gather",
 # and the steps each case's profile covers
 PLASTIC_TENANTS = 2
 PROFILE_STEPS = 10
+# phase 8: the guard's chaos on an in-process mesh (send ordinal, step,
+# word of the flip; the NaN's step), and the supervised ranks: 8b's
+# steps, checkpoint cadence, killed rank and step; 8c's flip drill
+CHAOS_STEPS = 40
+FLIP = (0, 25, 3)
+NAN_STEP = 30
+SUPERVISED_STEPS, SUPERVISED_EVERY = 80, 20
+KILL_RANK, KILL_STEP = 1, 50
+DRILL_STEPS, DRILL_EVERY, DRILL_FLIP = 60, 10, "0:25:3"
 
 
 def log(*args):
@@ -290,11 +322,13 @@ class Smoke:
         self.neuron_types = connectivity.neuron_types
         from repro_torch.core import exchange, partition
         from repro_torch.launch import launch_distributed
-        from repro_torch.runtime import compression, multiprocess, transport
+        from repro_torch.runtime import (compression, integrity,
+                                         multiprocess, transport)
         self.ex, self.part, self.ld, self.mp = (exchange, partition,
                                                 launch_distributed,
                                                 multiprocess)
         self.LocalMesh = transport.LocalMesh
+        self.integrity = integrity
         from repro_torch.core import batched
         from repro_torch.launch import serve
         self.batched, self.serve = batched, serve
@@ -486,6 +520,10 @@ class Smoke:
         params, _ = self.sim.build(cfg, device=self.dev)
         self.service_path(cfg, fused, params)
         self.batched_mesh_path(cfg, params)
+
+        # 8. the guard on the multi-rank step, held to phase 3, and the
+        # supervised ranks, held to the single process
+        self.guard_path(cfg, params, fused)
         del params
 
         tenant = {f"{name}[B={TENANT_B}]": name for name in TENANT_KERNELS}
@@ -3459,6 +3497,267 @@ class Smoke:
                 f"{row['launch_wall_s']:.1f} s; per-tenant spikes "
                 f"{row['per_tenant_spikes']} and v equal the dedicated runs; "
                 f"device time not measured (other processes)")
+        return out
+
+
+    # ------------------------------------------------------------ phase 8
+    def guard_path(self, cfg, params, fused):
+        """Phase 8: 8a the guarded in-process meshes, each held to phase 3
+        (its time beside phase 5's guard-off run of the same mesh and
+        wire), and the chaos flip and NaN on 2x2; 8b and 8c the
+        supervised ranks (:meth:`supervised_path`)."""
+        torch = self.torch
+        t0 = time.perf_counter()
+        guard = self.GuardConfig(enabled=True)
+        node24 = self.part.make_node_spec(24, 24, 4)
+        aer = self.wire_cfg(cfg, "aer_sparse", AER_FREE_HZ)
+        off = {r["case"]: r["ms_per_step"]
+               for r in self.report.get("wire_path", [])}
+        off.update({f"mesh {'x'.join(map(str, r['mesh']))}":
+                    r["ms_per_step"] for r in self.report.get("mesh_path", [])
+                    if r["impl"] == "cuda_fused" and not r["pipelined"]
+                    and not r["compress"]})
+        cases = [  # (name, shape, cfg, node, phase 5's guard-off case)
+            ("2x2 dense", (2, 2), cfg, None, "mesh 2x2"),
+            ("24x24 dense", (24, 24), cfg, None, "mesh 24x24"),
+            (f"2x2 aer at {AER_FREE_HZ:g} Hz", (2, 2), aer, None,
+             "aer 2x2 at the free bound"),
+            ("24x24 in nodes of 1x4", (24, 24), cfg, node24,
+             "hier 24x24 nodes of 1x4 dense")]
+        want = self.expected_launches(fused_step=MAIN_STEPS,
+                                      keyed_drive=MAIN_STEPS)
+        counts = self.column_spike_counts(cfg, params,
+                                          WARMUP_STEPS + MAIN_STEPS)
+        if float(counts.sum()) != float(fused.spikes):
+            raise AssertionError("phase 8a: the per-column spike counts "
+                                 "are not phase 3's run")
+        rows, built = [], {}
+        for name, shape, run_cfg, node, off_case in cases:
+            name = f"guarded mesh {name}"
+            run_cfg = dataclasses.replace(run_cfg, guard=guard)
+            mesh = self.LocalMesh(*shape, self.dev, node=node)
+            spec = self.part.make_tile_spec(cfg, *shape)
+            if shape not in built:
+                built.clear()
+                ids = self.ex.shard_col_ids(cfg, spec, mesh, self.dev).long()
+                built[shape] = self.net.NetworkParams(*(x[ids]
+                                                        for x in params))
+            res, final, spec, ms, wall, launches, _, warm = self.mesh_run(
+                run_cfg, mesh, built[shape], "cuda_fused")
+            # the guard-flag instance of fused_step, once per step
+            if launches != want:
+                raise AssertionError(f"{name} launches {launches}")
+            if not rows:
+                self.report["kernels"]["fused_step"][
+                    "launches_guarded_mesh"] = launches["fused_step"]
+            sat = int(warm.aer_saturated.sum() + res.aer_saturated.sum())
+            if sat:
+                raise AssertionError(f"{name}: {sat} saturated steps")
+            self.hold_against_single(name, spec, res, final, fused)
+            ceiling = self.hold_guard(name, run_cfg, spec, final.guard,
+                                      counts)
+            row = dict(case=name, mesh=list(shape),
+                       node=None if node is None else list(node),
+                       wire=run_cfg.conn.exchange_mode, ms_per_step=ms,
+                       guard_off_ms_per_step=off.get(off_case),
+                       wall_s=wall, launches=launches, **ceiling)
+            rows.append(row)
+            log(f"phase 8a {name}: {ms:.4f} ms/step with the guard (device "
+                f"events; phase 5 without it: "
+                + (f"{row['guard_off_ms_per_step']:.4f}"
+                   if row["guard_off_ms_per_step"] is not None
+                   else "not run") +
+                f"), wall {wall:.3f} s; every halo message checksummed, no "
+                f"checksum failure; "
+                + (f"{ceiling['ceiling_trips']} of "
+                   f"{spec.tiles_y * spec.tiles_x} shards tripped the spike ceiling ({ceiling['ceiling']:g}"
+                   f" spikes a step per shard; first at step "
+                   f"{ceiling['first_ceiling_step']}), as their own spike "
+                   f"counts say"
+                   if ceiling["ceiling_trips"] else "no trip")
+                + f"; every guard leaf of every shard as recomputed from "
+                f"phase 3's per-column counts; spikes, per-step spikes, v, "
+                f"last frame equal phase 3 to the bit; launches {launches}")
+            del res, final, warm
+        built.clear()
+        chaos = self.guard_chaos(cfg, params)
+        torch.cuda.empty_cache()
+        self.note(f"phase 8a: {len(rows)} guarded meshes (2x2, 24x24 dense, "
+                  f"2x2 AER at {AER_FREE_HZ:g} Hz, 24x24 in nodes of 1x4) "
+                  f"equal phase 3 to the bit with no checksum failure and "
+                  f"every guard leaf as its per-shard spike counts say ("
+                  + ", ".join(f"{r['case']}: {r['ceiling_trips']} ceiling "
+                              f"trips" for r in rows)
+                  + f"); fused_step's guard-flag instance once per step over "
+                  f"all shards' rows; {chaos}")
+        ranks = self.supervised_path(cfg, params)
+        self.report["guard_path"] = dict(meshes=rows, ranks=ranks,
+                                         seconds=time.perf_counter() - t0)
+        log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+
+    def column_spike_counts(self, cfg, params, steps):
+        """(steps, columns) spikes of every column at every step of phase
+        3's single-shard run (from the seed, one step at a time)."""
+        state = self.net.init_state(cfg, range(cfg.n_columns),
+                                    device=self.dev)
+        d = state.hist.shape[0]
+        out = []
+        for _ in range(steps):
+            state = self.sim.run(cfg, params, state, 1,
+                                 impl="cuda_fused").state
+            out.append(state.hist[(int(state.t) - 1) % d].sum(-1))
+        return self.torch.stack(out)
+
+    def hold_guard(self, name, cfg, spec, g, counts):
+        """Every leaf of a healthy guarded run's (S,) guard to the bit
+        against the plain verdict from the per-column ``counts``: a shard
+        trips the spike ceiling (``max_spike_fraction`` of its neurons,
+        per shard as in the reference) at the first step its own count
+        exceeds it; nothing else trips, no frame fails. Returns the
+        ceiling and how many shards tripped it, and when first."""
+        torch, integ = self.torch, self.integrity
+        per = self.part.global_to_columns(counts.T.contiguous(), spec).sum(1)
+        ceiling = cfg.guard.max_spike_fraction * (spec.columns_per_tile
+                                                  * cfg.neurons_per_column)
+        over = per > ceiling                       # (S, steps)
+        tripped = over.any(1)
+        first = torch.where(tripped, over.int().argmax(1), -1)
+        want = dict(tripped=tripped,
+                    trip_code=torch.where(tripped, integ.TRIP_SPIKES, 0),
+                    trip_step=first, sat_run=torch.zeros_like(first),
+                    checksum_fails=torch.zeros_like(first))
+        for leaf, x in want.items():
+            self.equal(f"{name} guard {leaf}", g._asdict()[leaf],
+                       x.to(g._asdict()[leaf].dtype))
+        return dict(ceiling=ceiling, ceiling_trips=int(tripped.sum()),
+                    first_ceiling_step=(int(first[tripped].min())
+                                        if bool(tripped.any()) else None))
+
+    def guard_chaos(self, cfg, params):
+        """A bit flipped on halo send FLIP[0] at step FLIP[1] (word FLIP[2]
+        of every received frame) and a NaN at NAN_STEP, each on 2x2
+        shards for CHAOS_STEPS from the seed: every shard's guard trips
+        at that step with its code."""
+        mesh = self.LocalMesh(2, 2, self.dev)
+        spec = self.part.make_tile_spec(cfg, 2, 2)
+        ids = self.ex.shard_col_ids(cfg, spec, mesh, self.dev).long()
+        params2 = self.net.NetworkParams(*(x[ids] for x in params))
+        ring, step, word = FLIP
+        integ = self.integrity
+        out = []
+        for what, kw, at, code in (
+                ("flip", dict(chaos_flip_ring=ring, chaos_flip_step=step,
+                              chaos_flip_word=word), step,
+                 integ.TRIP_CHECKSUM),
+                ("NaN", dict(chaos_nan_at_step=NAN_STEP), NAN_STEP,
+                 integ.TRIP_NAN)):
+            run_cfg = dataclasses.replace(cfg, guard=self.GuardConfig(
+                enabled=True, **kw))
+            run, _ = self.ex.make_distributed_run(
+                run_cfg, mesh, n_steps=CHAOS_STEPS, impl="cuda_fused",
+                with_state=True, params=params2)
+            _, final = run()
+            g = final.guard
+            rep = integ.guard_report(g)
+            if not (bool(g.tripped.all()) and bool((g.trip_step == at).all())
+                    and bool(((g.trip_code & code) != 0).all())):
+                raise AssertionError(f"phase 8a {what} at step {at}: guard "
+                                     f"{rep}")
+            out.append(f"a {what} at step {at} trips every shard at step "
+                       f"{rep['guard_trip_step']} ({rep['guard_trip_what']}, "
+                       f"{rep['guard_checksum_fails']} checksum failures)")
+            log(f"phase 8a chaos: {out[-1]}")
+            del final
+        return "; ".join(out)
+
+    def supervised_single(self, cfg, params, steps):
+        """The single process's run of ``steps`` from the seed on this
+        card (``single_process_reference``'s, with phase 1's network):
+        totals and the final v."""
+        state = self.net.init_state(cfg, range(cfg.n_columns),
+                                    device=self.dev)
+        res = self.sim.run(cfg, params, state, steps, impl="cuda_fused")
+        return dict(spikes=float(res.spikes), events=float(res.events),
+                    v=res.state.lif.v.cpu().numpy())
+
+    def supervised_path(self, cfg, params):
+        """Phase 8b and 8c: 2 gloo ranks on this card under the launcher's
+        supervisor. 8b: a checkpoint every SUPERVISED_EVERY steps, rank
+        KILL_RANK killed at KILL_STEP, the restart on 1 rank; 8c: the flip
+        drill under the guard. Each finished run's totals and the v of its
+        final checkpoint are held to the single process's run."""
+        import tempfile
+
+        import numpy as np
+        ld = self.ld
+        common = ["--ranks", "2", "--grid", f"{cfg.grid_h}x{cfg.grid_w}",
+                  "--neurons", str(cfg.neurons_per_column),
+                  "--seed", str(cfg.seed), "--impl", "cuda_fused",
+                  "--device", self.dev.type, "--timeout",
+                  str(RANK_TIMEOUT_S), "--supervise"]
+        (ROOT / "build").mkdir(exist_ok=True)
+        flip_step = int(DRILL_FLIP.split(":")[1])
+        drills = [  # (name, flags, lost steps, resumed from)
+            ("8b", ["--steps", str(SUPERVISED_STEPS), "--checkpoint-every",
+                    str(SUPERVISED_EVERY), "--chaos-kill-rank",
+                    str(KILL_RANK), "--chaos-at-step", str(KILL_STEP),
+                    "--restart-ranks", "1"],
+             KILL_STEP % SUPERVISED_EVERY,
+             KILL_STEP - KILL_STEP % SUPERVISED_EVERY),
+            # the guard latches at the flip, the ranks abort one step later
+            ("8c", ["--steps", str(DRILL_STEPS), "--checkpoint-every",
+                    str(DRILL_EVERY), "--guard", "--chaos-flip-bit",
+                    DRILL_FLIP],
+             flip_step % DRILL_EVERY + 1,
+             flip_step - flip_step % DRILL_EVERY)]
+        out = []
+        for name, flags, lost, resumed in drills:
+            with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+                args = ld.make_parser().parse_args(
+                    [*common, *flags, "--ckpt-dir", d])
+                ld.refuse_before_spawn(args)
+                row = ld.supervise(args)
+                run_cfg = ld.build_cfg(args)
+                single = self.supervised_single(run_cfg, params, args.steps)
+                states, spec = ld.checkpoint_states(run_cfg, d)
+                v = self.part.columns_to_global(states["v"], spec)
+            if (row["restarts"], row["lost_steps"],
+                    row["resumed_from_step"]) != (1, lost, resumed):
+                raise AssertionError(f"phase {name}: restarts "
+                                     f"{row['restarts']}, lost "
+                                     f"{row['lost_steps']}, resumed from "
+                                     f"{row['resumed_from_step']}")
+            if (row["spikes"] != single["spikes"]
+                    or not ld.events_agree(row["events"], single["events"])
+                    or not np.array_equal(v, single["v"])):
+                raise AssertionError(f"phase {name}: spikes {row['spikes']}"
+                                     f" events {row['events']} or v differ "
+                                     f"from the single process "
+                                     f"({single['spikes']}, "
+                                     f"{single['events']})")
+            if args.guard and row["guard_trip_what"] != "clean":
+                raise AssertionError(f"phase {name}: final guard "
+                                     f"{row['guard_trip_what']}")
+            out.append(row)
+            log(f"phase {name} supervised ranks (gloo, every rank on this "
+                f"card): {' '.join(flags)}; {row['restarts']} restart, "
+                f"{row['lost_steps']} lost steps, resumed from step "
+                f"{row['resumed_from_step']} on {row['rank_count']} "
+                f"rank(s); checkpoint {row['checkpoint_bytes']} B, seconds "
+                f"per save (last attempt, rank 0) "
+                + ", ".join(f"{x:.3f}" for x in row["save_s"])
+                + f"; wall_s {row['wall_s']:.2f} (last attempt), "
+                f"supervised_wall_s {row['supervised_wall_s']:.1f}"
+                + (f", final guard {row['guard_trip_what']}"
+                   if args.guard else "")
+                + f"; BITWISE-EQUAL vs the single process (spikes "
+                f"{single['spikes']:.0f}, events {single['events']:.6e}, v "
+                f"of the final checkpoint)")
+        self.note(f"phase 8b/8c: the killed rank restarted on 1 rank from "
+                  f"the resharded step-{out[0]['resumed_from_step']} "
+                  f"checkpoint and the flip drill rolled back to step "
+                  f"{out[1]['resumed_from_step']}, each equal to the single "
+                  f"process to the bit")
         return out
 
 

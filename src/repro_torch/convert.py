@@ -12,13 +12,19 @@ distributed state (``DistState``, the layout of the reference's
 across by leaf name too (``DIST_LEAVES``), its ``PlasticState`` under
 STDP included (the reference's ``plastic`` leaves ``w_local``, ``rem_w``,
 ``traces.x_pre``, ``traces.x_post`` and ``trace_ext``, named by their
-last part). The batched service's tenants (every state leaf, and the
-plastic weights under STDP, with a leading tenant axis, as the
-reference's ``init_tenants`` and ``run_chunk`` give them) come across
-with the same functions, but for their step counters, which stay on the
-device (:func:`tenants_state_from_numpy`). The batched distributed
-state (``exchange.make_batched_distributed_run(..., with_state=True)``)
-has the reference's layout, every leaf (n_shards, b_local, ...), and
+last part), and under the guard its ``GuardState`` leaves (``tripped``,
+``trip_code``, ``trip_step``, ``sat_run``, ``checksum_fails``, one per
+shard). A checkpoint's tree, the ``DistState`` of numpy leaves that
+``checkpoint.checkpointer.restore`` gives back against
+``exchange.stacked_state_template``, goes onto a mesh with
+``exchange.stack_from_host``. The batched service's tenants (every
+state leaf, and the plastic weights under STDP, with a leading tenant
+axis, as the reference's ``init_tenants`` and ``run_chunk`` give them)
+come across with the same functions, but for their step counters,
+which stay on the device (:func:`tenants_state_from_numpy`). The
+batched distributed state
+(``exchange.make_batched_distributed_run(..., with_state=True)``) has
+the reference's layout, every leaf (n_shards, b_local, ...), and
 comes across with the ``DistState`` functions as it is;
 :func:`merge_batch_shards` folds the batch shards of a run over several
 (the reference's batch-major shard axis) into the (S, B, ...) layout of
@@ -49,7 +55,7 @@ PLASTIC_LEAVES = ("w_local", "rem_w", "x_pre", "x_post", "trace_ext")
 DIST_LEAVES = ("v", "c", "refrac", "hist_ext", "pending", "t",
                "spike_count", "event_count", "aer_sat", "ext_pending",
                "last_spike_t", "isi_sum", "isi_sumsq",
-               "isi_count") + PLASTIC_LEAVES
+               "isi_count") + PLASTIC_LEAVES + GUARD_LEAVES
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -120,7 +126,7 @@ def dist_state_from_numpy(leaves, device="cuda") -> DistState:
     e.g. the reference's stacked state as numpy, or (S, b_local, ...),
     the batched runner's layout). ``t`` stays on the host;
     ``ext_pending`` may be absent (unpipelined), and so may the plastic
-    leaves (a static state)."""
+    leaves (a static state) and the guard's (no guard)."""
     def get(name, dev=device):
         return _tensor(leaves[name], dev) if name in leaves else None
 
@@ -138,7 +144,9 @@ def dist_state_from_numpy(leaves, device="cuda") -> DistState:
         aer_sat=get("aer_sat"),
         ext_pending=get("ext_pending"), last_spike_t=get("last_spike_t"),
         isi_sum=get("isi_sum"), isi_sumsq=get("isi_sumsq"),
-        isi_count=get("isi_count"))
+        isi_count=get("isi_count"),
+        guard=(GuardState(**{k: get(k) for k in GUARD_LEAVES})
+               if "tripped" in leaves else None))
 
 
 def dist_state_to_numpy(state: DistState) -> dict:
@@ -150,6 +158,8 @@ def dist_state_to_numpy(state: DistState) -> dict:
     if state.plastic is not None:
         leaves.update(state.plastic._asdict(),
                       **state.plastic.traces._asdict())
+    if state.guard is not None:
+        leaves.update(state.guard._asdict())
     return {name: leaves[name].cpu().numpy() for name in DIST_LEAVES
             if leaves.get(name) is not None}
 

@@ -60,9 +60,17 @@ of step t-1's spikes is issued first and its frame written into the
 ring only after the compute (every remote delay >= 2, checked), or,
 with ``ExchangeConfig.pipelined``, carried a full step in
 ``DistState.ext_pending`` and written before the next step's reads;
-the trace halo is consumed on arrival under both schedules. The guard's
-checksummed frames (ROADMAP queue 1 item 6) are refused by
-``network.check_supported(..., mesh=True)``.
+the trace halo is consumed on arrival under both schedules.
+
+Under ``cfg.guard.enabled`` each step frames every halo message with a
+checksum word (``integrity.HaloGuard`` around the transport's moves,
+``transport.GuardedWire``: the packed words, the event lists, the trace
+strips and the node messages, one frame per shard's message) and folds
+the per-shard verdict (the invariants, ``fused_step``'s guard flags over
+the stacked rows, the checksums, the AER saturation run) into
+``DistState.guard``, (S,) leaves. :func:`stacked_state_template` and
+``make_distributed_run(..., replicate_state=True)`` give the host stack
+of every shard that a checkpoint holds (``checkpoint/checkpointer.py``).
 
 The ring buffer is the one large leaf (286 MB at 24x24 shards of the
 24x24x1240 grid): :func:`dist_step` writes it in place, and the runners
@@ -74,6 +82,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import DPSNNConfig
@@ -84,14 +93,17 @@ from repro_torch.core.connectivity import (StencilSpec, build_stencil,
                                            neuron_types)
 from repro_torch.core.network import NetworkParams
 from repro_torch.core.neuron import LIFState
-from repro_torch.core.partition import (TileSpec, make_tile_spec,
-                                        shard_tile_coords, tile_column_ids)
+from repro_torch.core.partition import (TileSpec, make_rank_tile_spec,
+                                        make_tile_spec, shard_tile_coords,
+                                        tile_column_ids)
 from repro_torch.core.plasticity import STDPState
 from repro_torch.core.simulation import _recip
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import stdp_constants
+from repro_torch.runtime import integrity
+from repro_torch.runtime.integrity import GuardState
 from repro_torch.runtime.sharding import local_tenants
-from repro_torch.runtime.transport import assert_axis_sizes
+from repro_torch.runtime.transport import GuardedWire, assert_axis_sizes
 
 # ---------------------------------------------------------------------------
 # Halo exchange
@@ -189,16 +201,20 @@ def exchange_halo(frame: torch.Tensor, spec: TileSpec, mesh,
     frames of b tenants in one message per send). Each direction
     runs ``ceil(r / tile_dim)`` chained rounds; with ``r`` inside one
     tile that is 4 shifts per step. With ``trace`` (the (S_local, th,
-    tw, N) pre-synaptic traces) its strips ride the same rounds, moved
-    raw (``mesh.move``: a packing wire would round every trace to 0/1),
-    and the function returns ``(ext_frame, ext_trace)``."""
-    def send(p, axis, direction):
-        return (mesh.shift(p[0], axis, direction),
-                *(mesh.move(x, axis, direction) for x in p[1:]))
+    tw, N) pre-synaptic traces) its strips take the same rounds after
+    the spikes', as the reference sends them, moved raw (``mesh.move``:
+    a packing wire would round every trace to 0/1), and the function
+    returns ``(ext_frame, ext_trace)``."""
+    tenants = frame.dim() == 5
 
-    ext = _extend_tree(_payload(mesh, frame, trace), send, spec.radius)
-    ext_frame, ext_trace = _unstack(ext, frame.dim() == 5)
-    return ext_frame if trace is None else (ext_frame, ext_trace)
+    def extend(x, send):
+        ext = _extend_tree(_payload(mesh, x, None), lambda p, axis, d: (
+            send(p[0], axis, d),), spec.radius)
+        return _unlay(ext[0], tenants)
+
+    ext_frame = extend(frame, mesh.shift)
+    return ext_frame if trace is None else (ext_frame,
+                                            extend(trace, mesh.move))
 
 
 # ---------------------------------------------------------------------------
@@ -472,11 +488,13 @@ def exchange_halo_hier(frame: torch.Tensor, spec: TileSpec, mesh, *,
 
 def make_exchange(cfg: DPSNNConfig, spec: TileSpec, mesh):
     """The step's halo exchange, resolved once from the config and the
-    mesh: ``exchange(frame, trace=None) -> (ext_frame, ext_trace or
-    None, saturated or None)``; ``ext_trace`` is sparse (the values at
-    the spikes' addresses only) on the flat AER wire
-    (:func:`sparse_trace_halo`). Raises the reference's errors for an
-    unknown wire format or policy."""
+    mesh: ``exchange(frame, trace=None, wire=None) -> (ext_frame,
+    ext_trace or None, saturated or None)``; ``ext_trace`` is sparse (the
+    values at the spikes' addresses only) on the flat AER wire
+    (:func:`sparse_trace_halo`). ``wire`` stands in for ``mesh``'s
+    moves (a ``transport.GuardedWire``, which frames every message).
+    Raises the reference's errors for an unknown wire format or
+    policy."""
     mode = cfg.conn.exchange_mode
     if mode not in ("dense_packed", "aer_sparse"):
         raise ValueError(
@@ -488,19 +506,20 @@ def make_exchange(cfg: DPSNNConfig, spec: TileSpec, mesh):
                capacity_factor=cfg.conn.aer_capacity_factor,
                dt_ms=cfg.neuron.dt_ms)
     if mesh.node is not None:
-        return lambda f, trace=None: exchange_halo_hier(
-            f, spec, mesh, modes=ring_modes, mode=mode, trace=trace, **aer)
+        return lambda f, trace=None, wire=None: exchange_halo_hier(
+            f, spec, wire or mesh, modes=ring_modes, mode=mode, trace=trace,
+            **aer)
     if ring_modes is not None:
-        return lambda f, trace=None: exchange_halo_modes(
-            f, spec, mesh, modes=ring_modes, trace=trace, **aer)
+        return lambda f, trace=None, wire=None: exchange_halo_modes(
+            f, spec, wire or mesh, modes=ring_modes, trace=trace, **aer)
     if mode == "aer_sparse":
-        return lambda f, trace=None: exchange_halo_aer(f, spec, mesh,
-                                                       trace=trace, **aer)
+        return lambda f, trace=None, wire=None: exchange_halo_aer(
+            f, spec, wire or mesh, trace=trace, **aer)
 
-    def dense(f, trace=None):
+    def dense(f, trace=None, wire=None):
         if trace is None:
-            return exchange_halo(f, spec, mesh), None, None
-        return (*exchange_halo(f, spec, mesh, trace=trace), None)
+            return exchange_halo(f, spec, wire or mesh), None, None
+        return (*exchange_halo(f, spec, wire or mesh, trace=trace), None)
     return dense
 
 
@@ -552,7 +571,9 @@ class DistState(NamedTuple):
     isi_sum: Optional[torch.Tensor] = None       # (S,) f32
     isi_sumsq: Optional[torch.Tensor] = None     # (S,) f32
     isi_count: Optional[torch.Tensor] = None     # (S,) f32
-    guard: Optional[object] = None          # multi-rank guard: item 6
+    # the integrity guard's verdict per shard, (S,) leaves, under
+    # cfg.guard.enabled (None otherwise)
+    guard: Optional[GuardState] = None
 
 
 def shard_col_ids(cfg: DPSNNConfig, spec: TileSpec, mesh,
@@ -622,6 +643,8 @@ def init_shard(cfg: DPSNNConfig, spec: TileSpec, stencil: StencilSpec,
         isi_sum=zeros(s_local),
         isi_sumsq=zeros(s_local),
         isi_count=zeros(s_local),
+        guard=(integrity.init_guard(dev, (s_local,)) if cfg.guard.enabled
+               else None),
     )
 
 
@@ -657,7 +680,10 @@ def dist_step(cfg: DPSNNConfig, params: NetworkParams, state: DistState, *,
     where it binds them. Under ``cfg.stdp`` the step is the reference's
     plastic one: the live weights of ``state.plastic`` replace
     ``params``', the exchange carries the pre-trace halo, and one STDP
-    update runs over every local shard's columns.
+    update runs over every local shard's columns. Under
+    ``cfg.guard.enabled`` one ``integrity.HaloGuard`` frames every halo
+    message of the step, and each shard's verdict (with its chaos, the
+    NaN on its first voltage) updates ``state.guard``.
 
     With ``seeds`` and ``lam`` ((b,) int32 and float32 on the mesh's
     device, :func:`make_batched_distributed_run`) the state carries b
@@ -688,10 +714,17 @@ def dist_step(cfg: DPSNNConfig, params: NetworkParams, state: DistState, *,
         return hist_ext.select(slot_dim, k % d_slots)
 
     # (1) the halo exchange of step t-1's spikes (and, under STDP, of the
-    # pre-traces x_pre(t-1)), first
+    # pre-traces x_pre(t-1)), first; under the guard one HaloGuard frames
+    # every message of the step with a checksum word
     if exchange is None:
         exchange = make_exchange(cfg, spec, mesh)
-    ext_frame, pre_ext, aer_sat = exchange(state.pending, pre_frame)
+    gcfg = cfg.guard
+    hguard = wire = None
+    if gcfg.enabled:
+        hguard = integrity.HaloGuard(gcfg, t, math.prod(lead), mesh.device)
+        wire = GuardedWire(mesh, hguard)
+    ext_frame, pre_ext, aer_sat = exchange(state.pending, pre_frame,
+                                           wire=wire)
     if aer_sat is None:
         aer_sat = torch.zeros_like(state.aer_sat)
 
@@ -718,9 +751,10 @@ def dist_step(cfg: DPSNNConfig, params: NetworkParams, state: DistState, *,
         ext_drive, ext_counts = ops.keyed_drive_tenants(
             seeds, steps, col_ids, n, lam, cfg.conn.j_ext)
     lif0 = LIFState(*(x.reshape(rows, n) for x in state.lif))
-    new_traces = None
+    new_traces = gflags = None
     if impl == "cuda_fused":
-        lif, spikes, new_traces, _ = net.fused_stage(
+        # under the guard the kernel's epilogue flags each row's v
+        lif, spikes, new_traces, gflags = net.fused_stage(
             cfg, params, lif0, traces0, s_loc, s_flat, ext_drive)
     else:
         deliver_local, deliver_remote, lif_update = net._stage_fns(impl)
@@ -728,6 +762,12 @@ def dist_step(cfg: DPSNNConfig, params: NetworkParams, state: DistState, *,
         currents = currents + deliver_remote(s_flat, params.rem_flat,
                                              params.rem_w)
         lif, spikes = lif_update(cfg.neuron, lif0, currents + ext_drive)
+    # the chaos NaN lands on every shard's first fresh voltage, so the
+    # verdict below sees it within the step; the kernel's flags pre-date it
+    if gcfg.enabled and gcfg.chaos_nan_at_step >= 0:
+        lif = lif._replace(v=integrity.inject_nan(gcfg, t, lif.v,
+                                                  shards=math.prod(lead)))
+        gflags = None
 
     # (3b) STDP over every local shard's columns at once: the local rule,
     # and the remote rule through the pre-trace table cut from the
@@ -782,6 +822,21 @@ def dist_step(cfg: DPSNNConfig, params: NetworkParams, state: DistState, *,
     spiked = spikes.reshape(state.last_spike_t.shape) > 0
     contrib = spiked & (state.last_spike_t >= 0)
     isi = (t - state.last_spike_t).to(torch.float32)
+
+    # (6) the guard's verdict per shard: the invariants of the fresh
+    # state, the halo checksums and the AER saturation run
+    new_guard = None
+    if gcfg.enabled:
+        tr = new_plastic.traces if new_plastic is not None else None
+        code = integrity.step_verdict(
+            gcfg, v=lif.v, spikes=spikes,
+            x_pre=None if tr is None else tr.x_pre,
+            x_post=None if tr is None else tr.x_post,
+            kernel_flags=gflags, tenants=math.prod(lead))
+        chk_fail, chk_count = hguard.verdict()
+        new_guard = integrity.guard_update(
+            gcfg, state.guard, step_code=code, t=t, aer_sat=aer_sat,
+            chk_fail=chk_fail, chk_count=chk_count)
     return DistState(
         lif=LIFState(*(x.reshape(state.lif.v.shape) for x in lif)),
         hist_ext=hist_ext,
@@ -797,6 +852,7 @@ def dist_step(cfg: DPSNNConfig, params: NetworkParams, state: DistState, *,
         isi_sumsq=state.isi_sumsq + per_shard(
             torch.where(contrib, isi * isi, 0.0)),
         isi_count=state.isi_count + per_shard(contrib).to(torch.float32),
+        guard=new_guard,
     )
 
 
@@ -826,8 +882,25 @@ def _total(mesh, x: torch.Tensor) -> torch.Tensor:
     return mesh.all_sum(x.to(torch.float64).sum(0)).to(torch.float32)
 
 
+def stack_from_host(stack: DistState, mesh) -> DistState:
+    """The mesh's local shards (``mesh.shards``, process-major) of a
+    host stack of every shard, (S, ...) numpy leaves (a checkpoint's, or
+    :func:`stack_to_host`'s), as a stacked state on the mesh's device."""
+    idx = list(mesh.shards)
+    state = map_leaves(lambda x: torch.from_numpy(np.ascontiguousarray(
+        np.asarray(x)[idx])).to(mesh.device), stack)
+    return state._replace(t=state.t.cpu())
+
+
+def stack_to_host(state: DistState, mesh) -> DistState:
+    """Every shard's leaves, (S, ...) numpy in process-major order, on
+    every process (``mesh.gather``): the stack a checkpoint holds."""
+    return map_leaves(lambda x: mesh.gather(x).cpu().numpy(), state)
+
+
 def make_distributed_run(cfg: DPSNNConfig, mesh, *, n_steps: int,
                          impl: str = "cuda_fused", with_state: bool = False,
+                         replicate_state: bool = False,
                          params: NetworkParams | None = None):
     """``(run, spec)``. ``run()`` initialises the stacked state and
     simulates ``n_steps``; ``run(state)`` continues from a stacked state
@@ -837,7 +910,15 @@ def make_distributed_run(cfg: DPSNNConfig, mesh, *, n_steps: int,
     here, once, from the seed (or taken from ``params``, a
     :func:`build_shard` of the same mesh). Under ``cfg.stdp`` a fresh
     run starts its live weights from them; ``run(state)`` takes the
-    weights of ``state.plastic``."""
+    weights of ``state.plastic``.
+
+    With ``replicate_state`` (the reference's flag of
+    ``make_distributed_resume``) the state on both sides is the host
+    stack of every shard of the grid, (S, ...) numpy leaves in
+    process-major order (:func:`stacked_state_template`'s layout, a
+    checkpoint's): ``run(stack)`` runs this process's shards of it, and
+    ``run`` returns ``(DistResult, stack)`` with the final stack gathered
+    on every process (:func:`stack_to_host`)."""
     net.check_supported(cfg, impl, mesh=True)
     spec = make_tile_spec(cfg, *mesh.shape)
     assert_axis_sizes(spec, mesh)
@@ -857,6 +938,8 @@ def make_distributed_run(cfg: DPSNNConfig, mesh, *, n_steps: int,
     def run(state: DistState | None = None):
         if state is None:
             state = init_shard(cfg, spec, stencil, mesh, params)
+        elif replicate_state:      # fresh tensors of this process's shards
+            state = stack_from_host(state, mesh)
         else:      # the run writes its own copy of the ring
             state = state._replace(hist_ext=state.hist_ext.clone())
         step_spikes, step_sat = [], []
@@ -882,6 +965,8 @@ def make_distributed_run(cfg: DPSNNConfig, mesh, *, n_steps: int,
             aer_saturated=mesh.all_max(sat.to(torch.int32)),
             rate_trace=trace * per_step,
         )
+        if replicate_state:
+            return res, stack_to_host(state, mesh)
         return (res, state) if with_state else res
 
     return run, spec
@@ -951,6 +1036,12 @@ def make_batched_distributed_run(cfg: DPSNNConfig, mesh, *, n_steps: int,
             "the batched multi-tenant runner does not support the "
             "hierarchical ('ndata','data','nmodel','model') mesh — run "
             "tenants on a flat spatial mesh, or drop --ranks-per-node")
+    if cfg.guard.enabled:
+        raise NotImplementedError(
+            "guard: the batched service over a shard mesh runs without the "
+            "integrity guard (a guarded batched mesh waits for ROADMAP "
+            "queue 1 item 7); the single-tenant mesh and the single-card "
+            "service run it")
     tenants = local_tenants(mesh, batch)
     net.check_supported(cfg, impl, mesh=True)
     spec = make_tile_spec(cfg, *mesh.shape)
@@ -1018,3 +1109,63 @@ def make_batched_distributed_run(cfg: DPSNNConfig, mesh, *, n_steps: int,
         return res, map_leaves(lambda x: x.transpose(0, 1), state)
 
     return run, spec
+
+
+# ---------------------------------------------------------------------------
+# The checkpointed stack's template
+# ---------------------------------------------------------------------------
+
+def _state_structure(cfg: DPSNNConfig, leaf) -> DistState:
+    """A :class:`DistState` with ``leaf(name)`` at each leaf a run of
+    ``cfg`` carries (the plastic ones under STDP, ``trace_ext`` under
+    AER, ``ext_pending`` pipelined, the guard's under the guard), in the
+    reference's order."""
+    plastic = None
+    if cfg.stdp:
+        aer = cfg.conn.exchange_mode == "aer_sparse"
+        plastic = PlasticState(
+            w_local=leaf("w_local"), rem_w=leaf("rem_w"),
+            traces=STDPState(x_pre=leaf("x_pre"), x_post=leaf("x_post")),
+            trace_ext=leaf("trace_ext") if aer else None)
+    return DistState(
+        lif=LIFState(v=leaf("v"), c=leaf("c"), refrac=leaf("refrac")),
+        hist_ext=leaf("hist_ext"), pending=leaf("pending"), t=leaf("t"),
+        spike_count=leaf("spike_count"), event_count=leaf("event_count"),
+        plastic=plastic, aer_sat=leaf("aer_sat"),
+        ext_pending=leaf("ext_pending") if cfg.exchange.pipelined else None,
+        last_spike_t=leaf("last_spike_t"), isi_sum=leaf("isi_sum"),
+        isi_sumsq=leaf("isi_sumsq"), isi_count=leaf("isi_count"),
+        guard=(GuardState(**{f: leaf(f) for f in GuardState._fields})
+               if cfg.guard.enabled else None))
+
+
+def stacked_state_template(cfg: DPSNNConfig, n_ranks: int):
+    """``(template, spec, stencil)`` of a checkpointed run on ``n_ranks``
+    processes (the reference's function of the same name):
+    ``template`` is a :class:`DistState` of host numpy zeros with the
+    shard-stacked global shapes (S, ...) that ``make_distributed_run(...,
+    replicate_state=True)`` takes and gives, the ``tree_like`` a restore
+    checks a checkpoint against and the layout ``checkpointer.reshard``
+    maps between rank counts. No synapse is built."""
+    spec = make_rank_tile_spec(cfg, n_ranks)
+    stencil = build_stencil(cfg)
+    s = spec.tiles_y * spec.tiles_x
+    c, n, r = spec.columns_per_tile, cfg.neurons_per_column, spec.radius
+    ext = (s, spec.tile_h + 2 * r, spec.tile_w + 2 * r, n)
+    f32, i32 = np.float32, np.int32
+    dt, wdt = np.dtype(cfg.dtype), np.dtype(cfg.weight_dtype)
+    shapes = dict(
+        v=((s, c, n), dt), c=((s, c, n), dt), refrac=((s, c, n), i32),
+        hist_ext=((s, stencil.max_delay + 1, *ext[1:]), dt),
+        pending=((s, spec.tile_h, spec.tile_w, n), dt),
+        t=((s,), i32), spike_count=((s,), f32), event_count=((s,), f32),
+        w_local=((s, c, n, n), wdt), rem_w=((s, c, n, stencil.k_total), wdt),
+        x_pre=((s, c, n), dt), x_post=((s, c, n), dt), trace_ext=(ext, dt),
+        aer_sat=((s,), np.bool_), ext_pending=(ext, dt),
+        last_spike_t=((s, c, n), i32), isi_sum=((s,), f32),
+        isi_sumsq=((s,), f32), isi_count=((s,), f32),
+        tripped=((s,), np.bool_), trip_code=((s,), i32),
+        trip_step=((s,), i32), sat_run=((s,), i32),
+        checksum_fails=((s,), i32))
+    template = _state_structure(cfg, lambda name: np.zeros(*shapes[name]))
+    return template, spec, stencil

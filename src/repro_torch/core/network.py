@@ -87,11 +87,6 @@ def check_supported(cfg: DPSNNConfig, impl: str, *,
             "pipelined: the cross-step pipelined halo exchange belongs to "
             "the multi-rank step (core/exchange.py); a single shard has no "
             "halo to pipeline")
-    if mesh and cfg.guard.enabled:
-        raise NotImplementedError(
-            "guard: the multi-rank guard (HaloGuard, checksummed halo "
-            "frames) waits for ROADMAP queue 1 item 6; the single-shard "
-            "step runs it")
     if cfg.dtype != "float32" or cfg.weight_dtype != "float32":
         raise NotImplementedError(
             f"dtype {cfg.dtype} / weight_dtype {cfg.weight_dtype}: this "

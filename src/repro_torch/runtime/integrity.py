@@ -12,9 +12,15 @@ verdict and an update per tenant. Under
 ``impl='cuda_fused'`` the NaN and bounds checks of ``v`` come as
 per-column flags from ``fused_step``'s epilogue.
 
-Trip codes are a bitmask, so one int32 reports compound failures. The
-halo-frame checksums (``frame_checksum``, ``HaloGuard``) belong to the
-halo exchange and come with the multi-rank slice of the port.
+On a mesh (``core/exchange.py``) the leaves are (S,), one verdict per
+local shard, and :class:`HaloGuard` frames every halo message of a step
+with a position-weighted checksum word (:func:`frame_checksum`),
+verified on receive: one frame per shard's message, so a corrupt word
+trips the shard that received it. Its chaos bit flip corrupts one
+received word at a fixed send ordinal and step, as the reference's
+does.
+
+Trip codes are a bitmask, so one int32 reports compound failures.
 """
 from __future__ import annotations
 
@@ -64,27 +70,125 @@ class GuardState(NamedTuple):
     checksum_fails: torch.Tensor  # int32 corrupt halo frames observed
 
 
-def init_guard(device="cpu") -> GuardState:
+def init_guard(device="cpu", shape: tuple = ()) -> GuardState:
+    """A clean guard; ``shape`` (S,) gives one per shard of a mesh."""
     def scalar(value, dtype=torch.int32):
-        return torch.full((), value, dtype=dtype, device=device)
+        return torch.full(shape, value, dtype=dtype, device=device)
     return GuardState(tripped=scalar(False, torch.bool), trip_code=scalar(0),
                       trip_step=scalar(-1), sat_run=scalar(0),
                       checksum_fails=scalar(0))
 
 
+_MASK = 0xFFFFFFFF
+_POSITIONS: dict = {}       # (n, device) -> the int64 weights 1..n
+
+
+def _positions(n: int, device) -> torch.Tensor:
+    key = (n, str(device))
+    if key not in _POSITIONS:
+        _POSITIONS[key] = torch.arange(1, n + 1, dtype=torch.int64,
+                                       device=device)
+    return _POSITIONS[key]
+
+
+def _checksum64(words: torch.Tensor) -> torch.Tensor:
+    """``sum((i+1) * word_i) mod 2**32`` over the last axis, int64. An
+    int32 word and its unsigned reading agree mod 2**32, so the signed
+    product (below 2**62) needs no mask first; each product is cut to 32
+    bits, so the sum of fewer than 2**31 of them stays in int64."""
+    idx = _positions(words.shape[-1], words.device)
+    return ((words.to(torch.int64) * idx) & _MASK).sum(-1) & _MASK
+
+
+def frame_checksum(words: torch.Tensor) -> torch.Tensor:
+    """Position-weighted modular checksum ``sum((i+1) * word_i) mod 2**32``
+    of the 32-bit words along the last axis of ``words`` (int32, read as
+    unsigned), as int32 holding the reference's uint32 bits: one checksum
+    per leading index."""
+    s = _checksum64(words)
+    return ((s ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+class HaloGuard:
+    """One step's checksum accumulator for the halo exchange of ``shards``
+    local shards at host step ``t``.
+
+    :meth:`wrap` turns a transport's ``move(x, axis, direction)`` (a
+    stack of messages, one per index of the (rows, cols) stack axes in
+    front of ``x``) into a framed one: each message's 32-bit words gain a
+    checksum word, the frames move, the chaos flip lands on the received
+    frames (send ordinal ``chaos_flip_ring`` at step ``chaos_flip_step``:
+    bit 0 of word ``chaos_flip_word % n_words`` of every received frame,
+    the zero frame at the sheet's edge too), and each is verified.
+    :meth:`verdict` gives the step's (shards,) failures and counts. A
+    message that is not 32-bit words cannot be framed and raises."""
+
+    def __init__(self, gcfg: GuardConfig, t: int, shards: int, device):
+        self.gcfg = gcfg
+        self.t = t
+        self._none = torch.zeros(shards, dtype=torch.int32, device=device)
+        self._groups = []     # per wrapped move: its verdicts, to_shards
+        self._send_ordinal = 0
+
+    def wrap(self, move, to_shards=None):
+        """``move`` framed; ``to_shards`` maps a (rows, cols) count of
+        corrupt frames to the (shards,) one (default: flattened, one
+        message per shard)."""
+        if not self.gcfg.halo_checksum:
+            return move
+        gcfg = self.gcfg
+        bads = []
+        self._groups.append((bads, to_shards))
+
+        def framed(x: torch.Tensor, axis: int, direction: int):
+            if x.element_size() != 4:
+                raise ValueError(
+                    f"HaloGuard frames 32-bit words; a {x.dtype} halo "
+                    f"message cannot be framed")
+            ordinal = self._send_ordinal
+            self._send_ordinal += 1
+            words = x.view(torch.int32).reshape(*x.shape[:2], -1)
+            n = words.shape[-1]
+            msg = torch.cat([words, frame_checksum(words)[..., None]], -1)
+            recv = move(msg, axis, direction)
+            if ordinal == gcfg.chaos_flip_ring and self.t == \
+                    gcfg.chaos_flip_step:
+                recv = recv.clone()
+                recv[..., gcfg.chaos_flip_word % n] ^= 1
+            payload = recv[..., :n]
+            bads.append(_checksum64(payload)
+                        != recv[..., n].to(torch.int64) & _MASK)
+            return payload.view(x.dtype).reshape(x.shape)
+
+        return framed
+
+    def verdict(self):
+        """``(fail, count)``: (shards,) bool and int32, whether and how
+        many corrupt frames each shard received this step."""
+        count = self._none
+        for bads, to_shards in self._groups:
+            if bads:
+                n = torch.stack(bads).sum(0, dtype=torch.int32)
+                count = count + (n.reshape(-1) if to_shards is None
+                                 else to_shards(n))
+        return count > 0, count
+
+
 def inject_nan(gcfg: GuardConfig, t, v: torch.Tensor,
-               chaos_step=None) -> torch.Tensor:
+               chaos_step=None, shards: int = 1) -> torch.Tensor:
     """Poison the first membrane voltage with NaN at step ``chaos_step``
-    (``gcfg.chaos_nan_at_step`` when None). ``t`` is the host step counter,
-    or the (B,) step counters of B tenants on the device with ``v`` of
-    (B, ...) and ``chaos_step`` (B,): then each tenant's first voltage is
-    poisoned at its own step, on the device."""
+    (``gcfg.chaos_nan_at_step`` when None). ``t`` is the host step counter
+    (with ``shards`` S, ``v`` holds S shards' rows and each shard's first
+    voltage is poisoned, as the reference poisons every shard's), or the
+    (B,) step counters of B tenants on the device with ``v`` of (B, ...)
+    and ``chaos_step`` (B,): then each tenant's first voltage is poisoned
+    at its own step, on the device."""
     step = gcfg.chaos_nan_at_step if chaos_step is None else chaos_step
     if not isinstance(t, torch.Tensor):
         if t != step:
             return v
         v = v.clone()
-        v.view(-1)[0] = float("nan")
+        v.view(shards, -1)[:, 0] = float("nan")
         return v
     flat = v.reshape(t.shape[0], -1)
     first = torch.where(t == step, float("nan"), flat[:, 0])
@@ -135,18 +239,28 @@ def step_verdict(gcfg: GuardConfig, *, v: torch.Tensor, spikes: torch.Tensor,
 
 def guard_update(gcfg: GuardConfig, gs: GuardState, *,
                  step_code: torch.Tensor, t,
-                 aer_sat: torch.Tensor | None = None) -> GuardState:
+                 aer_sat: torch.Tensor | None = None,
+                 chk_fail: torch.Tensor | None = None,
+                 chk_count: torch.Tensor | None = None) -> GuardState:
     """Fold one step's verdict into the carried :class:`GuardState`.
-    ``aer_sat`` (bool scalar) escalates to ``TRIP_AER_SAT`` after
-    ``gcfg.aer_sat_trip_steps`` consecutive saturated steps. ``t`` is the
-    host step counter; B tenants' guards are one GuardState of (B,)
-    leaves, updated with their (B,) verdicts and (B,) step counters."""
+    ``aer_sat`` (bool) escalates to ``TRIP_AER_SAT`` after
+    ``gcfg.aer_sat_trip_steps`` consecutive saturated steps; ``chk_fail``
+    and ``chk_count`` (a :class:`HaloGuard`'s :meth:`~HaloGuard.verdict`)
+    trip ``TRIP_CHECKSUM`` and add to ``checksum_fails``. ``t`` is the host
+    step counter; B tenants' guards (or S shards') are one GuardState of
+    (B,) leaves, updated with their (B,) verdicts (and, for tenants, (B,)
+    step counters)."""
     code = step_code.to(torch.int32)
     sat_run = gs.sat_run
     if aer_sat is not None:
         sat_run = torch.where(aer_sat, gs.sat_run + 1, 0).to(torch.int32)
         code = code | torch.where(sat_run >= gcfg.aer_sat_trip_steps,
                                   TRIP_AER_SAT, 0).to(torch.int32)
+    if chk_fail is not None:
+        code = code | torch.where(chk_fail, TRIP_CHECKSUM, 0).to(torch.int32)
+    fails = gs.checksum_fails
+    if chk_count is not None:
+        fails = fails + chk_count
     tripped_now = code != 0
     first = tripped_now & ~gs.tripped
     return GuardState(
@@ -156,7 +270,7 @@ def guard_update(gcfg: GuardConfig, gs: GuardState, *,
             first, t if isinstance(t, torch.Tensor) else int(t),
             gs.trip_step),
         sat_run=sat_run,
-        checksum_fails=gs.checksum_fails,
+        checksum_fails=fails,
     )
 
 
@@ -166,8 +280,9 @@ def tenant_guard(gs: GuardState, b: int) -> GuardState:
 
 
 def guard_report(gs: GuardState) -> dict:
-    """Host-side summary of a GuardState (reads the device); of one
-    tenant's, :func:`tenant_guard`."""
+    """Host-side summary of a GuardState (reads the device), of a mesh's
+    (S,) leaves, or of their numpy copies; of one tenant's,
+    :func:`tenant_guard`."""
     code = int(gs.trip_code.max())
     return {
         "guard_tripped": bool(gs.tripped.any()),

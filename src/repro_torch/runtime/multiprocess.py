@@ -24,6 +24,15 @@ processes (the port of ``repro/runtime/multiprocess.py``).
 * ``--stdp`` runs the plastic step: the pre-trace halo rides every wire
   beside the spikes, and with ``--state-dir`` each rank saves its live
   weights and traces with the rest of its state.
+* ``--checkpoint-every K --ckpt-dir DIR`` runs supervised
+  (:func:`worker_run_supervised`, driven by the launcher's
+  ``--supervise``): chunks between checkpoints, heartbeats, a restore
+  (resharded when the rank count changed) from the latest checkpoint,
+  and the chaos flags that kill a rank (``--chaos-kill-rank``,
+  ``--chaos-at-step``) or corrupt the run (``--chaos-flip-bit``,
+  ``--chaos-nan-at-step``, with ``--guard``, which frames every halo
+  message with a checksum and exits with ``integrity.GUARD_EXIT_CODE``
+  when the guard trips).
 * ``--batch B`` runs the batched multi-tenant service over the ranks
   (:func:`worker_run_batched`): B tenants of seeds ``seed .. seed+B-1``
   share the network, and ``--batch-shards K`` splits the ranks
@@ -118,6 +127,210 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _dir_bytes(path: str) -> int:
+    """Bytes of the files directly under ``path`` (0 if it is missing)."""
+    try:
+        return sum(e.stat().st_size for e in os.scandir(path) if e.is_file())
+    except FileNotFoundError:
+        return 0
+
+
+def _write_heartbeat(hb_dir: str, rank: int, step: int, *,
+                     step_ewma_s: float | None = None,
+                     straggler: bool = False) -> None:
+    """Publish this rank's progress atomically (``hb_dir/rank<r>.json``,
+    written then renamed, so a kill mid-write never leaves torn JSON):
+    the supervisor reads the furthest step for its ``lost_steps``, and
+    the watchdog's verdict (``step_ewma_s``, ``straggler``) names a slow
+    rank."""
+    os.makedirs(hb_dir, exist_ok=True)
+    path = os.path.join(hb_dir, f"rank{rank}.json")
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump({"rank": rank, "step": step, "pid": os.getpid(),
+                   "wall": time.time(), "step_ewma_s": step_ewma_s,
+                   "straggler": bool(straggler)}, f)
+    os.replace(tmp, path)
+
+
+def worker_run_supervised(cfg, total_steps: int, *, checkpoint_every: int,
+                          ckpt_dir: str, impl: str = "cuda_fused",
+                          compress: bool = True, device="cuda",
+                          chaos_kill_rank: int = -1,
+                          chaos_at_step: int = -1) -> dict:
+    """Supervised run on the ranks (the reference's function of the same
+    name): chunks whose boundaries are the multiples of
+    ``checkpoint_every``, ``chaos_at_step`` and ``total_steps`` (the same
+    on every rank), with a heartbeat at each boundary.
+
+    Between chunks every rank holds the whole stacked state on the host
+    (``make_distributed_run(..., replicate_state=True)``, a gloo
+    all-gather), so rank 0 saves it whole in the reference's format and
+    any rank set restores it: a checkpoint written by another rank count
+    is restored for the writer's tiling and re-tiled through
+    ``checkpointer.reshard``. The counters ride the state as exact
+    per-shard partial sums, so a resumed (even resized) run's totals are
+    the uninterrupted run's.
+
+    ``chaos_kill_rank`` SIGKILLs itself at boundary ``chaos_at_step``,
+    after its heartbeat and before any save there. Under the guard a
+    tripped verdict (every rank sees the same gathered guard) aborts
+    with ``integrity.GUARD_EXIT_CODE`` before the poisoned range is
+    saved; each injection step (``chaos_flip_step``,
+    ``chaos_nan_at_step``) gets a boundary one step later. A
+    ``StragglerWatchdog`` observes each chunk's per-step wall time. The
+    row has the reference's keys and no ``step_ms``: its wall time
+    includes the checkpoint IO; ``save_s`` times rank 0's saves and
+    ``checkpoint_bytes`` is the final checkpoint's size on disk."""
+    import signal
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.core import exchange
+    from repro_torch.core.partition import make_tile_spec
+    from repro_torch.runtime import integrity
+    from repro_torch.runtime.fault_tolerance import (CheckpointPolicy,
+                                                     StragglerWatchdog)
+    from repro_torch.runtime.transport import ProcessGroupMesh
+
+    mesh = ProcessGroupMesh(device, compress=compress)
+    _share_cores(mesh.device)
+    rank, n_ranks = dist.get_rank(), dist.get_world_size()
+    spec = make_tile_spec(cfg, *mesh.shape)
+    hb_dir = os.path.join(ckpt_dir, "hb")
+    meta = {"mesh": [spec.tiles_y, spec.tiles_x], "n_ranks": n_ranks,
+            "grid": [cfg.grid_h, cfg.grid_w], "stdp": cfg.stdp,
+            "total_steps": total_steps}
+    params = exchange.build_shard(cfg, spec, mesh)
+
+    def runner(n):
+        return exchange.make_distributed_run(
+            cfg, mesh, n_steps=n, impl=impl, replicate_state=True,
+            params=params)[0]
+
+    # ---- restore (across a change of rank count too) ------------------
+    start, resumed_from, stacked = 0, -1, None
+    saved_step = ckpt.latest_step(ckpt_dir)
+    if saved_step is not None:
+        man = ckpt.load_manifest(ckpt_dir, saved_step)
+        tpl, saved_spec, _ = exchange.stacked_state_template(
+            cfg, man["meta"]["n_ranks"])
+        if tuple(man["meta"]["mesh"]) == (spec.tiles_y, spec.tiles_x):
+            stacked, start = ckpt.restore(
+                ckpt_dir, tpl, saved_step,
+                expect_mesh=(spec.tiles_y, spec.tiles_x))
+        else:
+            # restore for the writer's tiling, then re-tile for ours
+            stacked, start = ckpt.restore(ckpt_dir, tpl, saved_step)
+            stacked = ckpt.reshard(stacked, saved_spec, spec)
+        resumed_from = start
+    if stacked is None:
+        _, stacked = runner(0)()
+
+    # ---- the chunk schedule, the same on every rank --------------------
+    bounds = set(range(checkpoint_every, total_steps, checkpoint_every))
+    if start < chaos_at_step < total_steps:
+        bounds.add(chaos_at_step)
+    gcfg = cfg.guard
+    if gcfg.enabled:
+        # the guard latches at the corrupt step; abort one step later
+        for cs in (gcfg.chaos_flip_step, gcfg.chaos_nan_at_step):
+            if start <= cs < total_steps:
+                bounds.add(cs + 1)
+    bounds.add(total_steps)
+    bounds = [b for b in sorted(bounds) if b > start]
+
+    runners = {}
+    policy = CheckpointPolicy(ckpt_dir, every_steps=checkpoint_every,
+                              async_save=False, meta=meta)
+    watchdog = StragglerWatchdog()
+    save_s = []            # rank 0's seconds per save
+    wall0 = time.perf_counter()
+    cur = start
+    _write_heartbeat(hb_dir, rank, cur)
+    for b in bounds:
+        t0 = time.perf_counter()
+        if b - cur not in runners:
+            runners[b - cur] = runner(b - cur)
+        _, stacked = runners[b - cur](stacked)
+        straggler = watchdog.observe(
+            b, (time.perf_counter() - t0) / max(b - cur, 1))
+        cur = b
+        _write_heartbeat(hb_dir, rank, cur, step_ewma_s=watchdog.ewma,
+                         straggler=straggler)
+        # the verdict gates the save: some state since the last clean
+        # checkpoint is poisoned, so abort and let the supervisor roll
+        # back; every rank holds the same gathered guard
+        if gcfg.enabled and bool(stacked.guard.tripped.any()):
+            if rank == 0:
+                rep = integrity.guard_report(stacked.guard)
+                print("DPSNN-GUARD " + json.dumps(rep, sort_keys=True),
+                      file=sys.stderr, flush=True)
+            sys.exit(integrity.GUARD_EXIT_CODE)
+        if rank == chaos_kill_rank and cur == chaos_at_step:
+            os.kill(os.getpid(), signal.SIGKILL)
+        if rank == 0:
+            s0 = time.perf_counter()
+            saved = policy.maybe_save(cur, stacked)
+            if not saved and cur == total_steps:
+                os.makedirs(ckpt_dir, exist_ok=True)
+                ckpt.save(ckpt_dir, cur, stacked, meta=meta)
+                saved = True
+            if saved:
+                save_s.append(time.perf_counter() - s0)
+    wall_s = time.perf_counter() - wall0
+
+    # ---- metrics from the gathered final state -------------------------
+    # the counters are per-shard partial sums since t = 0 (they ride the
+    # checkpoint), so the totals cover the whole run
+    def total(x):
+        return float(np.sum(np.asarray(x, np.float64)))
+
+    spikes, events = total(stacked.spike_count), total(stacked.event_count)
+    isi_n = total(stacked.isi_count)
+    isi_mean = total(stacked.isi_sum) / isi_n if isi_n else 0.0
+    isi_var = (max(total(stacked.isi_sumsq) / isi_n - isi_mean ** 2, 0.0)
+               if isi_n else 0.0)
+    isi_cv = (isi_var ** 0.5) / isi_mean if isi_mean else 0.0
+    sim_s = total_steps * cfg.neuron.dt_ms * 1e-3
+    guard_row = {"guard": gcfg.enabled,
+                 "straggler_steps": watchdog.stragglers,
+                 "step_ewma_s": watchdog.ewma or 0.0}
+    if gcfg.enabled:
+        guard_row.update(integrity.guard_report(stacked.guard))
+    return {
+        **guard_row,
+        "rank_count": n_ranks,
+        "process_grid": list(mesh.shape),
+        "grid": f"{cfg.grid_h}x{cfg.grid_w}",
+        "neurons": cfg.n_neurons,
+        "tile": f"{spec.tile_h}x{spec.tile_w}",
+        "steps": total_steps,
+        "wall_s": wall_s,
+        "spikes": spikes,
+        "events": events,
+        "rate_hz": spikes / (cfg.n_neurons * sim_s),
+        "isi_mean_steps": isi_mean,
+        "isi_cv": isi_cv,
+        "resumed_from_step": resumed_from,
+        "checkpoint_every": checkpoint_every,
+        # rank 0's saves in this attempt, and the last one's size
+        "save_s": save_s,
+        "checkpoint_bytes": _dir_bytes(os.path.join(
+            ckpt_dir, f"step_{total_steps:09d}")),
+        "supervised": True,
+        "impl": impl,
+        "compress": compress,
+        "stdp": cfg.stdp,
+        "pipelined": cfg.exchange.pipelined,
+        "exchange_mode": cfg.conn.exchange_mode,
+        "device": (torch.cuda.get_device_name(mesh.device)
+                   if mesh.device.type == "cuda" else "cpu"),
+    }
+
+
 def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
                compress: bool = True, device="cuda",
                state_dir: str = "", ranks_per_node: int = 0) -> dict:
@@ -125,7 +338,8 @@ def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
     ``ranks_per_node``, in node groups under the hierarchical exchange);
     return the paper's metrics (totals all-reduced, so every rank returns
     the same), with the byte split of the node level under
-    ``ranks_per_node`` (``compression.hier_payload_bytes``).
+    ``ranks_per_node`` (``compression.hier_payload_bytes``) and, under
+    the guard, every shard's verdict (``integrity.guard_report``).
 
     Timing: one untimed run warms the card and the connections; then one
     run is timed end to end (every rank waits for the all-reduced
@@ -137,7 +351,9 @@ def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
     import torch.distributed as dist
 
     from repro_torch.core import exchange
+    from repro_torch.core.batched import map_leaves
     from repro_torch.kernels import ops
+    from repro_torch.runtime import integrity
     from repro_torch.runtime.compression import (halo_payload_bytes,
                                                  hier_payload_bytes)
     from repro_torch.runtime.transport import ProcessGroupMesh
@@ -189,10 +405,15 @@ def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
         payload = halo_payload_bytes(cfg, spec, mode=acct_mode,
                                      compress=compress)
     sat = res.aer_saturated.cpu()
+    guard_row = {}
+    if cfg.guard.enabled:      # every shard's verdict, on every rank
+        guard_row = integrity.guard_report(map_leaves(
+            lambda x: mesh.gather(x).numpy(), final.guard))
     return {
         "rank_count": dist.get_world_size(),
         "process_grid": list(mesh.shape),
         **hier_row,
+        **guard_row,
         "grid": f"{cfg.grid_h}x{cfg.grid_w}",
         "neurons": cfg.n_neurons,
         "syn_equiv": cfg.total_equivalent_synapses,
@@ -342,7 +563,8 @@ def worker_run_batched(cfg, n_steps: int, *, batch: int,
 
 def build_cfg(args):
     """The workload's config from :func:`add_workload_args`' flags."""
-    from repro_torch.configs.base import DPSNNConfig, ExchangeConfig
+    from repro_torch.configs.base import (DPSNNConfig, ExchangeConfig,
+                                          GuardConfig)
     from repro_torch.configs.dpsnn import with_family
 
     gh, gw = (int(v) for v in args.grid.split("x"))
@@ -373,13 +595,34 @@ def build_cfg(args):
             pipelined=args.pipelined,
             exchange_mode=("auto" if args.exchange_mode == "auto"
                            else "inherit")))
+    if args.guard:
+        cfg = dataclasses.replace(cfg, guard=GuardConfig(enabled=True))
     return cfg
+
+
+def with_chaos(cfg, flip_bit: str = "", nan_at_step: int = -1):
+    """``cfg``'s guard with the worker's integrity chaos: ``flip_bit``
+    ``"RING:STEP:WORD"`` and ``nan_at_step`` (kept out of
+    :func:`build_cfg`, so that the single-process reference is built
+    without them). Raises ValueError for a malformed ``flip_bit``."""
+    kw = {}
+    if flip_bit:
+        try:
+            ring, fstep, word = (int(v) for v in flip_bit.split(":"))
+        except ValueError:
+            raise ValueError("--chaos-flip-bit wants RING:STEP:WORD "
+                             "(three integers)") from None
+        kw.update(chaos_flip_ring=ring, chaos_flip_step=fstep,
+                  chaos_flip_word=word)
+    if nan_at_step >= 0:
+        kw["chaos_nan_at_step"] = nan_at_step
+    return dataclasses.replace(cfg, guard=dataclasses.replace(cfg.guard,
+                                                              **kw))
 
 
 def add_workload_args(ap: argparse.ArgumentParser) -> None:
     """Workload flags shared by the worker and the launcher CLIs (static
-    or, with ``--stdp``, plastic; the guard waits for ROADMAP queue 1
-    item 6)."""
+    or, with ``--stdp``, plastic; with ``--guard``, guarded)."""
     from repro_torch.core.network import IMPLS
 
     ap.add_argument("--grid", default="8x8", help="column grid HxW")
@@ -424,6 +667,32 @@ def add_workload_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--batch-shards", type=int, default=1,
                     help="shard the tenant axis over this many process "
                          "groups (must divide --batch and the rank count)")
+    ap.add_argument("--guard", action="store_true",
+                    help="the in-band integrity guard: invariant monitors "
+                         "and checksummed halo frames (bitwise neutral "
+                         "on a healthy run)")
+
+
+def add_chaos_args(ap: argparse.ArgumentParser) -> None:
+    """The supervised mode's flags and its chaos (the worker's; the
+    launcher adds its own help)."""
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="supervised mode: checkpoint cadence in steps "
+                         "(0 = plain unsupervised run)")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="supervised mode: checkpoint and heartbeat dir")
+    ap.add_argument("--chaos-kill-rank", type=int, default=-1,
+                    help="fault injection: this rank SIGKILLs itself ...")
+    ap.add_argument("--chaos-at-step", type=int, default=-1,
+                    help="... at this chunk boundary")
+    ap.add_argument("--chaos-flip-bit", default="",
+                    metavar="RING:STEP:WORD",
+                    help="integrity chaos: XOR one bit into the received "
+                         "payload of halo send ordinal RING at step STEP, "
+                         "word WORD (requires --guard)")
+    ap.add_argument("--chaos-nan-at-step", type=int, default=-1,
+                    help="integrity chaos: poison one membrane voltage "
+                         "with NaN at this step (requires --guard)")
 
 
 def main(argv=None) -> int:
@@ -438,21 +707,41 @@ def main(argv=None) -> int:
     ap.add_argument("--timeout", type=float, default=900.0,
                     help="seconds a collective may wait before it raises")
     add_workload_args(ap)
+    add_chaos_args(ap)
     args = ap.parse_args(argv)
     if args.rank < 0 or args.nranks < 1 or not args.coordinator:
         ap.error("--rank/--nranks/--coordinator (or DPSNN_RANK/"
                  "DPSNN_NRANKS/DPSNN_COORDINATOR) are required")
-
-    if args.ranks_per_node and args.batch:
+    if args.checkpoint_every and not args.ckpt_dir:
+        ap.error("--checkpoint-every requires --ckpt-dir")
+    if args.ranks_per_node and (args.batch or args.checkpoint_every):
         ap.error("--ranks-per-node applies to the plain distributed run "
                  "only (not --batch / supervised mode)")
+    if args.checkpoint_every and args.batch:
+        ap.error("supervised mode does not support --batch yet")
 
     import torch.distributed as dist
 
     cfg = build_cfg(args)
+    if args.chaos_flip_bit or args.chaos_nan_at_step >= 0:
+        if not cfg.guard.enabled:
+            ap.error("--chaos-flip-bit / --chaos-nan-at-step require "
+                     "--guard")
+        try:
+            cfg = with_chaos(cfg, args.chaos_flip_bit,
+                             args.chaos_nan_at_step)
+        except ValueError as err:
+            ap.error(str(err))
     init_worker(args.rank, args.nranks, args.coordinator, args.timeout)
     try:
-        if args.batch:
+        if args.checkpoint_every:
+            out = worker_run_supervised(
+                cfg, args.steps, checkpoint_every=args.checkpoint_every,
+                ckpt_dir=args.ckpt_dir, impl=args.impl,
+                compress=args.compress, device=args.device,
+                chaos_kill_rank=args.chaos_kill_rank,
+                chaos_at_step=args.chaos_at_step)
+        elif args.batch:
             out = worker_run_batched(
                 cfg, args.steps, batch=args.batch,
                 batch_shards=args.batch_shards, impl=args.impl,

@@ -45,7 +45,11 @@ axes, ``(*local, b, ...)``: the moves cut the mesh axes only. A
 spatial grid of its own (``runtime/sharding.py``).
 
 Both reduce run totals with :meth:`all_sum` and the saturation flags
-with :meth:`all_max`, over every process. ``priced_compress`` is the
+with :meth:`all_max`, over every process, and :meth:`gather` stacks a
+leaf of every shard of the grid, in process-major order, on every
+process (the replicated state a checkpoint holds). :class:`GuardedWire`
+is a transport whose moves the integrity guard frames
+(``runtime/integrity.HaloGuard``). ``priced_compress`` is the
 wire the byte accounting prices (``exchange.resolve_ring_modes``): a
 ``LocalMesh`` stands for the packed rank wire whatever it moves
 in-process. Nothing here initialises a process group or touches a
@@ -211,6 +215,10 @@ class LocalMesh(_Transport):
     def all_max(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(S_local, ...) -> (S, ...): every shard is local already."""
+        return x
+
 
 class ProcessGroupMesh(_Transport):
     """One shard per process of the initialised default process group, on
@@ -358,3 +366,49 @@ class ProcessGroupMesh(_Transport):
         host = x.cpu().clone()
         dist.all_reduce(host, op=dist.ReduceOp.MAX)
         return host.to(x.device)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's (1, ...) leaf -> every rank's, (S, ...) in rank
+        (= process-major shard) order, on the host of every rank (gloo
+        all-gather; bool leaves cross as bytes)."""
+        if self.batch_shards != 1:
+            raise ValueError("gather stacks one spatial grid; the batched "
+                             "service's batch shards are not gathered")
+        host = x.cpu().contiguous()
+        wire = host.view(torch.uint8) if host.dtype == torch.bool else host
+        parts = [torch.empty_like(wire)
+                 for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, wire)
+        return torch.cat(parts).view(host.dtype)
+
+
+class GuardedWire:
+    """``mesh`` with every halo message framed by ``guard`` (a
+    ``runtime.integrity.HaloGuard``): ``move`` and ``node_move`` are the
+    guard's framed moves, and ``shift`` / ``node_shift`` pack around them,
+    so what is framed is the message on the wire (the packed words of a
+    packing transport). A node message's verdict counts on every lane of
+    the node, each of which receives it. The node gather is not framed,
+    as in the reference. Everything else is ``mesh``'s."""
+
+    def __init__(self, mesh, guard):
+        self.mesh = mesh
+        self.move = guard.wrap(mesh.move)
+        if mesh.node is not None:
+            (ly, lx), (ny, nx) = mesh.local, mesh.node_local
+
+            def lanes(count):
+                return count.repeat_interleave(ly // ny, 0).repeat_interleave(
+                    lx // nx, 1).reshape(-1)
+            self.node_move = guard.wrap(mesh.node_move, to_shards=lanes)
+
+    def __getattr__(self, name):
+        return getattr(self.mesh, name)
+
+    def shift(self, x: torch.Tensor, axis: int, direction: int
+              ) -> torch.Tensor:
+        return self.mesh._wire(self.move, x, axis, direction)
+
+    def node_shift(self, x: torch.Tensor, axis: int, direction: int
+                   ) -> torch.Tensor:
+        return self.mesh._wire(self.node_move, x, axis, direction)

@@ -513,3 +513,41 @@ def test_batched_mesh_equals_dedicated_runs(cuda_device, impl):
         assert torch.equal(res.rate_trace[i], one.rate_trace)
         assert torch.equal(columns_to_global(st.lif.v[:, i], spec),
                            one.state.lif.v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("node", [False, True], ids=["flat", "nodes"])
+def test_guarded_mesh_is_neutral_and_trips(cuda_device, node):
+    """A guarded 2x2 mesh of a 4x4x64 grid on the card (flat, and in
+    nodes of 1x2): one fused_step (its guard-flag instance over every
+    shard's rows) per step, spikes and v equal to the unguarded mesh to
+    the bit with no trip; a bit flipped on send 0 at step 7 trips every
+    shard at step 7 with the checksum code."""
+    import dataclasses
+
+    from repro_torch.core import exchange
+    from repro_torch.core.partition import make_node_spec
+    from repro_torch.runtime import integrity
+    from repro_torch.runtime.transport import LocalMesh
+    cfg = DPSNNConfig(grid_h=4, grid_w=4, neurons_per_column=64, seed=0)
+    mesh = LocalMesh(2, 2, cuda_device, compress=True,
+                     node=make_node_spec(2, 2, 2) if node else None)
+
+    def run(guard):
+        r, _ = exchange.make_distributed_run(
+            dataclasses.replace(cfg, guard=guard), mesh, n_steps=30,
+            impl="cuda_fused", with_state=True)
+        _build.reset_launches()
+        return r()
+
+    off_res, off = run(GuardConfig())
+    on_res, on = run(GuardConfig(enabled=True))
+    assert _build.LAUNCHES["fused_step"] == 30
+    assert float(on_res.spikes) == float(off_res.spikes) > 0
+    assert torch.equal(on.lif.v, off.lif.v)
+    assert not bool(on.guard.tripped.any())
+    assert int(on.guard.checksum_fails.max()) == 0
+    _, flip = run(GuardConfig(enabled=True, chaos_flip_ring=0,
+                              chaos_flip_step=7, chaos_flip_word=1))
+    assert bool((flip.guard.trip_step == 7).all())
+    assert bool((flip.guard.trip_code == integrity.TRIP_CHECKSUM).all())

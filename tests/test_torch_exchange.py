@@ -192,19 +192,25 @@ def test_payload_accounting_equals_reference(gh, gw, ry, rx, compress):
 
 
 def test_mesh_refusals_name_their_roadmap_items():
-    """The guard (item 6) is refused on a mesh, STDP no longer; an
-    unknown wire format or policy raises the reference's text."""
+    """A guarded mesh runs (item 6), static and plastic; the batched mesh
+    refuses the guard, naming item 7; an unknown wire format or policy
+    raises the reference's text."""
     from repro_torch.configs.base import GuardConfig
     base = dpsnn.reduced(4, 4, 16)
     mesh = LocalMesh(2, 2, "cpu")
-    ex.make_distributed_run(dataclasses.replace(base, stdp=True), mesh,
-                            n_steps=1)
-    for change, item in [(dict(guard=GuardConfig(enabled=True)), "item 6"),
+    for change in (dict(stdp=True), dict(guard=GuardConfig(enabled=True)),
+                   dict(stdp=True, guard=GuardConfig(enabled=True))):
+        run, _ = ex.make_distributed_run(dataclasses.replace(base, **change),
+                                         mesh, n_steps=1, with_state=True)
+        _, st = run()
+        assert (st.guard is not None) == ("guard" in change)
+    for change, item in [(dict(guard=GuardConfig(enabled=True)), "item 7"),
                          (dict(stdp=True, guard=GuardConfig(enabled=True)),
-                          "item 6")]:
+                          "item 7")]:
         with pytest.raises(NotImplementedError, match=item):
-            ex.make_distributed_run(dataclasses.replace(base, **change),
-                                    mesh, n_steps=1)
+            ex.make_batched_distributed_run(
+                dataclasses.replace(base, **change), mesh, n_steps=1,
+                batch=2)
     for change, text in [
             (dict(conn=dataclasses.replace(base.conn,
                                            exchange_mode="morse_code")),

@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package: every module of
-``repro_torch`` and ``chip_smoke.py`` (imported, not run) in a fresh
-interpreter leave no ``jax`` or ``repro`` module behind."""
+``repro_torch`` (the checkpointer and the fault-tolerance runtime of the
+durability slice among them) and ``chip_smoke.py`` (imported, not run)
+in a fresh interpreter leave no ``jax`` or ``repro`` module behind."""
 import os
 import pathlib
 import subprocess
@@ -33,6 +34,7 @@ bad = sorted(m for m in sys.modules
              if m in ('jax', 'repro', 'jaxlib')
              or m.startswith(('jax.', 'repro.', 'jaxlib.')))
 print('IMPORTED', len(names))
+print('NAMES', ' '.join(names))
 print('BAD', bad)
 """
 
@@ -48,3 +50,9 @@ def test_port_imports_no_jax_and_no_reference():
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("IMPORTED ")[1].split()[0])
     assert n >= 15, out.stdout
+    names = out.stdout.split("NAMES ")[1].split("\n")[0].split()
+    for module in ("repro_torch.checkpoint", "repro_torch.checkpoint."
+                   "checkpointer", "repro_torch.runtime.fault_tolerance",
+                   "repro_torch.runtime.multiprocess",
+                   "repro_torch.launch.launch_distributed"):
+        assert module in names, module

@@ -112,12 +112,14 @@ def test_real_ranks_batched_equal_dedicated_runs(tmp_path, capsys,
 @pytest.mark.parametrize("flags,item", [
     (["--batch", "3", "--batch-shards", "2"],
      "batch=3 tenants do not divide over the mesh's batch axis of 2 shards"),
-    (["--checkpoint-every", "2"], "item 6"),
-    (["--supervise"], "item 6")])
+    (["--checkpoint-every", "2", "--batch", "2"],
+     "supervised mode does not support --batch yet"),
+    (["--supervise"], "--supervise requires --checkpoint-every N")])
 def test_unported_flags_are_refused(flags, item):
-    """What waits for ROADMAP queue 1 item 6 names it; a tenant split the
-    batch shards do not divide is refused with the reference's text,
-    before any rank starts."""
+    """What the reference refuses is refused with its text before any
+    rank starts: a tenant split the batch shards do not divide, a
+    supervised batched run, and a supervisor with no checkpoint
+    cadence."""
     with pytest.raises(SystemExit, match=item):
         ld.main(["--ranks", "2", *flags, "--device", "cpu"])
 
