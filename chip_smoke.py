@@ -201,7 +201,7 @@ SOURCES["stdp_dense_update"] = "src/repro_torch/csrc/stdp_update.cu"
 SOURCES["stdp_remote_update"] = "src/repro_torch/csrc/stdp_remote.cu"
 # the device-side names of the port's kernels, in a profile
 PORT_KERNEL_RE = re.compile(
-    "(" + "|".join((*TPU_KERNELS, *PORT_KERNELS)) + ")_kernel")
+    "(" + "|".join((*TPU_KERNELS, *PORT_KERNELS)) + ")(_cluster)?_kernel")
 # rtol = atol = 1e-5; the relative part of a sum's error is taken against
 # the sum of its absolute terms (Smoke.close)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -243,6 +243,13 @@ SERVICE_WIDTHS = (1, 2, 4, 8)
 SERVICE_TIMED = 100
 SERVICE_PLASTIC_STEPS = (30, 50, 50, 40)
 TENANT_B = 4
+# the widths at which the tenant-axis ELL kernels are held to one launch
+# per tenant: the cluster path's clusters of 2, 3, 4 and 8 CTAs, and two
+# groups of 6
+TENANT_CHECK_WIDTHS = (2, 3, 4, 8, 12)
+# the {"kernels": ...} entry of fused_step's STDP-trace and guard-flag
+# instance over 6d's plastic tenants
+PLASTIC_FUSED = f"fused_step+stdp+guard[B={TENANT_B}]"
 # the kernels that take the tenant axis (lif_step runs on its rows as is)
 TENANT_KERNELS = ("keyed_drive", "synapse_matmul", "ell_gather",
                   "fused_step", "stdp_dense_update", "stdp_remote_update")
@@ -527,6 +534,7 @@ class Smoke:
         del params
 
         tenant = {f"{name}[B={TENANT_B}]": name for name in TENANT_KERNELS}
+        tenant[PLASTIC_FUSED] = "fused_step"
         names = {**{name: name for name in (*TPU_KERNELS, *PORT_KERNELS)},
                  **tenant}
         kernels = [dict(name=label, route="cuda", source=SOURCES[name],
@@ -554,13 +562,18 @@ class Smoke:
             if re.search(r"synapse_matmul_kernel", mangled):
                 out["synapse_matmul"]["staged"] = info
                 continue
+            if re.search(r"ell_gather_cluster_kernel", mangled):
+                out["ell_gather"]["cluster"] = info
+                continue
             m = re.search(r"(ell_gather|fused_step|stdp_remote_update)"
                           r"_kernelI((?:Lb[01]E)+)E", mangled)
             if m is None:
                 continue
+            # <STAGED[, STDP, GUARD, CLUSTER]>
             flags = [f == "1" for f in re.findall(r"Lb([01])E", m[2])]
-            label = ("staged" if flags[0] else "wide") + "".join(
-                f"+{e}" for e, on in zip(("stdp", "guard"), flags[1:]) if on)
+            label = ("cluster" if flags[3:] == [True] else "staged"
+                     if flags[0] else "wide") + "".join(
+                f"+{e}" for e, on in zip(("stdp", "guard"), flags[1:3]) if on)
             out[m[1]][label] = info
         return out
 
@@ -2555,17 +2568,123 @@ class Smoke:
 
 
     # ------------------------------------------------------------ phase 6
-    def check_tenant_kernels(self, b=3, c=5, n=300, k=248, o=9, seed=21):
-        """Every tenant-axis kernel on ``b`` tenants of ``c`` random columns
-        in one launch: to the bit against one single-tenant launch per
-        tenant (a row's arithmetic does not depend on its launch's other
-        rows), and against its plain version with the tenant axis
-        (``synapse_matmul`` against the FMA chain, ``keyed_drive`` and both
-        STDP kernels to the bit, ``ell_gather`` and ``fused_step`` as
-        phase 1 holds them): shared and per-tenant weights, the STDP and
-        guard epilogues, and an ``active`` mask with one tenant off, whose
-        weights come back as they were. Returns the max abs errors."""
+    def per_launch(self, name, fn, args, whole, b, c):
+        """One single-tenant launch of ``fn`` per tenant (every tensor of
+        ``b * c`` rows cut to the tenant's ``c``, the others whole), each
+        equal to its tenant's rows of ``whole`` (one launch's output or
+        outputs) to the bit."""
+        torch = self.torch
+        whole = whole if isinstance(whole, tuple) else (whole,)
+        for i in range(b):
+            part = fn(*(a[i * c:(i + 1) * c] if isinstance(a, torch.Tensor)
+                        and a.shape[0] == b * c else a for a in args))
+            part = part if isinstance(part, tuple) else (part,)
+            for j, (got, want) in enumerate(zip(part, whole)):
+                self.equal(f"{name} tenant {i} output {j}", got,
+                           want[i * c:(i + 1) * c])
+
+    def check_tenant_ell(self, b, c, n, k, t, seed, path):
+        """``ell_gather`` and ``fused_step`` on ``b`` tenants of ``c``
+        random columns (tables of ``t`` lanes, K = ``k``) in one launch,
+        which must take plan path ``path``: to the bit against one
+        single-tenant launch per tenant, and against the plain versions as
+        phase 1 holds them, with shared and per-tenant weights, and
+        ``fused_step`` static, with its STDP epilogue, with its guard
+        epilogue and with both. Returns the max abs errors and the plan."""
         torch, ops, ref, dev = self.torch, self.ops, self.ref, self.dev
+        g = torch.Generator(device=dev).manual_seed(seed)
+        rows = b * c
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev)
+
+        def rand(*shape):
+            return torch.rand(*shape, generator=g, device=dev)
+
+        ncfg = self.dpsnn.GRID_24.neuron
+        v, cc = rnd(rows, n) * 8 + 10, rnd(rows, n).abs()
+        refrac = (rand(rows, n) < 0.05).int() * 2
+        s_loc = (rand(rows, n) < 0.05).float()
+        s_loc[min(c + 1, rows - 1)] = 1.0     # every source of a column
+        s_flat = (rand(rows, t) < 0.02).float()
+        ext = rnd(rows, n).abs()
+        w, w_own = rnd(c, n, n) * 0.4, rnd(rows, n, n) * 0.4
+        idx = torch.randint(0, t, (c, n, k), generator=g, device=dev,
+                            dtype=torch.int32)
+        rw, rw_own = rnd(c, n, k) * 0.4, rnd(rows, n, k) * 0.4
+        xp, xq = rand(rows, n), rand(rows, n)
+        scfg, gcfg = self.STDPConfig(), self.GuardConfig(enabled=True)
+        p = self.plan.plan("fused_step", rows, n, t,
+                           self.plan.sm_count(dev), tenants=b)
+        if p.path != path:
+            raise AssertionError(f"{b} tenants, K = {k}, T = {t}: plan path "
+                                 f"{p.path}, expected {path}")
+        errs = {}
+        for tag, ww in (("shared", rw), ("own", rw_own)):
+            got = ops.ell_gather(s_flat, idx, ww)
+            errs[f"ell_gather {tag}"] = self.close(
+                f"ell_gather tenants {tag}", got,
+                ref.ell_gather_ref(s_flat, idx, ww),
+                scale=self.scale_remote(s_flat, idx, ww))
+            self.per_launch(f"ell_gather {b} tenants {tag}", ops.ell_gather,
+                            (s_flat, idx, ww), got, b, c)
+        for tag, ww, rr, kw in (
+                ("shared", w, rw, {}),
+                ("shared+stdp", w, rw, dict(scfg=scfg)),
+                ("shared+guard", w, rw, dict(gcfg=gcfg)),
+                ("own", w_own, rw_own, {}),
+                ("own+stdp+guard", w_own, rw_own, dict(scfg=scfg,
+                                                       gcfg=gcfg))):
+            args = (v, cc, refrac, s_loc, ww, s_flat, idx, rr, ext,
+                    *((xp, xq) if "scfg" in kw else ()))
+
+            def fn(*a, kw=kw):
+                return ops.fused_step(ncfg, *a, **kw)
+            got = fn(*args)
+            want = ref.fused_step_ref(ncfg, *args, **kw)
+            errs[f"fused_step {tag}"], _ = self.close_step(
+                f"fused_step {b} tenants {tag}", got[:4], want[:4],
+                scale=self.scale_step(s_loc, ww, s_flat, idx, rr, ext))
+            agree = got[3] == want[3]
+            if "scfg" in kw:
+                for j in (4, 5):
+                    self.equal(f"fused_step {b} tenants {tag} trace {j}",
+                               got[j][agree], want[j][agree])
+            if "gcfg" in kw:
+                self.equal(f"fused_step {b} tenants {tag} flags", got[-1],
+                           want[-1])
+            self.per_launch(f"fused_step {b} tenants {tag}", fn, args, got,
+                            b, c)
+        return errs, dict(path=p.path, cluster=p.cluster, groups=p.groups,
+                          ctas=p.ctas, smem_bytes=p.smem_bytes)
+
+    def check_tenant_kernels(self, widths=TENANT_CHECK_WIDTHS, b=3, c=5,
+                             n=300, k=248, o=9, seed=21):
+        """Every tenant-axis kernel on tenants of ``c`` random columns in
+        one launch: to the bit against one single-tenant launch per tenant
+        (a row's arithmetic does not depend on its launch's other rows),
+        and against its plain version with the tenant axis. ``ell_gather``
+        and ``fused_step`` at every width of ``widths`` on the cluster
+        path (shared and per-tenant weights; ``fused_step`` static, with
+        the STDP and with the guard epilogue, and with both), and at ``b``
+        tenants on a wide table (the wide path) and with K = 7 (the cluster
+        path's 4-byte rows), held as phase 1 holds them
+        (``check_tenant_ell``); the
+        other kernels at ``b`` tenants (``synapse_matmul`` against the FMA
+        chain, ``keyed_drive`` and both STDP kernels to the bit, with an
+        ``active`` mask with one tenant off, whose weights come back as
+        they were). Returns the max abs errors and the plans taken."""
+        torch, ops, ref, dev = self.torch, self.ops, self.ref, self.dev
+        errs, plans = {}, {}
+        for i, width in enumerate(widths):
+            e, plans[f"B={width}"] = self.check_tenant_ell(
+                width, c, n, k, o * n, seed + i, "cluster")
+            errs.update({f"{key} B={width}": v for key, v in e.items()})
+        for label, kk, t, path in (("wide", k, 180_000, "wide"),
+                                   ("K=7", 7, o * n, "cluster")):
+            e, plans[f"B={b} {label}"] = self.check_tenant_ell(
+                b, 3, n, kk, t, seed, path)
+            errs.update({f"{key} B={b} {label}": v for key, v in e.items()})
         g = torch.Generator(device=dev).manual_seed(seed)
         rows, t = b * c, o * n
 
@@ -2575,67 +2694,18 @@ class Smoke:
         def rand(*shape):
             return torch.rand(*shape, generator=g, device=dev)
 
-        def cut(x, i):
-            if isinstance(x, torch.Tensor) and x.shape[0] == rows:
-                return x[i * c:(i + 1) * c]
-            return x
-
-        def per_launch(name, fn, args, whole):
-            whole = whole if isinstance(whole, tuple) else (whole,)
-            for i in range(b):
-                part = fn(*(cut(a, i) for a in args))
-                part = part if isinstance(part, tuple) else (part,)
-                for j, (got, want) in enumerate(zip(part, whole)):
-                    self.equal(f"{name} tenant {i} output {j}", got,
-                               want[i * c:(i + 1) * c])
-
-        ncfg = self.dpsnn.GRID_24.neuron
-        v, cc = rnd(rows, n) * 8 + 10, rnd(rows, n).abs()
-        refrac = (rand(rows, n) < 0.05).int() * 2
         s_loc = (rand(rows, n) < 0.05).float()
         s_loc[c + 1] = 1.0            # every source of one column spikes
-        s_flat = (rand(rows, t) < 0.02).float()
-        ext = rnd(rows, n).abs()
-        w, w_own = rnd(c, n, n) * 0.4, rnd(rows, n, n) * 0.4
+        w = rnd(c, n, n) * 0.4
         idx = torch.randint(0, t, (c, n, k), generator=g, device=dev,
                             dtype=torch.int32)
-        rw, rw_own = rnd(c, n, k) * 0.4, rnd(rows, n, k) * 0.4
+        w_own, rw_own = rnd(rows, n, n) * 0.4, rnd(rows, n, k) * 0.4
         xp, xq = rand(rows, n), rand(rows, n)
-        scfg, gcfg = self.STDPConfig(), self.GuardConfig(enabled=True)
-        errs = {}
-
         got = ops.synapse_matmul(s_loc, w)
         self.equal("synapse_matmul tenants", got,
                    ref.synapse_matmul_chain_ref(s_loc, w))
-        per_launch("synapse_matmul", ops.synapse_matmul, (s_loc, w), got)
-        for tag, ww in (("shared", rw), ("own", rw_own)):
-            got = ops.ell_gather(s_flat, idx, ww)
-            errs[f"ell_gather {tag}"] = self.close(
-                f"ell_gather tenants {tag}", got,
-                ref.ell_gather_ref(s_flat, idx, ww),
-                scale=self.scale_remote(s_flat, idx, ww))
-            per_launch(f"ell_gather {tag}", ops.ell_gather, (s_flat, idx, ww),
-                       got)
-        for tag, ww, rr, kw in (("shared", w, rw, {}),
-                                ("own+stdp+guard", w_own, rw_own,
-                                 dict(scfg=scfg, gcfg=gcfg))):
-            args = (v, cc, refrac, s_loc, ww, s_flat, idx, rr, ext,
-                    *((xp, xq) if kw else ()))
-
-            def fn(*a, kw=kw):
-                return ops.fused_step(ncfg, *a, **kw)
-            got = fn(*args)
-            want = ref.fused_step_ref(ncfg, *args, **kw)
-            errs[f"fused_step {tag}"], _ = self.close_step(
-                f"fused_step tenants {tag}", got[:4], want[:4],
-                scale=self.scale_step(s_loc, ww, s_flat, idx, rr, ext))
-            agree = got[3] == want[3]
-            if kw:
-                for j in (4, 5):
-                    self.equal(f"fused_step tenants {tag} trace {j}",
-                               got[j][agree], want[j][agree])
-                self.equal(f"fused_step tenants {tag} flags", got[6], want[6])
-            per_launch(f"fused_step {tag}", fn, args, got)
+        self.per_launch("synapse_matmul", ops.synapse_matmul, (s_loc, w),
+                        got, b, c)
 
         ids = torch.arange(7, 7 + c, dtype=torch.int32, device=dev)
         seeds = torch.tensor([42, -5, 2**31 - 1], dtype=torch.int32,
@@ -2669,7 +2739,8 @@ class Smoke:
                  (w_own, xp * exc, spikes * exc, spikes, xq))):
             got = fn(*args, **kw)
             self.equal(f"{name} tenants", got, plain(*args, **kw))
-            per_launch(name, lambda *a, fn=fn: fn(*a, **kw), args, got)
+            self.per_launch(name, lambda *a, fn=fn: fn(*a, **kw), args, got,
+                            b, c)
             off = fn(*args, **kw, active=active)
             self.equal(f"{name} tenants, one inactive", off,
                        plain(*args, **kw, active=active))
@@ -2679,7 +2750,7 @@ class Smoke:
             self.equal(f"{name} active tenants",
                        torch.cat((off[:c], off[2 * c:])),
                        torch.cat((got[:c], got[2 * c:])))
-        return errs
+        return errs, plans
 
     def hold_slot(self, name, state, b, want):
         """Slot ``b`` of a batch's state against a single-tenant state: v,
@@ -2737,12 +2808,21 @@ class Smoke:
         """Phase 6: the batched service on ``cfg`` (6a-6e), its timing at
         B = SERVICE_WIDTHS, and the tenant-axis kernels' entries."""
         t0 = time.perf_counter()
-        errs = self.check_tenant_kernels()
-        self.note("phase 6 tenant-axis kernels (3 tenants of 5 random "
-                  "columns of 300 neurons, K = 248): one launch equal to "
-                  "one launch per tenant, to the bit, for all six; "
-                  "synapse_matmul equal to the FMA chain, keyed_drive and "
-                  "both STDP kernels (one tenant inactive: its weights "
+        errs, plans = self.check_tenant_kernels()
+        self.report["tenant_check_plans"] = plans
+        self.note("phase 6 tenant-axis kernels (tenants of 5 random columns "
+                  "of 300 neurons, K = 248): one launch equal to one launch "
+                  "per tenant, to the bit, for all six; ell_gather and "
+                  "fused_step (shared and per-tenant weights; static, STDP, "
+                  "guard, both) at B = "
+                  + ", ".join(str(w) for w in TENANT_CHECK_WIDTHS)
+                  + " on the cluster path, and at B = 3 on a wide table "
+                  "(T = 180,000) and with K = 7; plans " + "; ".join(
+                      f"{key}: {p['path']}, clusters of {p['cluster']} x "
+                      f"{p['groups']} groups, {p['ctas']} CTAs, "
+                      f"{p['smem_bytes']} B" for key, p in plans.items())
+                  + "; synapse_matmul equal to the FMA chain, keyed_drive "
+                  "and both STDP kernels (one tenant inactive: its weights "
                   "passed through) equal to their plain versions to the "
                   "bit; max abs err " + ", ".join(
                       f"{k} {v:.2e}" for k, v in errs.items()))
@@ -2937,6 +3017,14 @@ class Smoke:
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
                     bytes=nbytes, flops=flops, int_ops=int_ops, **kw)
 
+    def tenant_plan(self, name, rows, n, t, b):
+        """The path, cluster size, tenant groups, CTAs and shared memory of
+        ``name`` over ``b`` tenants' ``rows`` rows."""
+        p = self.plan.plan(name, rows, n, t, self.plan.sm_count(self.dev),
+                           tenants=b)
+        return dict(path=p.path, cluster=p.cluster, groups=p.groups,
+                    ctas=p.ctas, smem_bytes=p.smem_bytes)
+
     def time_tenant_step(self, cfg, params, x):
         """``fused_step`` and ``keyed_drive`` over ``x``'s tenants in one
         launch, beside their bounds (the ELL idx and weights and the
@@ -2956,7 +3044,8 @@ class Smoke:
             2 * c * n * k * f4 + union * n * f4 + b * (c * t + 9 * c * n) * f4,
             2 * nnz * n + 2 * rows * n * k + 14 * rows * n,
             ms=self.time_ms(lambda: ops.fused_step(cfg.neuron, *args)),
-            weight_rows=nnz, weight_rows_union=union)
+            weight_rows=nnz, weight_rows_union=union,
+            plan=self.tenant_plan("fused_step", rows, n, t, b))
 
         def separate():
             for i in range(b):
@@ -3024,7 +3113,9 @@ class Smoke:
                 f"{prof['largest_outside'][0]} "
                 f"{prof['largest_outside'][1]:.1f} us, op "
                 f"{prof['largest_op'][0]} {prof['largest_op'][1]:.1f} us); "
-                f"fused_step {fused['ms']:.4f} ms (bound "
+                f"fused_step {fused['ms']:.4f} ms ({fused['plan']['path']} "
+                f"path, clusters of {fused['plan']['cluster']}, "
+                f"{fused['plan']['ctas']} CTAs; bound "
                 f"{fused['bound_ms']:.4f} by {fused['bound_by']}, "
                 f"{fused['bytes'] / 1e9:.4f} GB; one launch per tenant "
                 f"{fused['ms_one_launch_per_tenant']:.4f} ms; weight rows "
@@ -3035,6 +3126,19 @@ class Smoke:
             if b == TENANT_B:
                 self.tenant_entries(cfg, params, x, fused, keyed)
             del x, st
+        widths = {r["tenants"]: dict(
+            ms=r["fused_step"]["ms"],
+            ms_one_launch_per_tenant=r["fused_step"][
+                "ms_one_launch_per_tenant"],
+            bound_ms=r["fused_step"]["bound_ms"], plan=r["fused_step"]["plan"])
+            for r in rows}
+        self.report["kernels"][f"fused_step[B={TENANT_B}]"]["by_width"] = \
+            widths
+        log("  fused_step by width (one launch / one launch per tenant / "
+            "bound, ms): " + "; ".join(
+                f"B={b} {w['ms']:.4f} / {w['ms_one_launch_per_tenant']:.4f} "
+                f"/ {w['bound_ms']:.4f} ({w['plan']['path']}, clusters of "
+                f"{w['plan']['cluster']})" for b, w in widths.items()))
         return rows
 
     def tenant_entries(self, cfg, params, x, fused, keyed):
@@ -3113,19 +3217,26 @@ class Smoke:
                                   iters=3),
             library_ms=self.time_ms(lambda: a @ xb),
             library="cuSPARSE CSR A @ X, X of B columns",
+            plan=self.tenant_plan("ell_gather", rows, n, t, b),
             **self.entry(2 * c * n * k * f4 + b * (c * t + c * n) * f4,
                          2 * rows * n * k))
         del a, xb, spmm
         for name in ("fused_step", "keyed_drive", "synapse_matmul",
                      "ell_gather"):
             e = kern[f"{name}[B={b}]"]
+            plan = e.get("plan")
             log(f"  {name}[B={b}]: {e['ms']:.4f} ms (plain "
                 f"{e['plain_ms']:.4f} ms, library "
                 + ("-" if e["library_ms"] is None else
                    f"{e['library_ms']:.4f}")
                 + f" ms, bound {e['bound_ms']:.4f} ms by {e['bound_by']}, "
                 f"max abs err {e['max_abs_err']:.2e}, launches "
-                f"{e['launches']} ({e['launches_from']}))")
+                f"{e['launches']} ({e['launches_from']})"
+                + ("" if plan is None else
+                   f"; {plan['path']} path, clusters of {plan['cluster']} x "
+                   f"{plan['groups']} groups, {plan['ctas']} CTAs, "
+                   f"{plan['smem_bytes']} B shared")
+                + ")")
 
 
     def service_plastic(self, cfg, params):
@@ -3166,6 +3277,9 @@ class Smoke:
             self.report["kernels"][f"{name}[B={TENANT_B}]"] = dict(
                 launches=launches[name],
                 launches_from=f"phase 6d, {TENANT_B} slots")
+        self.report["kernels"][PLASTIC_FUSED] = dict(
+            launches=launches["fused_step"],
+            launches_from=f"phase 6d, {TENANT_B} slots")
         for i, (seed, n_steps) in enumerate(zip(seeds, SERVICE_PLASTIC_STEPS)):
             one = self.dedicated(pcfg, params, seed, n_steps)
             self.hold_slot(f"6d tenant {i}", out.state, i, one.state)
@@ -3183,6 +3297,7 @@ class Smoke:
                   f"dedicated plastic run to the bit (the first kept its "
                   f"weights through its batch-mates' last "
                   f"{steps - min(SERVICE_PLASTIC_STEPS)} steps); no trip")
+        self.plastic_fused_entry(pcfg, params, out)
         # both STDP kernels on the batch's state after its last step: each
         # tenant's last frame, traces and weights
         b, c, n = TENANT_B, cfg.n_columns, cfg.neurons_per_column
@@ -3199,6 +3314,59 @@ class Smoke:
         self.stdp_entries(pcfg, params, w, rw, spikes, x_pre, x_post)
         return dict(ms_per_step=ms, peak_memory_gb=peak_gb,
                     launches=launches)
+
+    def plastic_fused_entry(self, pcfg, params, out):
+        """fused_step's STDP-trace and guard-flag instance over 6d's
+        TENANT_B plastic tenants, on their state after the chunk and their
+        own weights (w_local and rem_w of B * C rows), as the plastic
+        service launches it: held to its plain version as phase 1 holds
+        it, timed beside its bound (the shared ELL idx once, each tenant's
+        ELL weights, spiking sources' weight rows, table, state and traces
+        once per tenant)."""
+        torch, ops, ref = self.torch, self.ops, self.ref
+        x = self.tenant_inputs(pcfg, params, out.state)
+        b = x["tenants"]
+        rows, n = x["v"].shape
+        c, k = rows // b, params.rem_flat.shape[-1]
+        t = x["s_flat"].shape[1]
+        w = out.params.w_local.reshape(rows, n, n)
+        rw = out.params.rem_w.reshape(rows, n, k)
+        x_pre = out.state.stdp.x_pre.reshape(rows, n)
+        x_post = out.state.stdp.x_post.reshape(rows, n)
+        ncfg, f4 = pcfg.neuron, 4
+        args = (x["v"], x["c"], x["refrac"], x["s_loc"], w, x["s_flat"],
+                params.rem_flat, rw, x["ext"], x_pre, x_post)
+        kw = dict(scfg=pcfg.stdp_cfg, gcfg=pcfg.guard)
+        got = ops.fused_step(ncfg, *args, **kw)
+        want = ref.fused_step_ref(ncfg, *args, **kw)
+        err, flips = self.close_step(
+            PLASTIC_FUSED, got[:4], want[:4], scale=self.scale_step(
+                x["s_loc"], w, x["s_flat"], params.rem_flat, rw, x["ext"]))
+        agree = got[3] == want[3]
+        for j in (4, 5):
+            self.equal(f"{PLASTIC_FUSED} trace {j}", got[j][agree],
+                       want[j][agree])
+        self.equal(f"{PLASTIC_FUSED} flags", got[6], want[6])
+        del got, want
+        nnz = float((x["s_loc"] != 0).sum())
+        e = self.report["kernels"][PLASTIC_FUSED]
+        e.update(
+            max_abs_err=err, spike_flips=flips, library_ms=None,
+            ms=self.time_ms(lambda: ops.fused_step(ncfg, *args, **kw)),
+            plain_ms=self.time_ms(
+                lambda: ref.fused_step_ref(ncfg, *args, **kw), iters=2),
+            plan=self.tenant_plan("fused_step", rows, n, t, b),
+            **self.entry(c * n * k * f4 + rows * n * k * f4 + nnz * n * f4
+                         + (rows * t + 13 * rows * n + rows) * f4,
+                         2 * nnz * n + 2 * rows * n * k + 18 * rows * n,
+                         weight_rows=nnz))
+        log(f"  {PLASTIC_FUSED}: {e['ms']:.4f} ms (plain {e['plain_ms']:.4f} "
+            f"ms, library -, bound {e['bound_ms']:.4f} ms by "
+            f"{e['bound_by']}, {e['bytes'] / 1e9:.3f} GB; max abs err "
+            f"{err:.2e}, spike flips {flips}, traces and flags equal; "
+            f"{e['plan']['path']} path, clusters of {e['plan']['cluster']}; "
+            f"launches {e['launches']} ({e['launches_from']}))")
+        del x, args
 
     def stdp_entries(self, pcfg, params, w, rw, spikes, x_pre, x_post):
         """stdp_dense_update and stdp_remote_update over TENANT_B tenants'

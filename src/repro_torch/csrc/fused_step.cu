@@ -60,12 +60,20 @@
 // C rows (every tenant's network is the same), and the local weights and
 // the ELL weights have w_rows and rw_rows rows, C when the tenants share
 // them (static runs) and n_rows when each trains its own (STDP): row r
-// reads weight row r % w_rows. The claims run through the items in the
-// order (column, tenant, target block), so the tenants of a column run on
-// neighbouring CTAs and its weight and ELL rows come from HBM about once
-// and from L2 after that. Each (tenant, column) still stages its own
-// table row and spikes: B rows of 99 KB would not fit one CTA. B = 1 is
-// the single-tenant launch, item for item.
+// reads weight row r % w_rows. B = 1 is the single-tenant launch, item
+// for item. B > 1 on a staged table takes the cluster instances
+// (CLUSTER, kernels/plan.py path "cluster"): groups of up to 8 tenants as
+// thread-block clusters, CTA rank g taking tenant g of its group through
+// the same items as its cluster, the same loop (repro::cluster_claim,
+// repro::group_item in kernels.cuh), so that the group's CTAs read each
+// ELL block and shared weight row within one item of each other and HBM
+// serves it once a group. Each (tenant, column) stages its own table row
+// and spikes: B rows of 99 KB would not fit one CTA. (Before, the items
+// went in the order (column, tenant, target block) on the staged path:
+// the first claims, about 21 items, handed a column's 4 tenants x 5
+// target blocks to one CTA one after another, each tenant reading the
+// column's 2.46 MB of ELL rows from HBM again, evict-first. Wide tables
+// still take those items.)
 #include "kernels.cuh"
 
 namespace {
@@ -86,7 +94,7 @@ struct GuardEpilogue {
   float v_floor, v_ceil;
 };
 
-template <bool STAGED, bool STDP, bool GUARD>
+template <bool STAGED, bool STDP, bool GUARD, bool CLUSTER>
 __global__ void __launch_bounds__(repro::TB, 2) fused_step_kernel(
     const float* __restrict__ s_loc, const float* __restrict__ w,
     const float* __restrict__ tbl, const int* __restrict__ idx,
@@ -97,7 +105,7 @@ __global__ void __launch_bounds__(repro::TB, 2) fused_step_kernel(
     float* __restrict__ s_out, int n_rows, int tenants, int w_rows,
     int rw_rows, int n, int n_tblk, int t_len, int k, bool vec,
     repro::LifParams p, unsigned long long* silent_count,
-    StdpEpilogue st, GuardEpilogue gd, int* next_item) {
+    StdpEpilogue st, GuardEpilogue gd, int* next_item, repro::Groups g) {
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   float* tbl_sh = reinterpret_cast<float*>(smem);
@@ -111,22 +119,45 @@ __global__ void __launch_bounds__(repro::TB, 2) fused_step_kernel(
   int* claim = warp_count + repro::TB_WARPS;
 
   const int lane = threadIdx.x & 31;
-  const int items = n_rows * n_tblk;
+  const int items =
+      CLUSTER ? g.n_cols * g.groups * n_tblk : n_rows * n_tblk;
+  unsigned rank = 0;
+  if constexpr (CLUSTER) rank = repro::cluster_rank();
   int row_prev = -1, n_spiking = 0, silent = 0, n_done = 0;
   for (;;) {
-    if (threadIdx.x == 0) {
-      const int seen = *reinterpret_cast<volatile int*>(next_item);
-      const int size = max(1, (items - seen) / (2 * (int)gridDim.x));
-      const int start = atomicAdd(next_item, size);
-      claim[0] = start;
-      claim[1] = min(start + size, items);
+    int c0, c1;
+    if constexpr (CLUSTER) {
+      const int2 chunk =
+          repro::cluster_claim(next_item, items, claim, rank, g.size);
+      c0 = chunk.x;
+      c1 = chunk.y;
+    } else {
+      if (threadIdx.x == 0) {
+        const int seen = *reinterpret_cast<volatile int*>(next_item);
+        const int size = max(1, (items - seen) / (2 * (int)gridDim.x));
+        const int start = atomicAdd(next_item, size);
+        claim[0] = start;
+        claim[1] = min(start + size, items);
+      }
+      __syncthreads();
+      c0 = claim[0];
+      c1 = claim[1];
     }
-    __syncthreads();
-    const int c0 = claim[0], c1 = claim[1];
     if (c0 >= items) break;
     // claim is rewritten only after the chunk's own barriers
     for (int it = c0; it < c1; ++it) {
-      const repro::Item item = repro::tenant_item(it, tenants, n_rows, n_tblk);
+      repro::Item item;
+      if constexpr (CLUSTER) {
+        // no CTA of the cluster starts this item before every CTA has
+        // started the one before
+        if (it > c0) repro::cluster_wait();
+        repro::cluster_arrive();
+        const repro::GroupItem gi = repro::group_item(g, it, rank, n_tblk);
+        if (!gi.valid) continue;  // a rank past its group's last tenant
+        item = repro::Item{gi.col, gi.row, gi.tblk};
+      } else {
+        item = repro::tenant_item(it, tenants, n_rows, n_tblk);
+      }
       const int row = item.row;
       const int tblk = item.tblk;
       const int t0 = tblk * repro::TB;
@@ -179,7 +210,7 @@ __global__ void __launch_bounds__(repro::TB, 2) fused_step_kernel(
       // the sums of consecutive items alternate buffers, so an item's ELL
       // rows need not wait for the last item's epilogue
       float* rem = rem_sh + (n_done++ & 1) * repro::TB;
-      repro::ell_rows(
+      repro::ell_rows<!CLUSTER>(
           repro::TableRow<STAGED>{STAGED ? tbl_sh : tbl_c, t_len},
           idx + ((size_t)item.col * n + t0) * k,
           rem_w + ((size_t)(row % rw_rows) * n + t0) * k,
@@ -225,6 +256,9 @@ __global__ void __launch_bounds__(repro::TB, 2) fused_step_kernel(
         if (lane == 0 && bits != 0) atomicOr(gd.flags + row, bits);
       }
     }
+    if constexpr (CLUSTER) {
+      if (c1 > c0) repro::cluster_wait();  // the chunk's last arrival
+    }
   }
   // each row's source blocks were counted once, by the CTA that took its
   // target block 0 (claims are increasing, so it met the row there)
@@ -233,15 +267,14 @@ __global__ void __launch_bounds__(repro::TB, 2) fused_step_kernel(
   }
 }
 
-template <bool STAGED>
-using FusedKernel = decltype(&fused_step_kernel<STAGED, false, false>);
+using FusedKernel = decltype(&fused_step_kernel<true, false, false, false>);
 
-template <bool STAGED>
-FusedKernel<STAGED> fused_instance(bool stdp, bool guard) {
-  return stdp ? (guard ? &fused_step_kernel<STAGED, true, true>
-                       : &fused_step_kernel<STAGED, true, false>)
-              : (guard ? &fused_step_kernel<STAGED, false, true>
-                       : &fused_step_kernel<STAGED, false, false>);
+template <bool STAGED, bool CLUSTER>
+FusedKernel fused_instance(bool stdp, bool guard) {
+  return stdp ? (guard ? &fused_step_kernel<STAGED, true, true, CLUSTER>
+                       : &fused_step_kernel<STAGED, true, false, CLUSTER>)
+              : (guard ? &fused_step_kernel<STAGED, false, true, CLUSTER>
+                       : &fused_step_kernel<STAGED, false, false, CLUSTER>);
 }
 
 }  // namespace
@@ -249,9 +282,11 @@ FusedKernel<STAGED> fused_instance(bool stdp, bool guard) {
 // n_rows = tenants * C rows (C = the idx's columns); w_rows and rw_rows,
 // the rows of w and rem_w, are C or n_rows. x_pre == NULL selects the
 // variant without the STDP epilogue, flags == NULL the one without the
-// guard epilogue; staged, ctas, smem_bytes are kernels/plan.py's choice
-// for these shapes; next_item is the claim counter, one int the caller
-// zeroes.
+// guard epilogue; path (0 wide, 1 staged, 2 cluster), ctas, smem_bytes,
+// and on the cluster path the CTAs of a cluster and the tenant groups,
+// are kernels/plan.py's choice for these shapes; next_item is the claim
+// counter, one int the caller zeroes. A cluster launch the card refuses
+// returns its error: no other instance stands behind it.
 extern "C" int repro_fused_step(
     const float* s_loc, const float* w, const float* tbl, const int* idx,
     const float* rem_w, const float* ext, const float* v, const float* c,
@@ -262,27 +297,40 @@ extern "C" int repro_fused_step(
     float v_thr, int arp, unsigned long long* silent_count,
     const float* x_pre, const float* x_post, float* x_pre_out,
     float* x_post_out, float dp, float dm, int* flags, float v_floor,
-    float v_ceil, int staged, int ctas, int smem_bytes, int* next_item,
-    cudaStream_t stream) {
+    float v_ceil, int path, int ctas, int smem_bytes, int cluster,
+    int groups, int* next_item, cudaStream_t stream) {
   if (n_rows <= 0 || n <= 0) return 0;
   if (ctas <= 0 || next_item == nullptr || tenants <= 0 ||
-      n_rows % tenants != 0 || w_rows <= 0 || rw_rows <= 0 ||
-      smem_bytes < repro::fused_step_smem(staged, t_len, n)) {
+      n_rows % tenants != 0 || w_rows <= 0 || rw_rows <= 0 || path < 0 ||
+      path > 2 || smem_bytes < repro::fused_step_smem(path != 0, t_len, n)) {
     return (int)cudaErrorInvalidValue;
   }
   const int n_tblk = (n + repro::TB - 1) / repro::TB;
   const bool stdp = x_pre != nullptr, guard = flags != nullptr;
-  const auto kernel = staged ? fused_instance<true>(stdp, guard)
-                             : fused_instance<false>(stdp, guard);
+  const repro::Groups g = repro::make_groups(n_rows, tenants, cluster, groups);
+  if (path == 2 && (g.size == 0 || ctas % g.size != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const auto kernel = path == 2   ? fused_instance<true, true>(stdp, guard)
+                      : path == 1 ? fused_instance<true, false>(stdp, guard)
+                                  : fused_instance<false, false>(stdp, guard);
   const cudaError_t err = repro::set_smem(kernel, smem_bytes);
   if (err != cudaSuccess) return (int)err;
+  const repro::LifParams lif = repro::lif_params(
+      decay_v, decay_c, gain, g_c, alpha_c, v_rest, v_reset, v_thr, arp);
+  const StdpEpilogue st{x_pre, x_post, x_pre_out, x_post_out, dp, dm};
+  const GuardEpilogue gd{flags, v_floor, v_ceil};
+  const bool vec = repro::ell_vec(idx, rem_w, k);
+  if (path == 2) {
+    return (int)repro::launch_cluster(
+        kernel, ctas, g.size, smem_bytes, stream, s_loc, w, tbl, idx, rem_w,
+        ext, v, c, refrac, v_out, c_out, r_out, s_out, n_rows, tenants,
+        w_rows, rw_rows, n, n_tblk, t_len, k, vec, lif, silent_count, st, gd,
+        next_item, g);
+  }
   kernel<<<(unsigned)ctas, repro::TB, smem_bytes, stream>>>(
       s_loc, w, tbl, idx, rem_w, ext, v, c, refrac, v_out, c_out, r_out,
-      s_out, n_rows, tenants, w_rows, rw_rows, n, n_tblk, t_len, k,
-      repro::ell_vec(idx, rem_w, k),
-      repro::lif_params(decay_v, decay_c, gain, g_c, alpha_c, v_rest,
-                        v_reset, v_thr, arp),
-      silent_count, StdpEpilogue{x_pre, x_post, x_pre_out, x_post_out, dp, dm},
-      GuardEpilogue{flags, v_floor, v_ceil}, next_item);
+      s_out, n_rows, tenants, w_rows, rw_rows, n, n_tblk, t_len, k, vec, lif,
+      silent_count, st, gd, next_item, g);
   return (int)cudaGetLastError();
 }

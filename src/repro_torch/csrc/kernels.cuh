@@ -132,6 +132,11 @@ constexpr int SM_RING = SM_STAGES * SM_ROWS * TB * 4;
 __host__ __device__ constexpr int ell_gather_smem(bool staged, int t_len) {
   return staged ? round16(4 * t_len) : 0;
 }
+// the cluster path: the staged row, then the claimed chunk (fused_step's
+// layout already ends with it)
+__host__ __device__ constexpr int ell_gather_cluster_smem(int t_len) {
+  return ell_gather_smem(true, t_len) + 16;
+}
 __host__ __device__ constexpr int fused_step_smem(bool staged, int t_len,
                                                   int n) {
   return ell_gather_smem(staged, t_len) + 2 * round16(4 * n) + 8 * TB +
@@ -200,8 +205,12 @@ struct TableRow {
 // ELL rows of one item: sink(r, sum_k tbl[idx[r, k]] * w[r, k]) for r in
 // [0, rows), rows of K entries from (idx, w) on. One warp per row, the
 // CTA's warps taking rows r = warp, warp + TB_WARPS, ...; every lane of
-// the warp holds the sum, lane 0 sinks it. The idx and weights are read
-// once, so they stream past L1 and are marked evict-first (__ldcs).
+// the warp holds the sum, lane 0 sinks it. With STREAM the idx and
+// weights stream past L1 marked evict-first (__ldcs): right where each
+// byte is read once (the single-tenant launch, the wide path).
+// The tenant-group clusters below read each line once per tenant of the
+// group, and load without that hint (__ldg), so that L2 keeps the lines
+// for the group's other CTAs.
 //
 // vec (K a multiple of 4 and both rows 16-byte aligned): lanes read 16
 // bytes of idx and 16 of weights at a time, coalesced, and each warp keeps
@@ -210,7 +219,16 @@ struct TableRow {
 // over k with 4-byte reads. Each lane sums its own entries in order, then
 // the warp reduces by shuffles: a fixed order, so a rerun gives the same
 // bits.
-template <bool STAGED, class Sink>
+template <bool STREAM, class T>
+__device__ __forceinline__ T ell_load(const T* p) {
+  if constexpr (STREAM) {
+    return __ldcs(p);
+  } else {
+    return __ldg(p);
+  }
+}
+
+template <bool STREAM, bool STAGED, class Sink>
 __device__ __forceinline__ void ell_rows(TableRow<STAGED> tbl,
                                          const int* __restrict__ idx,
                                          const float* __restrict__ w,
@@ -238,8 +256,8 @@ __device__ __forceinline__ void ell_rows(TableRow<STAGED> tbl,
             wv[u][h] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
             if (r < rows && g < kq) {
               const size_t off = (size_t)r * kq + g;
-              iv[u][h] = __ldcs(idx4 + off);
-              wv[u][h] = __ldcs(w4 + off);
+              iv[u][h] = ell_load<STREAM>(idx4 + off);
+              wv[u][h] = ell_load<STREAM>(w4 + off);
             }
           }
         }
@@ -273,7 +291,8 @@ __device__ __forceinline__ void ell_rows(TableRow<STAGED> tbl,
       float acc = 0.0f;
 #pragma unroll 4
       for (int j = lane; j < k; j += 32) {
-        acc = __fmaf_rn(tbl(__ldcs(ir + j)), __ldcs(wr + j), acc);
+        acc = __fmaf_rn(tbl(ell_load<STREAM>(ir + j)),
+                        ell_load<STREAM>(wr + j), acc);
       }
       const float sum = warp_sum(acc);
       if (lane == 0) sink(r, sum);
@@ -300,6 +319,127 @@ __device__ __forceinline__ Item tenant_item(int it, int tenants, int n_rows,
   const int rest = it - col * per_col;
   const int b = rest / n_tblk;
   return Item{col, b * (n_rows / tenants) + col, rest - b * n_tblk};
+}
+
+// ---------------------------------------------------------------------
+// The tenant-group cluster path of ell_gather and fused_step (tenants >
+// 1, table row staged; kernels/plan.py, path "cluster", chooses it from
+// the shapes and mirrors CLUSTER_MAX).
+//
+// B tenants split into `groups` groups of at most CLUSTER_MAX; a group
+// runs as a thread-block cluster of `size` CTAs, two CTAs per SM as on
+// the staged path, CTA rank g holding tenant grp * size + g's table row
+// (and fused_step's spikes and spiking-source list) as one CTA of the
+// staged path holds its row's. The unit of work is a group item (column,
+// group, target block), in that order: rank 0 claims chunks of them from
+// the counter (guided self-scheduling over the clusters), every CTA reads
+// the chunk over DSMEM, and all CTAs of the cluster walk its items
+// together, no CTA starting an item before every CTA of the cluster has
+// started the one before (a split cluster barrier). So the block's idx
+// and weight rows are requested by the group's CTAs within one item of
+// each other, from the same GPC: the first request of each line goes to
+// HBM and the others find it in L2, where items claimed one tenant after
+// another would read the block from HBM once a tenant. These loads are
+// not marked evict-first (ell_rows<false>),
+// since the group's other CTAs read the same lines. Each CTA sums its
+// rows exactly as the staged path does, so one cluster launch gives the
+// bits of one launch per tenant and of the single-tenant launch.
+//
+// (The two designs that move the block between the cluster's CTAs lost
+// to this one on the card: a ring of bulk copies multicast into every
+// CTA's shared memory leaves one CTA per SM and a few stages beside the
+// 99 KB table row, too little in flight; gathering the other tenants'
+// rows from their CTAs' tables over DSMEM is an order of magnitude
+// slower than a gather from the CTA's own shared memory, as
+// tools/cluster_gather_probe.py measures; PERF.md.)
+constexpr int CLUSTER_MAX = 8;
+
+struct Groups {
+  int n_cols;   // C, the columns of each tenant (the idx's rows)
+  int tenants;  // B
+  int groups;   // tenant groups
+  int size;     // CTAs of a cluster, tenants of a group
+};
+
+// A group item as CTA `rank` sees it: its tenant's row, valid while the
+// group has a tenant at that rank.
+struct GroupItem {
+  int col, row, tblk;
+  bool valid;
+};
+
+__device__ __forceinline__ GroupItem group_item(const Groups& g, int it,
+                                                unsigned rank, int n_tblk) {
+  const int per_col = g.groups * n_tblk;
+  const int col = it / per_col;
+  const int rest = it - col * per_col;
+  const int grp = rest / n_tblk;
+  const int b = grp * g.size + (int)rank;
+  return GroupItem{col, b * g.n_cols + col, rest - grp * n_tblk,
+                   b < g.tenants};
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of every CTA of the cluster. cluster_sync orders
+// shared-memory accesses (DSMEM too) across the cluster; the split form,
+// cluster_arrive now and cluster_wait later, only keeps the CTAs within a
+// phase of each other.
+__device__ __forceinline__ void cluster_sync() {
+  __syncwarp();
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  __syncwarp();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// the int at `p`'s offset in the shared memory of CTA `rank`
+__device__ __forceinline__ int ld_peer(const int* p, unsigned rank) {
+  unsigned addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(addr)
+               : "r"((unsigned)__cvta_generic_to_shared(p)), "r"(rank));
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// The cluster's next chunk [c0, c1) of `items` group items, guided
+// self-scheduling over the clusters: rank 0 claims about remaining /
+// (2 * clusters) items, and each CTA copies the claim into its own
+// claim[0..1] (two ints of shared memory). The whole cluster calls it.
+__device__ __forceinline__ int2 cluster_claim(int* next_item, int items,
+                                              int* claim, unsigned rank,
+                                              int size) {
+  if (rank == 0 && threadIdx.x == 0) {
+    const int clusters = (int)gridDim.x / size;
+    const int seen = *reinterpret_cast<volatile int*>(next_item);
+    const int chunk = max(1, (items - seen) / (2 * clusters));
+    const int start = atomicAdd(next_item, chunk);
+    claim[0] = start;
+    claim[1] = min(start + chunk, items);
+  }
+  cluster_sync();  // rank 0's claim is written
+  if (threadIdx.x == 0) {
+    const int c0 = ld_peer(&claim[0], 0), c1 = ld_peer(&claim[1], 0);
+    claim[0] = c0;
+    claim[1] = c1;
+  }
+  cluster_sync();  // every CTA has read it before rank 0 claims again
+  return make_int2(claim[0], claim[1]);
 }
 
 inline bool aligned16(const void* ptr) {
@@ -332,6 +472,42 @@ inline cudaError_t set_smem(Kernel kernel, int smem_bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// The groups of a cluster launch of n_rows = tenants * C rows as
+// kernels/plan.py planned them; size 0 where the plan does not hold
+// together.
+inline Groups make_groups(int n_rows, int tenants, int cluster,
+                          int groups) {
+  Groups g{n_rows / tenants, tenants, groups, cluster};
+  const bool ok = tenants > 1 && cluster >= 1 && cluster <= CLUSTER_MAX &&
+                  groups >= 1 && groups * cluster >= tenants &&
+                  (groups - 1) * cluster < tenants;
+  if (!ok) g.size = 0;
+  return g;
+}
+
+// Launches `kernel` on `ctas` CTAs of TB threads in clusters of `cluster`
+// CTAs; returns the launch's error (a cluster the card cannot place is
+// one).
+template <class... Params, class... Args>
+inline cudaError_t launch_cluster(void (*kernel)(Params...), int ctas,
+                                  int cluster, int smem_bytes,
+                                  cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)ctas, 1, 1);
+  cfg.blockDim = dim3(TB, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 inline LifParams lif_params(float decay_v, float decay_c, float gain,

@@ -48,16 +48,17 @@ SIGNATURES = {
     # spikes, w, out, rows (B * C), B, N, silent-block counter (or NULL),
     # shared bytes, stream
     "repro_synapse_matmul": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
-    # tbl, idx, w, out, rows (B * C), B, w rows, N, T, K, staged, CTAs,
-    # shared bytes, stream
-    "repro_ell_gather": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    # tbl, idx, w, out, rows (B * C), B, w rows, N, T, K; the plan (path,
+    # CTAs, shared bytes, CTAs a cluster, tenant groups); claim counter;
+    # stream
+    "repro_ell_gather": [_P, _P, _P, _P] + [_I] * 11 + [_P, _P],
     # s_loc, w, tbl, idx, rem_w, ext, v, c, refrac -> v', c', refrac',
     # spikes; rows (B * C), B, w rows, rem_w rows, N, T, K; constants;
     # silent-block counter; x_pre, x_post -> x_pre', x_post' (or NULL);
-    # dp, dm; flags (or NULL); v_floor, v_ceil; staged, CTAs, shared
-    # bytes; claim counter; stream
+    # dp, dm; flags (or NULL); v_floor, v_ceil; the plan (as above);
+    # claim counter; stream
     "repro_fused_step": ([_P] * 13 + [_I] * 7 + _LIF + [_P] + [_P] * 4
-                         + [_F] * 2 + [_P] + [_F] * 2 + [_I] * 3 + [_P] * 2),
+                         + [_F] * 2 + [_P] + [_F] * 2 + [_I] * 5 + [_P] * 2),
     # w, x_pre_exc, spk_exc, spikes, x_post -> w'; C, N; active (or NULL),
     # columns per tenant; a_plus, a_minus, lr, w_max; stream
     "repro_stdp_dense_update": ([_P] * 6 + [_I] * 2 + [_P, _I] + [_F] * 4
@@ -228,6 +229,12 @@ def check_args(kernel: str, device: torch.device, **args) -> None:
     if device.type != "cuda":
         raise ValueError(f"{kernel}: the kernel takes CUDA tensors (or CPU "
                          f"tensors for its plain version), got {device}")
+
+
+def plan_args(p) -> tuple[int, ...]:
+    """A plan as the ELL kernels' C entry points take it: path, CTAs,
+    shared bytes, CTAs a cluster, tenant groups."""
+    return (p.path_code, p.ctas, p.smem_bytes, p.cluster, p.groups)
 
 
 def launch(kernel: str, c_name: str, device: torch.device, *args) -> None:

@@ -11,9 +11,11 @@ there; a table too wide for that takes the wide path, read through L2
 
 Tenant axis (the batched service): a (B*C, T) table of B tenants gathers
 through the (C, N, K) idx they share, and through weights of C rows
-(shared) or B*C rows, in one launch; the items go column by column, a
-column's tenants side by side, so they read its idx and weights from HBM
-about once.
+(shared) or B*C rows, in one launch. On a staged table it takes the
+cluster path (``plan.py``): groups of up to 8 tenants as thread-block
+clusters, one CTA per tenant, that walk the same (column, target block)
+items together, so that HBM serves each ELL block once a group
+(``csrc/ell_gather.cu``). A cluster launch the card refuses raises.
 """
 from __future__ import annotations
 
@@ -39,10 +41,11 @@ def ell_gather(s_flat: torch.Tensor, idx: torch.Tensor,
                       idx=(idx, torch.int32, (c, n, k)),
                       w=(w, torch.float32, (w_rows, n, k)))
     out = torch.empty((rows, n), dtype=torch.float32, device=s_flat.device)
-    p = plan("ell_gather", rows, n, t, sm_count(s_flat.device))
+    p = plan("ell_gather", rows, n, t, sm_count(s_flat.device), tenants=b)
+    next_item = torch.zeros(1, dtype=torch.int32, device=s_flat.device)
     _build.launch("ell_gather" if p.staged else "ell_gather.wide",
                   "repro_ell_gather", s_flat.device,
                   s_flat.data_ptr(), idx.data_ptr(), w.data_ptr(),
-                  out.data_ptr(), rows, b, w_rows, n, t, k, int(p.staged),
-                  p.ctas, p.smem_bytes)
+                  out.data_ptr(), rows, b, w_rows, n, t, k,
+                  *_build.plan_args(p), next_item.data_ptr())
     return out

@@ -21,9 +21,12 @@ Tenant axis (the batched service): B tenants in one launch. Every
 per-neuron input and output, the table and the guard flags have B*C rows,
 tenant after tenant; ``rem_flat`` keeps its C rows, and ``w_local`` and
 ``rem_w`` have C rows (static runs: every tenant reads the one copy) or
-B*C (STDP: each tenant's own). The items go column by column, a column's
-tenants side by side, so its weight and ELL rows come from HBM about once
-(csrc/fused_step.cu).
+B*C (STDP: each tenant's own). On a staged table the launch takes the
+cluster path (``plan.py``): groups of up to 8 tenants as thread-block
+clusters, one CTA per tenant, that walk the same (column, target block)
+items together, so that HBM serves each ELL block once a group and L2
+the group's other CTAs (csrc/fused_step.cu). A cluster launch the card
+refuses raises.
 """
 from __future__ import annotations
 
@@ -93,7 +96,7 @@ def fused_step(ncfg, v, c, refrac, s_loc, w_local, s_flat, rem_flat, rem_w,
         flags = torch.zeros(nc, dtype=torch.int32, device=v.device)
         guard_args = (flags.data_ptr(), gcfg.v_floor, gcfg.v_ceil)
         out += (flags,)
-    p = plan("fused_step", nc, n, t, sm_count(v.device))
+    p = plan("fused_step", nc, n, t, sm_count(v.device), tenants=b)
     next_item = torch.zeros(1, dtype=torch.int32, device=v.device)
     _build.launch("fused_step" if p.staged else "fused_step.wide",
                   "repro_fused_step", v.device,
@@ -104,5 +107,5 @@ def fused_step(ncfg, v, c, refrac, s_loc, w_local, s_flat, rem_flat, rem_w,
                   s_out.data_ptr(), nc, b, w_rows, rw_rows, n, t, k,
                   *_c_lif(lif_constants(ncfg, v.dtype)),
                   _counter_ptr(silent_blocks), *stdp_args, *guard_args,
-                  int(p.staged), p.ctas, p.smem_bytes, next_item.data_ptr())
+                  *_build.plan_args(p), next_item.data_ptr())
     return out

@@ -67,7 +67,8 @@ def test_staging_a_row_too_wide_is_an_error(cuda_device):
         _build.launch("ell_gather", "repro_ell_gather", cuda_device,
                       tbl.data_ptr(), idx.data_ptr(), w.data_ptr(),
                       out.data_ptr(), c, 1, c, n, t, k, 1, 1,
-                      plan.smem_bytes("ell_gather", True, n, t))
+                      plan.smem_bytes("ell_gather", True, n, t), 1, 1, 0, 0,
+                      None)
     assert _build.LAUNCHES["ell_gather"] == 0
 
 
@@ -392,15 +393,60 @@ def test_plastic_mesh_step_never_waits_for_the_card(cuda_device, wire,
 
 @pytest.mark.cuda
 def test_tenant_axis_kernels_match_plain(cuda_device):
-    """Every tenant-axis kernel, one launch for three tenants of five
-    random columns: to the bit against one launch per tenant, and against
-    its plain version with the tenant axis (shared and per-tenant
-    weights, the STDP and guard epilogues, one tenant inactive under
-    both STDP kernels): the checks of
+    """Every tenant-axis kernel, one launch for tenants of five random
+    columns: to the bit against one launch per tenant, and against its
+    plain version with the tenant axis. ell_gather and fused_step at 2,
+    3, 4, 8 and 12 tenants on the cluster path (shared and per-tenant
+    weights; fused_step static, with the STDP, with the guard epilogue and
+    with both), and at 3 on a wide table and with K = 7; the others at 3
+    (one tenant inactive under both STDP kernels): the checks of
     ``chip_smoke.Smoke.check_tenant_kernels``, which raises on a miss."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     chip_smoke.Smoke(torch, str(cuda_device)).check_tenant_kernels()
+
+
+@pytest.mark.cuda
+def test_refused_cluster_launch_raises(cuda_device, monkeypatch):
+    """A cluster launch that the C entry point or the card refuses (more
+    than 8 CTAs a cluster, groups that do not hold the tenants, more
+    shared memory than a CTA may have) raises, from the C entry's caller
+    and from the wrapper, and launches nothing: no other instance stands
+    behind the cluster path."""
+    from repro_torch.kernels import fused_step as fs_mod
+    from repro_torch.kernels import plan
+    b, c, n, k, t = 4, 2, 256, 8, 512
+    tbl = torch.zeros(b * c, t, device=cuda_device)
+    idx = torch.zeros(c, n, k, dtype=torch.int32, device=cuda_device)
+    w = torch.zeros(c, n, k, device=cuda_device)
+    out = torch.empty(b * c, n, device=cuda_device)
+    next_item = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    smem = plan.plan("ell_gather", b * c, n, t, plan.sm_count(cuda_device),
+                     tenants=b).smem_bytes
+    _build.reset_launches()
+    for cluster, groups, nbytes in ((16, 1, smem), (3, 1, smem),
+                                    (4, 1, 240_000)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.launch("ell_gather", "repro_ell_gather", cuda_device,
+                          tbl.data_ptr(), idx.data_ptr(), w.data_ptr(),
+                          out.data_ptr(), b * c, b, c, n, t, k, 2,
+                          2 * cluster, nbytes, cluster, groups,
+                          next_item.data_ptr())
+    assert _build.LAUNCHES["ell_gather"] == 0
+    cfg = DPSNNConfig(grid_h=2, grid_w=2, neurons_per_column=64, seed=0)
+    params, state = sim.build(cfg, device=cuda_device)
+    good = plan.plan
+    monkeypatch.setattr(fs_mod, "plan", lambda *a, **kw: good(
+        *a, **kw)._replace(cluster=9))
+    rows = lambda x: torch.cat([x] * b)                       # noqa: E731
+    lif = state.lif
+    s = torch.zeros_like(lif.v)
+    with pytest.raises(RuntimeError, match="fused_step: CUDA error"):
+        ops.fused_step(cfg.neuron, rows(lif.v), rows(lif.c),
+                       rows(lif.refrac), rows(s), params.w_local,
+                       torch.zeros(b * 4, 4 * 9 * 64, device=cuda_device),
+                       params.rem_flat, params.rem_w, rows(s))
+    assert _build.LAUNCHES["fused_step"] == 0
 
 
 @pytest.mark.cuda

@@ -167,6 +167,101 @@ def test_plan_refuses_what_no_path_runs():
     assert P.plan("ell_gather", 4, 40_000, 180_000 * 40, H100_SMS).ctas
 
 
+# what plan() gave a single-tenant launch before the tenant-group path:
+# (kernel, C, N, T) -> (path, schedule, ctas, items, smem_bytes)
+SINGLE_TENANT = {
+    ("ell_gather", 576, N, T24): ("staged", "static", 264, 2880, 99_200),
+    ("fused_step", 576, N, T24): ("staged", "claims", 264, 2880, 111_208),
+    ("stdp_remote_update", 576, N, T24): ("staged", "static", 264, 2880,
+                                          99_200),
+    ("synapse_matmul", 576, N, T24): ("staged", "static", 2880, 2880,
+                                      75_488),
+    ("ell_gather", 4, N, 180_000): ("wide", "static", 20, 20, 0),
+    ("fused_step", 4, N, 180_000): ("wide", "claims", 20, 20, 12_008),
+    ("fused_step", 7, 257, 9 * 257): ("staged", "claims", 14, 14, 13_432),
+}
+
+
+@pytest.mark.parametrize("key", list(SINGLE_TENANT))
+def test_one_tenant_plans_as_before(key):
+    """tenants == 1 plans as the single-tenant launch always did, field
+    for field; the tenant-group fields keep their defaults."""
+    kernel, c, n, t = key
+    p = P.plan(kernel, c, n, t, H100_SMS)
+    assert p == P.plan(kernel, c, n, t, H100_SMS, tenants=1)
+    assert (p.path, p.schedule, p.ctas, p.items,
+            p.smem_bytes) == SINGLE_TENANT[key]
+    assert (p.tenants, p.cluster, p.groups) == (1, 1, 1)
+
+
+# tenant widths, and the shapes of one tenant: GRID_24 and a ragged one
+TENANT_WIDTHS = (2, 3, 4, 8, 12)
+TENANT_SHAPES = ((576, N, T24), (7, 257, 9 * 257))
+
+
+def _tenant_items(p, n):
+    """The (tenant, row, target block) triples of the plan's claims, in
+    the order the clusters take them."""
+    return [x for r in p.claims() for it in r for x in p.group_item(it, n)]
+
+
+@pytest.mark.parametrize("c,n,t", TENANT_SHAPES)
+@pytest.mark.parametrize("b", TENANT_WIDTHS)
+@pytest.mark.parametrize("kernel", P.CLUSTERED)
+def test_tenant_groups_cover_every_row_once(kernel, b, c, n, t):
+    """The cluster path: groups of at most CLUSTER_MAX tenants (two of six
+    at B = 12), clusters of one CTA per tenant of a group, a whole number
+    of clusters at two CTAs per SM; the claims over the group items cover
+    every (tenant, row, target block) exactly once, each tenant's rows on
+    its own CTA rank, a column's target blocks in order."""
+    p = P.plan(kernel, b * c, n, t, H100_SMS, tenants=b)
+    assert p.path == "cluster" and p.staged and p.schedule == "claims"
+    assert p.tenants == b and p.cluster <= P.CLUSTER_MAX
+    assert p.groups == -(-b // P.CLUSTER_MAX)
+    assert (p.groups, p.cluster) == ((2, 6) if b == 12 else (1, b))
+    assert p.ctas % p.cluster == 0
+    assert p.ctas <= P.CTAS_PER_SM * H100_SMS
+    n_tblk = -(-n // P.TARGET_BLOCK)
+    assert p.items == c * p.groups * n_tblk
+    seen = _tenant_items(p, n)
+    want = [(r // c, r, blk) for r in range(b * c) for blk in range(n_tblk)]
+    assert sorted(seen) == want
+    for tenant, row, _ in seen:
+        assert row == tenant * c + row % c
+    # within one (tenant, column) the target blocks come in order
+    for r in range(0, b * c, max(1, b * c // 5)):
+        assert [blk for _, row, blk in seen if row == r] == list(
+            range(n_tblk))
+
+
+@pytest.mark.parametrize("c,n,t", TENANT_SHAPES)
+@pytest.mark.parametrize("b", TENANT_WIDTHS)
+@pytest.mark.parametrize("kernel", P.CLUSTERED)
+def test_tenant_groups_fit_two_ctas_per_sm(kernel, b, c, n, t):
+    """A cluster CTA keeps what a staged CTA keeps (ell_gather also its
+    claimed chunk), so two fit on an SM; the wide path stays the wide path
+    for every width."""
+    p = P.plan(kernel, b * c, n, t, H100_SMS, tenants=b)
+    one = P.plan(kernel, c, n, t, H100_SMS)
+    assert p.smem_bytes == one.smem_bytes + (16 if kernel == "ell_gather"
+                                             else 0)
+    assert p.smem_bytes <= P.STAGED_BUDGET
+    assert P.CTAS_PER_SM * (p.smem_bytes + P.SMEM_RESERVED_PER_CTA) <= \
+        P.SMEM_PER_SM
+    wide = P.plan(kernel, b * 4, N, 180_000, H100_SMS, tenants=b)
+    assert wide.path == "wide" and wide.tenants == b
+    assert wide.ctas == wide.items == b * 4 * 5
+
+
+def test_other_kernels_ignore_the_tenant_groups():
+    """Only ell_gather and fused_step take the cluster path."""
+    for kernel in ("stdp_remote_update", "synapse_matmul"):
+        p = P.plan(kernel, 4 * 576, N, T24, H100_SMS, tenants=4)
+        assert p.path == "staged" and p.cluster == 1
+    with pytest.raises(ValueError, match="whole number"):
+        P.plan("fused_step", 10, N, T24, H100_SMS, tenants=4)
+
+
 def test_ptxas_report_reads_registers_and_spills():
     log = "\n".join([
         "ptxas info    : Compiling entry function '_Z1aILb1EEvv' for "
