@@ -147,7 +147,26 @@ then, on the card:
    the flip drill, ``--guard --chaos-flip-bit 0:25:3`` on 2 ranks, 60
    steps, a checkpoint every 10: the guard trips, the ranks exit with its
    code, and the restart rolls back to step 20 and finishes clean and
-   equal to the single process.
+   equal to the single process;
+9. drives what completes the simulator on the same grid: (a) the paper's
+   weak-scaling protocol, a tile of 12x12 columns a rank on 1, 2 and 4
+   gloo ranks (grids 12x12, 12x24 and 24x24) with ``--weak --timed-reps
+   3``, each bitwise against its single-process run (the 4-rank grid is
+   phase 3's, whose run serves, under ``--no-check-single``), with its
+   ms/step, events/s and weak efficiency (every rank on this card: no
+   scaling figure); (b) 2 ranks of 2 shards each (``--shards-per-rank
+   2``, a 1x4 shard grid) on the dense wire and on AER at the bound that
+   cannot overflow, each equal to phase 3 to the bit (spikes, per-step
+   spikes, v), and 2 ranks x 2 shards x phase 7's 2 tenants equal to
+   phase 7's tenants; (c) the guarded batched mesh, phase 7's 4 tenants
+   on 2x2 shards under ``cuda_fused`` with each tenant's strips framed
+   apart, bitwise against phase 7's unguarded run with no trip, its ms
+   per loop step beside phase 7's, and a bit flipped at step 25 tripping
+   every (shard, tenant) there with code 16; (d) the Izhikevich neuron,
+   300 steps of a (576, 1240) state of RS and FS neurons on the card,
+   equal to the same function on the CPU (whose run is most of the
+   phase's time: 1000 steps took 64 s on the host of an H100 machine, so
+   the steps were cut, not the state).
 
 Every phase raises on failure and the script exits non-zero. Without a
 card, or without the rest of the repository beside it, it exits
@@ -266,6 +285,13 @@ NAN_STEP = 30
 SUPERVISED_STEPS, SUPERVISED_EVERY = 80, 20
 KILL_RANK, KILL_STEP = 1, 50
 DRILL_STEPS, DRILL_EVERY, DRILL_FLIP = 60, 10, "0:25:3"
+# phase 9: the weak-scaling tile (columns a rank), rank counts and timed
+# repeats; the shards a rank holds in 9b; 9d's Izhikevich state (GRID_24's
+# columns and neurons), steps, inhibitory share and the bank of currents
+# its steps cycle through
+WEAK_TILE, WEAK_RANKS, WEAK_REPS = (12, 12), (1, 2, 4), 3
+SHARDS_PER_RANK = 2
+IZH_SHAPE, IZH_STEPS, IZH_INH, IZH_BANK = (576, 1240), 300, 0.2, 16
 
 
 def log(*args):
@@ -336,6 +362,8 @@ class Smoke:
                                                 multiprocess)
         self.LocalMesh = transport.LocalMesh
         self.integrity = integrity
+        from repro_torch.core import neuron
+        self.neuron = neuron
         from repro_torch.core import batched
         from repro_torch.launch import serve
         self.batched, self.serve = batched, serve
@@ -531,6 +559,10 @@ class Smoke:
         # 8. the guard on the multi-rank step, held to phase 3, and the
         # supervised ranks, held to the single process
         self.guard_path(cfg, params, fused)
+
+        # 9. weak scaling, several shards per rank, the guarded batched
+        # mesh and the Izhikevich neuron
+        self.completion_path(cfg, params, fused)
         del params
 
         tenant = {f"{name}[B={TENANT_B}]": name for name in TENANT_KERNELS}
@@ -3564,6 +3596,14 @@ class Smoke:
             if sat:
                 raise AssertionError(f"{name}: {sat} saturated steps")
             self.hold_tenants(name, spec, out, oracle[key])
+            if name == "batched mesh 2x2 cuda_fused":
+                # phase 9c's guard-off run
+                self.unguarded_2x2 = dict(
+                    ms=out["ms"], spikes=out["res"].spikes.clone(),
+                    events=out["res"].events.clone(),
+                    trace=torch.cat([out["warm"].rate_trace,
+                                     out["res"].rate_trace], 1),
+                    v=out["final"].lif.v.clone())
             prof = self.profile(name, out["run_k"], out["wall_ms"],
                                 steps=PROFILE_STEPS)
             ring = out["final"].hist_ext
@@ -3641,7 +3681,8 @@ class Smoke:
                 row = ld.launch(args)
                 row["launch_wall_s"] = time.perf_counter() - w0
                 if ref is None:
-                    ref = ld.single_process_reference(args)
+                    # kept for phase 9b's tenants
+                    ref = self.tenant_ref = ld.single_process_reference(args)
                 if not ld.report_check(args, row, ref, ["v"]):
                     raise AssertionError(f"2 ranks, {shards} batch shards: "
                                          f"a tenant differs from its "
@@ -3927,6 +3968,299 @@ class Smoke:
                   f"{out[1]['resumed_from_step']}, each equal to the single "
                   f"process to the bit")
         return out
+
+
+    # ------------------------------------------------------------ phase 9
+    def completion_path(self, cfg, params, fused):
+        """Phase 9: 9a weak scaling (:meth:`weak_path`), 9b several shards
+        per rank (:meth:`shards_path`), 9c the guarded batched mesh
+        (:meth:`guarded_batched_path`), 9d the Izhikevich neuron
+        (:meth:`izhikevich_path`)."""
+        t0 = time.perf_counter()
+        self.report["phase9"] = dict(
+            weak=self.weak_path(cfg, fused),
+            shards_per_rank=self.shards_path(cfg, fused),
+            guarded_batched=self.guarded_batched_path(cfg, params),
+            izhikevich=self.izhikevich_path())
+        self.report["phase9"]["seconds"] = time.perf_counter() - t0
+        log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+
+    def hold_row(self, name, row, states, spec, fused):
+        """A rank run of WARMUP_STEPS + MAIN_STEPS steps from the seed
+        against phase 3's: spikes, every step's rate, v to the bit; events
+        as :meth:`hold_against_single`; no saturated step; rank 0 one
+        ``fused_step`` and one ``keyed_drive`` launch per step."""
+        import numpy as np
+        ld = self.ld
+        trace = self.torch.cat([self.warm_trace, fused.rate_trace]).tolist()
+        v = self.part.columns_to_global(states["v"], spec)
+        if (row["spikes"] != float(fused.spikes)
+                or row["rate_trace"] != trace
+                or not np.array_equal(v, fused.state.lif.v.cpu().numpy())):
+            raise AssertionError(f"{name}: spikes, per-step spikes or v "
+                                 f"differ from phase 3")
+        if not ld.events_agree(row["events"], float(fused.events)):
+            raise AssertionError(f"{name}: events {row['events']} vs "
+                                 f"{float(fused.events)}")
+        per_step = {k: x / row["steps"] for k, x in row["launches"].items()
+                    if x}
+        if (per_step != {"fused_step": 1.0, "keyed_drive": 1.0}
+                or row["aer_saturated_steps"]
+                or row["library_build_s_max"] != 0.0):
+            raise AssertionError(f"{name}: launches {row['launches']}, "
+                                 f"saturated {row['aer_saturated_steps']}, "
+                                 f"build {row['library_build_s_max']} s")
+
+    def weak_path(self, cfg, fused):
+        """Phase 9a: the weak-scaling protocol (``--weak``, the paper's Fig
+        3): a tile of WEAK_TILE columns a rank on WEAK_RANKS gloo ranks,
+        WARMUP_STEPS + MAIN_STEPS steps from the seed, the fastest of
+        WEAK_REPS timed runs; each held to its single-process run by the
+        launcher's own check, the last (GRID_24) to phase 3's run. Ranks
+        share this card: the weak efficiency t_1 / t_N is no scaling
+        figure."""
+        import tempfile
+        ld, rows = self.ld, []
+        for ranks in WEAK_RANKS:
+            on_grid24 = ranks == WEAK_RANKS[-1]
+            with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+                args = ld.make_parser().parse_args(
+                    ["--ranks", str(ranks), "--weak", "--grid",
+                     "x".join(map(str, WEAK_TILE)),
+                     "--neurons", str(cfg.neurons_per_column),
+                     "--steps", str(WARMUP_STEPS + MAIN_STEPS),
+                     "--seed", str(cfg.seed), "--impl", "cuda_fused",
+                     "--device", self.dev.type,
+                     "--timeout", str(RANK_TIMEOUT_S),
+                     "--timed-reps", str(WEAK_REPS), "--state-dir", d,
+                     *(["--no-check-single"] if on_grid24 else [])])
+                w0 = time.perf_counter()
+                row = ld.launch(args)
+                row["launch_wall_s"] = time.perf_counter() - w0
+                wcfg = ld.workload_cfg(args)
+                spec = ld.shard_spec(args, wcfg)
+                if on_grid24:
+                    if (wcfg.grid_h, wcfg.grid_w) != (cfg.grid_h, cfg.grid_w):
+                        raise AssertionError(f"{ranks} weak ranks: grid "
+                                             f"{row['grid']}")
+                    self.hold_row(f"{ranks} weak ranks", row,
+                                  self.mp.load_states(d, ranks), spec, fused)
+                elif not ld.report_check(args, row,
+                                         ld.single_process_reference(args),
+                                         ["v"]):
+                    raise AssertionError(f"{ranks} weak ranks differ from "
+                                         f"their single process")
+            row["weak_efficiency"] = rows[0]["step_ms"] / row["step_ms"] \
+                if rows else 1.0
+            rows.append(row)
+            log(f"phase 9a {ranks} weak rank(s) of {row['tile']} columns "
+                f"(grid {row['grid']}, gloo, every rank on this card, "
+                f"time-sliced: no scaling figure): fastest of "
+                f"{row['timed_reps']} runs "
+                f"{row['step_ms']:.4f} ms/step (wall, {row['steps']} steps; "
+                f"runs " + ", ".join(f"{x:.3f}" for x in row["wall_s_reps"])
+                + f" s), {row['events_per_s']:.4e} events/s, weak efficiency "
+                f"t_1/t_{ranks} {row['weak_efficiency']:.4f}, launch "
+                f"{row['launch_wall_s']:.1f} s; spikes {row['spikes']:.0f} and "
+                f"v bitwise against "
+                + ("phase 3's run of the same grid" if on_grid24 else
+                   "its single process"))
+        self.note(f"phase 9a: weak scaling on {', '.join(map(str, WEAK_RANKS))}"
+                  f" ranks, every run bitwise against its single process; "
+                  f"weak efficiency " + ", ".join(
+                      f"{r['weak_efficiency']:.4f}" for r in rows))
+        return rows
+
+    def shards_path(self, cfg, fused):
+        """Phase 9b: 2 ranks of SHARDS_PER_RANK shards each (a 1x4 shard
+        grid) on the dense wire and on AER at the bound that cannot
+        overflow, held to phase 3; then 2 ranks x SHARDS_PER_RANK shards x
+        phase 7's 2 tenants, held to phase 7's tenants (their per-tenant
+        totals, and by the launcher's check their dedicated runs with v)."""
+        import tempfile
+        ld, rows = self.ld, []
+        k = ["--shards-per-rank", str(SHARDS_PER_RANK)]
+        spec = self.part.make_tile_spec(cfg, 1, 2 * SHARDS_PER_RANK)
+        for name, flags in (
+                ("dense", []),
+                (f"aer at {AER_FREE_HZ:g} Hz",
+                 ["--exchange-mode", "aer_sparse", "--aer-rate-bound",
+                  str(AER_FREE_HZ)])):
+            with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+                row, states = self.launch_ranks(cfg, 2, [*k, *flags], d)
+            self.hold_row(f"2 ranks x {SHARDS_PER_RANK} shards {name}", row,
+                          states, spec, fused)
+            rows.append(row)
+            log(f"phase 9b 2 ranks x {SHARDS_PER_RANK} shards, {name} (gloo, "
+                f"every rank on this card): shard grid {row['process_grid']}"
+                f", tiles {row['tile']}, {row['step_ms']:.4f} ms/step (wall), "
+                f"halo {row['halo_payload_bytes_per_step']} B/step per "
+                f"interior shard, launch {row['launch_wall_s']:.1f} s; "
+                f"spikes, per-step spikes and v equal phase 3 to the bit")
+        want = self.report["batched_mesh_path"]["ranks"][0]
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            args = ld.make_parser().parse_args(
+                ["--ranks", "2", *k, "--batch", "2",
+                 "--grid", f"{cfg.grid_h}x{cfg.grid_w}",
+                 "--neurons", str(cfg.neurons_per_column),
+                 "--steps", str(WARMUP_STEPS + SERVICE_TIMED),
+                 "--seed", str(cfg.seed), "--impl", "cuda_fused",
+                 "--device", self.dev.type, "--timeout", str(RANK_TIMEOUT_S),
+                 "--state-dir", d])
+            w0 = time.perf_counter()
+            row = ld.launch(args)
+            row["launch_wall_s"] = time.perf_counter() - w0
+            if (row["per_tenant_spikes"] != want["per_tenant_spikes"]
+                    or not all(ld.events_agree(x, y) for x, y in zip(
+                        row["per_tenant_events"], want["per_tenant_events"]))
+                    or not ld.report_check(args, row, self.tenant_ref,
+                                           ["v"])):
+                raise AssertionError("2 ranks x 2 shards x 2 tenants differ "
+                                     "from phase 7's tenants")
+        rows.append(row)
+        log(f"phase 9b 2 ranks x {SHARDS_PER_RANK} shards x 2 tenants (gloo):"
+            f" shard grid {row['process_grid']}, {row['step_ms']:.4f} ms per "
+            f"loop step (wall), launch {row['launch_wall_s']:.1f} s; "
+            f"per-tenant spikes {row['per_tenant_spikes']} equal phase 7's 2 "
+            f"ranks x 2 tenants' (events "
+            + ", ".join(f"{x:.9e}" for x in row["per_tenant_events"])
+            + f" against "
+            + ", ".join(f"{x:.9e}" for x in want["per_tenant_events"])
+            + f", within {ld.EVENTS_RTOL:g} past 2**24), v equal the "
+            f"dedicated runs")
+        self.note(f"phase 9b: 2 ranks x {SHARDS_PER_RANK} shards on the dense "
+                  f"and AER wires equal phase 3 to the bit, and with 2 "
+                  f"tenants equal phase 7's")
+        return rows
+
+    def guarded_batched_path(self, cfg, params):
+        """Phase 9c: phase 7's 4 tenants on 2x2 shards under ``cuda_fused``
+        with the guard on (each tenant's strips framed apart, a verdict
+        per (shard, tenant)): bitwise against phase 7's unguarded run, no
+        trip; its ms per loop step beside phase 7's; then a bit flipped on
+        send FLIP[0] at step FLIP[1] trips every (shard, tenant) there with
+        the checksum code, and only there."""
+        torch, integrity = self.torch, self.integrity
+        off = self.unguarded_2x2
+        mesh = self.LocalMesh(2, 2, self.dev)
+        spec = self.part.make_tile_spec(cfg, 2, 2)
+        ids = self.ex.shard_col_ids(cfg, spec, mesh, self.dev).long()
+        built = self.net.NetworkParams(*(x[ids] for x in params))
+        gcfg = dataclasses.replace(cfg, guard=self.GuardConfig(enabled=True))
+        out = self.batched_mesh_run(gcfg, mesh, built, "cuda_fused",
+                                    SERVICE_TENANTS)
+        if out["launches"] != self.expected_launches(
+                fused_step=SERVICE_TIMED, keyed_drive=SERVICE_TIMED):
+            raise AssertionError(f"guarded batched mesh launches "
+                                 f"{out['launches']}")
+        res, g = out["res"], out["final"].guard
+        self.equal("guarded batched mesh spikes", res.spikes, off["spikes"])
+        self.equal("guarded batched mesh events", res.events, off["events"])
+        self.equal("guarded batched mesh per-step spikes",
+                   torch.cat([out["warm"].rate_trace, res.rate_trace], 1),
+                   off["trace"])
+        self.equal("guarded batched mesh v", out["final"].lif.v, off["v"])
+        b = len(SERVICE_TENANTS)
+        if g.tripped.shape != (4, b) or bool(g.tripped.any()) \
+                or int(g.checksum_fails.max()):
+            raise AssertionError(f"guarded batched mesh: guard {g}")
+        row = dict(tenants=b, mesh=[2, 2], ms_per_step=out["ms"],
+                   wall_ms_per_step=out["wall_ms"],
+                   off_ms_per_step=off["ms"],
+                   on_minus_off_ms=out["ms"] - off["ms"],
+                   peak_memory_gb=out["peak_gb"])
+        del out
+        seeds, nu = ([x for x, _ in SERVICE_TENANTS],
+                     [x for _, x in SERVICE_TENANTS])
+        ring, step, word = FLIP
+        fcfg = dataclasses.replace(cfg, guard=self.GuardConfig(
+            enabled=True, chaos_flip_ring=ring, chaos_flip_step=step,
+            chaos_flip_word=word))
+        run, _ = self.ex.make_batched_distributed_run(
+            fcfg, mesh, n_steps=CHAOS_STEPS, batch=b, impl="cuda_fused",
+            with_stimulus=True, with_state=True, params=built)
+        _, final = run(seeds, nu)
+        fg = final.guard
+        if not (bool(fg.tripped.all())
+                and bool((fg.trip_code == integrity.TRIP_CHECKSUM).all())
+                and bool((fg.trip_step == step).all())
+                and bool((fg.checksum_fails == 1).all())):
+            raise AssertionError(f"flip at step {step}: guard {fg}")
+        del final, built
+        torch.cuda.empty_cache()
+        log(f"phase 9c guarded batched mesh 2x2 cuda_fused, {b} tenants, "
+            f"{WARMUP_STEPS} + {SERVICE_TIMED} steps: guard leaves "
+            f"{tuple(g.tripped.shape)} (shard, tenant), no trip, no checksum "
+            f"failure; spikes, per-step spikes, events and v equal phase 7's "
+            f"unguarded run to the bit; {row['ms_per_step']:.4f} ms per loop "
+            f"step (device events) against phase 7's "
+            f"{row['off_ms_per_step']:.4f}: guard on - off "
+            f"{row['on_minus_off_ms']:+.4f} ms (wall "
+            f"{row['wall_ms_per_step']:.4f}), peak memory "
+            f"{row['peak_memory_gb']:.2f} GB; a bit flipped on send {ring} "
+            f"at step {step} (word {word}) trips all {4 * b} (shard, tenant)"
+            f" pairs at step {step} with code {integrity.TRIP_CHECKSUM} "
+            f"(halo-checksum) and one failed frame each")
+        return row
+
+    def izhikevich_path(self):
+        """Phase 9d: the Izhikevich neuron (plain torch, off the main
+        path) over IZH_SHAPE RS and FS neurons (IZH_INH of them FS) for
+        IZH_STEPS steps on the card, the currents cycling through a bank
+        of IZH_BANK drawn from a seeded generator; the final v and u and
+        every step's spike count equal the same function on the CPU to
+        the bit (on failure the largest difference in float32 ulps is
+        printed first)."""
+        torch, N = self.torch, self.neuron
+        g = torch.Generator().manual_seed(42)
+        inh = torch.rand(IZH_SHAPE, generator=g) < IZH_INH
+        bank = torch.randn((IZH_BANK, *IZH_SHAPE), generator=g) * 3.0 + 5.0
+
+        def run(dev):
+            inh_d, bank_d = inh.to(dev), bank.to(dev)
+            s = N.izh_init(IZH_SHAPE, inh_d)
+            counts = torch.zeros(IZH_STEPS, device=dev)
+            for t in range(IZH_STEPS):
+                s, spk = N.izhikevich_step(s, bank_d[t % IZH_BANK], inh_d)
+                counts[t] = spk.sum()
+            return s, counts
+        self.sync()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        w0 = time.perf_counter()
+        e0.record()
+        card, card_counts = run(self.dev)
+        e1.record()
+        self.sync()
+        card_wall = time.perf_counter() - w0
+        w0 = time.perf_counter()
+        cpu, cpu_counts = run("cpu")
+        cpu_wall = time.perf_counter() - w0
+
+        def ulps(a, b):
+            ai, bi = (x.cpu().view(torch.int32).long() for x in (a, b))
+            # float32 bits as a line of integers across zero
+            ai = torch.where(ai < 0, -(ai & 0x7FFFFFFF), ai)
+            bi = torch.where(bi < 0, -(bi & 0x7FFFFFFF), bi)
+            return int((ai - bi).abs().max())
+        worst = max(ulps(card.v, cpu.v), ulps(card.u, cpu.u))
+        same_counts = torch.equal(card_counts.cpu(), cpu_counts)
+        row = dict(shape=list(IZH_SHAPE), steps=IZH_STEPS,
+                   card_ms_per_step=e0.elapsed_time(e1) / IZH_STEPS,
+                   card_wall_s=card_wall, cpu_wall_s=cpu_wall,
+                   max_ulp=worst, spikes=float(cpu_counts.sum()),
+                   counts_equal=same_counts)
+        if worst or not same_counts:
+            log(f"phase 9d Izhikevich: card against CPU max {worst} ulp, "
+                f"per-step spike counts equal: {same_counts}")
+            raise AssertionError("phase 9d: the card's Izhikevich run "
+                                 "differs from the CPU's")
+        log(f"phase 9d Izhikevich {IZH_SHAPE[0]}x{IZH_SHAPE[1]} neurons "
+            f"({IZH_INH:.0%} FS), {IZH_STEPS} steps: "
+            f"{row['card_ms_per_step']:.4f} ms/step on the card (device "
+            f"events; plain torch, no kernel), {cpu_wall:.1f} s on the CPU; "
+            f"{row['spikes']:.0f} spikes; final v and u and every step's "
+            f"spike count equal the CPU's to the bit (0 ulp)")
+        return row
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@ static and plastic).
   a leading local-shard axis ``(S_local, ...)`` in process-major order,
   the layout of the reference's ``stacked_state_template``. On a
   :class:`~repro_torch.runtime.transport.LocalMesh` ``S_local`` is every
-  tile of the grid, on a ``ProcessGroupMesh`` it is 1.
+  tile of the grid, on a ``ProcessGroupMesh`` its ``shards_per_rank``
+  (1 by default).
 * Per step, each shard exchanges only the halo strips of the newly
   emitted spike frame, in two phases (horizontal rings, then vertical
   rings of the horizontally-extended strips, so corners arrive without
@@ -51,9 +52,11 @@ static and plastic).
   kernels take the tenant-major (b * S_local * C, ...) rows against the
   shared network's S_local * C (their tenant axis), the drive is one
   ``keyed_drive_tenants`` launch, and each halo send carries every
-  tenant's strip in one message, an AER list per (tenant, shard). With
-  batch shards (``runtime/sharding.py``) each process holds its shard's
-  tenants and only the per-tenant totals cross the tenant axis.
+  tenant's strip in one message, an AER list per (tenant, shard), and
+  under the guard a checksum word per (tenant, shard) strip and a
+  verdict per (tenant, shard). With batch shards
+  (``runtime/sharding.py``) each process holds its shard's tenants and
+  only the per-tenant totals cross the tenant axis.
 
 The step follows the reference's schedule (``dist_step``): the exchange
 of step t-1's spikes is issued first and its frame written into the
@@ -691,7 +694,8 @@ def dist_step(cfg: DPSNNConfig, params: NetworkParams, state: DistState, *,
     drive under its own seed and rate in one ``keyed_drive_tenants``
     launch, the kernels over the tenant-major (b * S_local * C) rows
     against the shared network's S_local * C, one halo message per send
-    for every tenant, and the counters per (tenant, shard)."""
+    for every tenant, and the counters and the guard's verdict per
+    (tenant, shard), each tenant's strip of a message framed apart."""
     r = spec.radius
     th, tw = spec.tile_h, spec.tile_w
     n = cfg.neurons_per_column
@@ -721,7 +725,9 @@ def dist_step(cfg: DPSNNConfig, params: NetworkParams, state: DistState, *,
     gcfg = cfg.guard
     hguard = wire = None
     if gcfg.enabled:
-        hguard = integrity.HaloGuard(gcfg, t, math.prod(lead), mesh.device)
+        hguard = integrity.HaloGuard(gcfg, t, lead[-1], mesh.device,
+                                     tenants=lead[0] if seeds is not None
+                                     else 0)
         wire = GuardedWire(mesh, hguard)
     ext_frame, pre_ext, aer_sat = exchange(state.pending, pre_frame,
                                            wire=wire)
@@ -832,7 +838,7 @@ def dist_step(cfg: DPSNNConfig, params: NetworkParams, state: DistState, *,
             gcfg, v=lif.v, spikes=spikes,
             x_pre=None if tr is None else tr.x_pre,
             x_post=None if tr is None else tr.x_post,
-            kernel_flags=gflags, tenants=math.prod(lead))
+            kernel_flags=gflags, tenants=math.prod(lead)).reshape(lead)
         chk_fail, chk_count = hguard.verdict()
         new_guard = integrity.guard_update(
             gcfg, state.guard, step_code=code, t=t, aer_sat=aer_sat,
@@ -1029,19 +1035,15 @@ def make_batched_distributed_run(cfg: DPSNNConfig, mesh, *, n_steps: int,
     (n_steps,), the OR over every rank and tenant. With ``with_state``
     the run also returns the final :class:`DistState` with every leaf
     (S_local, b_local, ...), the reference's (n_shards, b_local, ...)
-    layout of one process. Refuses the hierarchical exchange and a
-    batch the batch shards do not divide, with the reference's texts."""
+    layout of one process: under ``cfg.guard.enabled`` its guard leaves
+    are (S_local, b_local), a verdict per (shard, tenant). Refuses the
+    hierarchical exchange and a batch the batch shards do not divide,
+    with the reference's texts."""
     if mesh.node is not None:
         raise ValueError(
             "the batched multi-tenant runner does not support the "
             "hierarchical ('ndata','data','nmodel','model') mesh — run "
             "tenants on a flat spatial mesh, or drop --ranks-per-node")
-    if cfg.guard.enabled:
-        raise NotImplementedError(
-            "guard: the batched service over a shard mesh runs without the "
-            "integrity guard (a guarded batched mesh waits for ROADMAP "
-            "queue 1 item 7); the single-tenant mesh and the single-card "
-            "service run it")
     tenants = local_tenants(mesh, batch)
     net.check_supported(cfg, impl, mesh=True)
     spec = make_tile_spec(cfg, *mesh.shape)

@@ -6,12 +6,18 @@ worker processes (``repro_torch.runtime.multiprocess``), wires them to a
 fresh gloo rendezvous on a free localhost port, waits for the job, then
 re-runs the same workload single-process in this process and asserts
 that the totals are bitwise equal (the determinism per column
-id that makes every scaling measurement trustworthy).
+id that makes every scaling measurement trustworthy). ``--weak`` reads
+``--grid`` as one rank's tile (``configs.dpsnn.with_ranks``, the paper's
+Fig 3 protocol), ``--timed-reps N`` has each rank report the fastest of
+N timed runs, ``--shards-per-rank k`` gives each rank k shards of its
+row, and ``--no-check-single`` skips the single-process run (its caller
+holds the totals to a run of its own).
 
     PYTHONPATH=src python -m repro_torch.launch.launch_distributed \
         --ranks 4 [--device cpu] [--state-dir DIR] [--stdp] [--guard] \
         [--exchange-mode aer_sparse|auto] [--ranks-per-node 2] \
-        [--batch 2 [--batch-shards 2]]
+        [--batch 2 [--batch-shards 2]] [--shards-per-rank 2] \
+        [--weak] [--timed-reps 3] [--no-check-single]
 
     PYTHONPATH=src python -m repro_torch.launch.launch_distributed \
         --ranks 2 --grid 4x4 --neurons 16 --steps 40 --supervise \
@@ -31,9 +37,11 @@ tenants of seeds ``seed .. seed+B-1`` on one network, over
 tenant, against B dedicated single-tenant single-process runs: spikes,
 events, and with ``--state-dir`` each tenant's final leaves. An AER run
 whose event lists overflowed says so first (it is expected to differ).
-A node group shape that ``partition.make_node_spec`` rejects, and a
-tenant split that does not divide, fail before any rank spawns. The
-exit status is non-zero on a worker failure, a timeout or a mismatch.
+A node group shape that ``partition.make_node_spec`` rejects, a tenant
+split that does not divide, node groups of ranks holding several
+shards, and a resized restart of a weak-scaling run fail before any
+rank spawns. The exit status is non-zero on a worker failure, a timeout
+or a mismatch.
 
 With ``--supervise`` (:func:`supervise`) the ranks run chunked with a
 checkpoint every ``--checkpoint-every`` steps under ``--ckpt-dir`` (the
@@ -62,11 +70,11 @@ import time
 import numpy as np
 
 from repro_torch.core.partition import (batch_ranks, columns_to_global,
-                                        make_node_spec, make_rank_tile_spec,
+                                        make_node_spec, make_tile_spec,
                                         process_grid)
 from repro_torch.runtime.multiprocess import (RESULT_TAG, add_workload_args,
-                                              build_cfg, load_states,
-                                              tenant_state_dir)
+                                              build_cfg, check_shards,
+                                              load_states, tenant_state_dir)
 from repro_torch.runtime.sharding import tenants_per_shard
 
 SRC = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -89,7 +97,9 @@ def worker_argv(args) -> list:
             "--steps", str(args.steps), "--seed", str(args.seed),
             "--family", args.family, "--impl", args.impl,
             "--device", args.device, "--timeout", str(args.timeout),
-            "--exchange-mode", args.exchange_mode]
+            "--exchange-mode", args.exchange_mode,
+            "--timed-reps", str(args.timed_reps),
+            "--shards-per-rank", str(args.shards_per_rank)]
     if args.radius:
         argv += ["--radius", str(args.radius)]
     if args.aer_rate_bound:
@@ -111,6 +121,8 @@ def worker_argv(args) -> list:
                  "--batch-shards", str(args.batch_shards)]
     if args.guard:
         argv.append("--guard")
+    if args.weak:
+        argv.append("--weak")
     return argv
 
 
@@ -235,6 +247,21 @@ def launch(args, *, ranks=None, extra=None, hb_dir=None,
         f"{outs[0][1]}")
 
 
+def workload_cfg(args):
+    """The config the ranks build (``multiprocess.build_cfg``; under
+    ``--weak`` the grid scaled to ``--ranks``)."""
+    ns = argparse.Namespace(**vars(args))
+    ns.nranks = args.ranks
+    return build_cfg(ns)
+
+
+def shard_spec(args, cfg):
+    """The TileSpec of the ranks' shard grid: the process grid of one
+    batch shard's ranks, each row extended ``--shards-per-rank`` times."""
+    ry, rx = process_grid(args.ranks // args.batch_shards)
+    return make_tile_spec(cfg, ry, rx * args.shards_per_rank)
+
+
 def _dedicated_run(cfg, params, state, steps: int, impl: str,
                    seed: int | None = None) -> dict:
     """One single-shard run's totals and final leaves (``STATE_LEAVES``
@@ -267,7 +294,7 @@ def single_process_reference(args) -> dict:
     from repro_torch.core import network as net
     from repro_torch.core import simulation as sim
 
-    cfg = dataclasses.replace(build_cfg(args), exchange=ExchangeConfig())
+    cfg = dataclasses.replace(workload_cfg(args), exchange=ExchangeConfig())
     params, state = sim.build(cfg, device=args.device)
     if not args.batch:
         return _dedicated_run(cfg, params, state, args.steps, args.impl)
@@ -305,6 +332,9 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--json", default="",
                     help="append the metrics row to this JSON-lines file "
                          "('-' prints the row to stdout)")
+    ap.add_argument("--no-check-single", dest="check_single",
+                    action="store_false",
+                    help="skip the bitwise single-process equality check")
     # the fault-tolerant supervisor (supervise)
     ap.add_argument("--supervise", action="store_true",
                     help="supervised run: periodic checkpoints, heartbeat "
@@ -345,13 +375,24 @@ def make_parser() -> argparse.ArgumentParser:
 def refuse_before_spawn(args) -> None:
     """Exit with the reference's text for what no rank could run: node
     groups with ``--batch`` or supervised, a bad node shape, a tenant
-    split that does not divide, a supervised ``--batch``, and the
-    supervisor's own refusals (:func:`check_supervised`)."""
+    split that does not divide, a supervised ``--batch``, a resized
+    restart of a weak-scaling run (with or without ``--supervise``), the
+    refusals of ``--shards-per-rank`` (``multiprocess.check_shards``)
+    and the supervisor's own (:func:`check_supervised`)."""
     if args.ranks_per_node and (args.batch or args.checkpoint_every):
         raise SystemExit("--ranks-per-node applies to the plain distributed "
                          "run only (not --batch / supervised mode)")
     if args.checkpoint_every and args.batch:
         raise SystemExit("supervised mode does not support --batch yet")
+    try:
+        check_shards(args)
+    except ValueError as err:
+        raise SystemExit(str(err)) from None
+    if args.restart_ranks and args.weak:
+        raise SystemExit(
+            "--restart-ranks cannot be combined with --weak: the weak-"
+            "scaling grid is derived from the rank count, so a resized "
+            "restart would change the network itself")
     if args.supervise:
         check_supervised(args)
     elif (args.checkpoint_every or args.chaos_kill_rank >= 0
@@ -479,7 +520,7 @@ def check_tenants(args, row: dict, ref: dict, leaves: list) -> bool:
                   zip(row["per_tenant_events"], ref["per_tenant_events"])))
     if ok and leaves:
         spatial = args.ranks // args.batch_shards
-        spec = make_rank_tile_spec(build_cfg(args), spatial)
+        spec = shard_spec(args, workload_cfg(args))
         for i, want in enumerate(ref["tenants"]):
             states = load_states(tenant_state_dir(args.state_dir, i),
                                  spatial)
@@ -519,9 +560,10 @@ def report_check(args, row: dict, ref: dict, leaves: list) -> bool:
           and events_agree(row["events"], ref["events"]))
     if ok and leaves:
         if args.supervise:
-            states, spec = checkpoint_states(build_cfg(args), row["ckpt_dir"])
+            states, spec = checkpoint_states(workload_cfg(args),
+                                             row["ckpt_dir"])
         else:
-            spec = make_rank_tile_spec(build_cfg(args), args.ranks)
+            spec = shard_spec(args, workload_cfg(args))
             states = load_states(args.state_dir, args.ranks)
         ok = all(np.array_equal(columns_to_global(states[k], spec), ref[k])
                  for k in leaves)
@@ -566,7 +608,11 @@ def main(argv=None) -> int:
               + (f" node_grid={row['node_grid']}x{row['ranks_per_node']}"
                  if args.ranks_per_node else "")
               + (f" tenants={row['batch_size']} batch_shards="
-                 f"{row['batch_shards']}" if args.batch else ""))
+                 f"{row['batch_shards']}" if args.batch else "")
+              + (f" shards_per_rank={args.shards_per_rank}"
+                 if args.shards_per_rank != 1 else "")
+              + (f" (fastest of {args.timed_reps})"
+                 if args.timed_reps != 1 else ""))
         if row["aer_saturated_steps"]:
             # truncated but flagged sends: the run is degraded and the
             # check below is expected to fail; say why first
@@ -574,12 +620,14 @@ def main(argv=None) -> int:
                   f"{row['steps']} steps: event lists overflowed the "
                   f"capacity bound (raise --aer-rate-bound)")
 
-    ref = single_process_reference(args)
-    one = ref["tenants"][0] if args.batch else ref
-    leaves = ([k for k in STATE_LEAVES if k in one]
-              if args.state_dir or args.supervise else [])
-    ok = report_check(args, row, ref, leaves)
-    row["single_process_match"] = ok
+    ok = True
+    if args.check_single:
+        ref = single_process_reference(args)
+        one = ref["tenants"][0] if args.batch else ref
+        leaves = ([k for k in STATE_LEAVES if k in one]
+                  if args.state_dir or args.supervise else [])
+        ok = report_check(args, row, ref, leaves)
+        row["single_process_match"] = ok
     if args.json == "-":
         print(json.dumps(row, sort_keys=True))
     elif args.json:

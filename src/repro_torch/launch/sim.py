@@ -3,7 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.sim --grid 24x24 \
         --neurons 1240 --steps 200 [--impl cuda_fused|cuda|ref] \
         [--stdp] [--device cuda|cpu] [--seed 42] \
-        [--mesh RxC [--pipelined]]
+        [--mesh RxC [--pipelined] [--no-compress]]
 
 The network is built on the device from the seed, keyed as the JAX
 reference builds it, and the kernels from the sources,
@@ -15,10 +15,12 @@ grid over an R x C shard grid in this process, all shards stacked into
 each kernel launch, with the halo exchange between them
 (``core/exchange.py``; ``--pipelined`` defers each exchanged frame by a
 step; with ``--stdp`` the pre-trace halo rides beside the spikes and
-the weights' drift is printed as on one shard). The halo bytes it
-prints are those an interior rank of that
-grid sends on the packed wire (``runtime/compression.py``); in one
-process the strips move as slices on the card.
+the weights' drift is printed as on one shard). The strips move as
+slices on the card, packed into 32-bit words as a rank packs them
+(``transport.pack_spikes``), or as float32 strips with
+``--no-compress``, as the reference's flag of the same name; the halo
+bytes it prints are those an interior rank of that grid sends on that
+wire (``runtime/compression.py``).
 """
 from __future__ import annotations
 
@@ -59,6 +61,8 @@ def main(argv=None):
                     help="e.g. 2x2 (rows x cols of shards); empty = one shard")
     ap.add_argument("--pipelined", action="store_true",
                     help="cross-step pipelined halo exchange (mesh runs)")
+    ap.add_argument("--no-compress", action="store_true",
+                    help="mesh runs: move float32 strips, not packed words")
     args = ap.parse_args(argv)
 
     gh, gw = parse_grid(args.grid)
@@ -76,7 +80,8 @@ def main(argv=None):
     if device.type == "cuda":
         ops.library()
     if args.mesh:
-        return run_mesh(cfg, args, LocalMesh(*parse_grid(args.mesh), device))
+        return run_mesh(cfg, args, LocalMesh(*parse_grid(args.mesh), device,
+                                             compress=not args.no_compress))
     params0, state = sim.build(cfg, device=device)
     warm = sim.run(cfg, params0, state, WARMUP_STEPS, impl=args.impl)
     params, state = warm.params, warm.state
@@ -140,12 +145,13 @@ def run_mesh(cfg: DPSNNConfig, args, mesh):
     spikes = float(final.spike_count.double().sum()
                    - state.spike_count.double().sum())
     rate = spikes / (cfg.n_neurons * sim_s)
-    payload = halo_payload_bytes(cfg, spec)
+    payload = halo_payload_bytes(cfg, spec, compress=mesh.compress)
     print(f"mesh {mesh.shape[0]}x{mesh.shape[1]} shards of "
           f"{spec.tile_h}x{spec.tile_w} columns, {spec.rings_y}+"
           f"{spec.rings_x} rings, {spec.permutes_per_step} shifts and "
           f"{payload['bytes_per_step']} halo bytes per step per interior "
-          f"shard{', pipelined' if cfg.exchange.pipelined else ''}")
+          f"shard, {'packed' if mesh.compress else 'float32'} strips"
+          f"{', pipelined' if cfg.exchange.pipelined else ''}")
     if cfg.stdp:
         print_drift(params.w_local,
                     final.plastic.w_local.reshape(params.w_local.shape))

@@ -16,9 +16,11 @@ On a mesh (``core/exchange.py``) the leaves are (S,), one verdict per
 local shard, and :class:`HaloGuard` frames every halo message of a step
 with a position-weighted checksum word (:func:`frame_checksum`),
 verified on receive: one frame per shard's message, so a corrupt word
-trips the shard that received it. Its chaos bit flip corrupts one
-received word at a fixed send ordinal and step, as the reference's
-does.
+trips the shard that received it. On the batched service's mesh the
+leaves are (b, S) inside the step, and each tenant's strip of a message
+is framed apart, as the reference's ``vmap`` of the guarded step frames
+it. Its chaos bit flip corrupts one received word at a fixed send
+ordinal and step, as the reference's does.
 
 Trip codes are a bitmask, so one int32 reports compound failures.
 """
@@ -111,7 +113,8 @@ def frame_checksum(words: torch.Tensor) -> torch.Tensor:
 
 class HaloGuard:
     """One step's checksum accumulator for the halo exchange of ``shards``
-    local shards at host step ``t``.
+    local shards (of ``tenants`` b tenants each, when given) at host step
+    ``t``.
 
     :meth:`wrap` turns a transport's ``move(x, axis, direction)`` (a
     stack of messages, one per index of the (rows, cols) stack axes in
@@ -119,14 +122,21 @@ class HaloGuard:
     checksum word, the frames move, the chaos flip lands on the received
     frames (send ordinal ``chaos_flip_ring`` at step ``chaos_flip_step``:
     bit 0 of word ``chaos_flip_word % n_words`` of every received frame,
-    the zero frame at the sheet's edge too), and each is verified.
-    :meth:`verdict` gives the step's (shards,) failures and counts. A
-    message that is not 32-bit words cannot be framed and raises."""
+    the zero frame at the sheet's edge too), and each is verified. With
+    ``tenants`` a message is (rows, cols, b, ...) and each tenant's strip
+    is its own frame: one reshape frames them all, and the flip lands on
+    every tenant's. :meth:`verdict` gives the step's (shards,) failures
+    and counts, or (b, shards) with tenants. A message that is not 32-bit
+    words cannot be framed and raises."""
 
-    def __init__(self, gcfg: GuardConfig, t: int, shards: int, device):
+    def __init__(self, gcfg: GuardConfig, t: int, shards: int, device,
+                 tenants: int = 0):
         self.gcfg = gcfg
         self.t = t
-        self._none = torch.zeros(shards, dtype=torch.int32, device=device)
+        self.tenants = tenants
+        self._frame_axes = 3 if tenants else 2
+        self._none = torch.zeros((tenants, shards) if tenants else shards,
+                                 dtype=torch.int32, device=device)
         self._groups = []     # per wrapped move: its verdicts, to_shards
         self._send_ordinal = 0
 
@@ -147,7 +157,8 @@ class HaloGuard:
                     f"message cannot be framed")
             ordinal = self._send_ordinal
             self._send_ordinal += 1
-            words = x.view(torch.int32).reshape(*x.shape[:2], -1)
+            words = x.view(torch.int32).reshape(
+                *x.shape[:self._frame_axes], -1)
             n = words.shape[-1]
             msg = torch.cat([words, frame_checksum(words)[..., None]], -1)
             recv = move(msg, axis, direction)
@@ -164,13 +175,17 @@ class HaloGuard:
 
     def verdict(self):
         """``(fail, count)``: (shards,) bool and int32, whether and how
-        many corrupt frames each shard received this step."""
+        many corrupt frames each shard received this step ((b, shards)
+        per tenant and shard with ``tenants``)."""
         count = self._none
         for bads, to_shards in self._groups:
             if bads:
                 n = torch.stack(bads).sum(0, dtype=torch.int32)
-                count = count + (n.reshape(-1) if to_shards is None
-                                 else to_shards(n))
+                if to_shards is not None:
+                    n = to_shards(n)
+                elif self.tenants:          # (rows, cols, b) -> (b, S)
+                    n = n.movedim(2, 0).reshape(self.tenants, -1)
+                count = count + n.reshape(count.shape)
         return count > 0, count
 
 

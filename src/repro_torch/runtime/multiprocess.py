@@ -3,13 +3,21 @@ processes (the port of ``repro/runtime/multiprocess.py``).
 
 * Each **rank** is one OS process (spawned by
   ``launch/launch_distributed.py``, or by any launcher that sets the
-  coordinator environment) holding one shard of the column grid.
+  coordinator environment) holding one shard of the column grid, or,
+  with ``--shards-per-rank k``, k shards that extend its row of the
+  shard grid (the reference's k local devices per process: the layout
+  of a node of several cards).
 * :func:`init_worker` joins the rank into a ``torch.distributed``
   process group on gloo (TCP), so every halo shift crosses an OS-process
   boundary as a real message: the analogue of the paper's MPI exchange.
 * Placement is process-major on the closest-to-square process grid: rank
-  r owns tile ``(r // rx, r % rx)`` (``partition.process_grid``), so a
-  shift crosses at most one process hop per ring.
+  r owns tile ``(r // rx, r % rx)`` (``partition.process_grid``), or
+  tiles ``(r // rx, (r % rx) * k + j)`` of the (ry, rx * k) shard grid,
+  so a shift crosses at most one process hop per ring.
+* ``--weak`` reads ``--grid`` as one rank's tile and scales the global
+  grid with the rank count (``configs.dpsnn.with_ranks``, the paper's
+  Fig 3 protocol); ``--timed-reps N`` times N runs after the untimed
+  one and reports the fastest.
 * :func:`worker_run` runs the same ``exchange.dist_step`` as the
   in-process mesh, over a ``ProcessGroupMesh``. Determinism per column
   id makes the trajectory bitwise equal to the single-process one (the
@@ -331,21 +339,49 @@ def worker_run_supervised(cfg, total_steps: int, *, checkpoint_every: int,
     }
 
 
+def _timed(run, dev, timed_reps: int):
+    """The reference's timing protocol: one untimed call warms the card
+    and the connections; then ``timed_reps`` calls are each timed end to
+    end (every rank waits for the all-reduced totals, so a wall time
+    holds every message of every step), and the fastest is kept, the
+    noise filter for ranks that share cores. Returns ``(output of the
+    last call, min wall s, every wall s, rank 0's kernel launches in the
+    last call)``."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+
+    if timed_reps < 1:
+        raise ValueError(f"timed_reps must be >= 1, got {timed_reps}")
+    run()                            # warm-up, untimed
+    _sync(dev)
+    dist.barrier()
+    walls = []
+    for _ in range(timed_reps):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = run()
+        _sync(dev)
+        walls.append(time.perf_counter() - t0)
+    return out, min(walls), walls, dict(ops.LAUNCHES)
+
+
 def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
                compress: bool = True, device="cuda",
-               state_dir: str = "", ranks_per_node: int = 0) -> dict:
-    """Build and run this rank's shard on the process grid (with
-    ``ranks_per_node``, in node groups under the hierarchical exchange);
-    return the paper's metrics (totals all-reduced, so every rank returns
-    the same), with the byte split of the node level under
-    ``ranks_per_node`` (``compression.hier_payload_bytes``) and, under
-    the guard, every shard's verdict (``integrity.guard_report``).
+               state_dir: str = "", ranks_per_node: int = 0,
+               timed_reps: int = 1, shards_per_rank: int = 1) -> dict:
+    """Build and run this rank's shards on the process grid (with
+    ``ranks_per_node``, in node groups under the hierarchical exchange;
+    with ``shards_per_rank`` k, k shards of its row); return the paper's
+    metrics (totals all-reduced, so every rank returns the same), with
+    the byte split of the node level under ``ranks_per_node``
+    (``compression.hier_payload_bytes``) and, under the guard, every
+    shard's verdict (``integrity.guard_report``).
 
-    Timing: one untimed run warms the card and the connections; then one
-    run is timed end to end (every rank waits for the all-reduced
-    totals, so the wall time holds every message of every step). The
-    row also gives rank 0's kernel launches in the timed run and, on the
-    card, its peak memory.
+    Timing: :func:`_timed`, one untimed run and the fastest of
+    ``timed_reps`` runs each timed end to end. The row also gives rank
+    0's kernel launches in the last timed run and, on the card, its peak
+    memory.
     """
     import torch
     import torch.distributed as dist
@@ -359,21 +395,14 @@ def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
     from repro_torch.runtime.transport import ProcessGroupMesh
 
     mesh = ProcessGroupMesh(device, compress=compress,
-                            ranks_per_node=ranks_per_node)
+                            ranks_per_node=ranks_per_node,
+                            shards_per_rank=shards_per_rank)
     dev = mesh.device
     _share_cores(dev)
     build_s = ops.library().build_seconds if dev.type == "cuda" else 0.0
     run, spec = exchange.make_distributed_run(
         cfg, mesh, n_steps=n_steps, impl=impl, with_state=True)
-    run()                            # warm-up, untimed
-    _sync(dev)
-    dist.barrier()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    res, final = run()
-    _sync(dev)
-    wall_s = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
+    (res, final), wall_s, walls, launches = _timed(run, dev, timed_reps)
     # the kernel library is built once per checkout: a rank that had to
     # build it raised the maximum
     most = torch.tensor([build_s], dtype=torch.float64)
@@ -412,6 +441,7 @@ def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
     return {
         "rank_count": dist.get_world_size(),
         "process_grid": list(mesh.shape),
+        "shards_per_rank": shards_per_rank,
         **hier_row,
         **guard_row,
         "grid": f"{cfg.grid_h}x{cfg.grid_w}",
@@ -420,11 +450,15 @@ def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
         "tile": f"{spec.tile_h}x{spec.tile_w}",
         "steps": n_steps,
         "wall_s": wall_s,
+        "timed_reps": timed_reps,
+        "wall_s_reps": walls,
         "step_ms": wall_s / n_steps * 1e3,
         "spikes": float(res.spikes),
         "events": events,
         "events_per_s": events / max(wall_s, 1e-12),
         "rate_hz": float(res.rate_hz),
+        # the population rate of every step, as SimResult.rate_trace
+        "rate_trace": res.rate_trace.cpu().tolist(),
         "state_checksum": float(res.state_checksum),
         "impl": impl,
         "compress": compress,
@@ -448,30 +482,34 @@ def worker_run(cfg, n_steps: int, *, impl: str = "cuda_fused",
 
 
 def make_batched_process_mesh(batch_shards: int, *, device="cuda",
-                              compress: bool = True):
+                              compress: bool = True,
+                              shards_per_rank: int = 1):
     """The batched service's transport over the default process group:
     the tenant axis shards over ``batch_shards`` process groups, each
     running the spatial process grid of ``world / batch_shards`` ranks
-    (a ``ProcessGroupMesh`` with ``batch_shards``). Placement is
-    batch-major, process-major: ranks ``[k*S, (k+1)*S)`` form batch
-    shard k, so every halo message stays inside a batch shard and the
-    tenant axis never appears in a spike message; only the per-tenant
-    totals cross it. Raises with the reference's text when the shards do
-    not divide the ranks."""
+    with ``shards_per_rank`` shards each (a ``ProcessGroupMesh`` with
+    ``batch_shards``; the reference's (batch, ry, rx * local) device
+    grid). Placement is batch-major, process-major: ranks ``[k*S,
+    (k+1)*S)`` form batch shard k, so every halo message stays inside a
+    batch shard and the tenant axis never appears in a spike message;
+    only the per-tenant totals cross it. Raises with the reference's
+    text when the shards do not divide the ranks."""
     import torch.distributed as dist
 
     from repro_torch.core.partition import batch_ranks, process_grid
     from repro_torch.runtime.sharding import service_mesh
 
     spatial = batch_ranks(dist.get_world_size(), batch_shards)
-    return service_mesh(batch_shards, *process_grid(spatial), device,
-                        compress=compress)
+    ry, rx = process_grid(spatial)
+    return service_mesh(batch_shards, ry, rx * shards_per_rank, device,
+                        compress=compress, shards_per_rank=shards_per_rank)
 
 
 def worker_run_batched(cfg, n_steps: int, *, batch: int,
                        batch_shards: int = 1, impl: str = "cuda_fused",
                        compress: bool = True, device="cuda",
-                       state_dir: str = "") -> dict:
+                       state_dir: str = "", timed_reps: int = 1,
+                       shards_per_rank: int = 1) -> dict:
     """Batched multi-tenant run on the ranks
     (``exchange.make_batched_distributed_run``): ``batch`` tenants with
     seeds ``cfg.seed + i`` share one network; the per-tenant totals reach
@@ -479,37 +517,35 @@ def worker_run_batched(cfg, n_steps: int, *, batch: int,
     dedicated single-process run. With ``state_dir`` each rank saves each
     of its tenants' final state under :func:`tenant_state_dir`.
 
-    Timing as :func:`worker_run`: one untimed run, then one timed end to
-    end. The row has the reference's per-tenant keys, and rank 0's
-    launches in the timed run and, on the card, its peak memory."""
+    Timing as :func:`worker_run`: one untimed run, then the fastest of
+    ``timed_reps`` runs each timed end to end. Under ``cfg.guard`` every
+    tenant's strip of a halo message is framed apart and each (shard,
+    tenant) has its verdict; the row reports them all. The row has the
+    reference's per-tenant keys, and rank 0's launches in the last timed
+    run and, on the card, its peak memory."""
     import torch
     import torch.distributed as dist
 
     from repro_torch.core import exchange
     from repro_torch.core.batched import map_leaves
     from repro_torch.kernels import ops
+    from repro_torch.runtime import integrity
     from repro_torch.runtime.compression import halo_payload_bytes
     from repro_torch.runtime.sharding import local_tenants
 
     mesh = make_batched_process_mesh(batch_shards, device=device,
-                                     compress=compress)
+                                     compress=compress,
+                                     shards_per_rank=shards_per_rank)
     dev = mesh.device
     _share_cores(dev)
     build_s = ops.library().build_seconds if dev.type == "cuda" else 0.0
     run, spec = exchange.make_batched_distributed_run(
         cfg, mesh, n_steps=n_steps, batch=batch, impl=impl, with_state=True)
     seeds = [cfg.seed + i for i in range(batch)]
-    run(seeds)                       # warm-up, untimed
-    _sync(dev)
-    dist.barrier()
-    ops.reset_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    res, final = run(seeds)
-    _sync(dev)
-    wall_s = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
+    (res, final), wall_s, walls, launches = _timed(
+        lambda: run(seeds), dev, timed_reps)
     most = torch.tensor([build_s], dtype=torch.float64)
     dist.all_reduce(most, op=dist.ReduceOp.MAX)
     if state_dir:
@@ -524,16 +560,28 @@ def worker_run_batched(cfg, n_steps: int, *, batch: int,
     payload = halo_payload_bytes(cfg, spec, mode=acct_mode,
                                  compress=compress)
     sat = res.aer_saturated.cpu()
+    guard_row = {}
+    if cfg.guard.enabled:
+        # the report's reductions (any, max) of every (shard, tenant)
+        # verdict of every rank
+        worst = mesh.all_max(torch.stack([x.to(torch.int32).max()
+                                          for x in final.guard]))
+        guard_row = integrity.guard_report(
+            integrity.GuardState(*worst.unbind()))
     return {
         "rank_count": dist.get_world_size(),
         "batch_size": batch,
         "batch_shards": batch_shards,
+        "shards_per_rank": shards_per_rank,
         "process_grid": [batch_shards, *mesh.shape],
+        **guard_row,
         "grid": f"{cfg.grid_h}x{cfg.grid_w}",
         "neurons": cfg.n_neurons,
         "tile": f"{spec.tile_h}x{spec.tile_w}",
         "steps": n_steps,
         "wall_s": wall_s,
+        "timed_reps": timed_reps,
+        "wall_s_reps": walls,
         "step_ms": wall_s / n_steps * 1e3,
         "spikes": sum(per_spikes),
         "events": events,
@@ -565,7 +613,7 @@ def build_cfg(args):
     """The workload's config from :func:`add_workload_args`' flags."""
     from repro_torch.configs.base import (DPSNNConfig, ExchangeConfig,
                                           GuardConfig)
-    from repro_torch.configs.dpsnn import with_family
+    from repro_torch.configs.dpsnn import with_family, with_ranks
 
     gh, gw = (int(v) for v in args.grid.split("x"))
     cfg = DPSNNConfig(grid_h=gh, grid_w=gw,
@@ -595,6 +643,9 @@ def build_cfg(args):
             pipelined=args.pipelined,
             exchange_mode=("auto" if args.exchange_mode == "auto"
                            else "inherit")))
+    if args.weak:
+        # --grid is one rank's tile; the global grid scales with the ranks
+        cfg = with_ranks(cfg, args.nranks)
     if args.guard:
         cfg = dataclasses.replace(cfg, guard=GuardConfig(enabled=True))
     return cfg
@@ -625,7 +676,8 @@ def add_workload_args(ap: argparse.ArgumentParser) -> None:
     or, with ``--stdp``, plastic; with ``--guard``, guarded)."""
     from repro_torch.core.network import IMPLS
 
-    ap.add_argument("--grid", default="8x8", help="column grid HxW")
+    ap.add_argument("--grid", default="8x8",
+                    help="column grid HxW (with --weak: one rank's tile)")
     ap.add_argument("--neurons", type=int, default=64)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
@@ -671,6 +723,34 @@ def add_workload_args(ap: argparse.ArgumentParser) -> None:
                     help="the in-band integrity guard: invariant monitors "
                          "and checksummed halo frames (bitwise neutral "
                          "on a healthy run)")
+    ap.add_argument("--weak", action="store_true",
+                    help="weak scaling: --grid is one rank's tile, the "
+                         "global grid is with_ranks(cfg, nranks)")
+    ap.add_argument("--timed-reps", type=int, default=1,
+                    help="time this many runs after the untimed one and "
+                         "report the fastest")
+    ap.add_argument("--shards-per-rank", type=int, default=1,
+                    help="shards each rank holds, extending its row of "
+                         "the shard grid: the port's counterpart of the "
+                         "reference's local devices per process (a node "
+                         "of several cards)")
+
+
+SUPERVISED_SHARDS = (
+    "--shards-per-rank applies to the unsupervised runs: a supervised "
+    "run's checkpoints, restores and reshards hold one shard per rank "
+    "(ROADMAP queue 1 item 7g)")
+
+
+def check_shards(args) -> None:
+    """The refusals of ``--shards-per-rank`` (ValueError): node groups
+    take one shard per rank (the reference's text), and the supervisor
+    checkpoints one shard per rank."""
+    from repro_torch.runtime.transport import check_shards_per_rank
+
+    check_shards_per_rank(args.shards_per_rank, args.ranks_per_node)
+    if args.shards_per_rank != 1 and args.checkpoint_every:
+        raise ValueError(SUPERVISED_SHARDS)
 
 
 def add_chaos_args(ap: argparse.ArgumentParser) -> None:
@@ -719,6 +799,10 @@ def main(argv=None) -> int:
                  "only (not --batch / supervised mode)")
     if args.checkpoint_every and args.batch:
         ap.error("supervised mode does not support --batch yet")
+    try:
+        check_shards(args)
+    except ValueError as err:
+        ap.error(str(err))
 
     import torch.distributed as dist
 
@@ -746,12 +830,15 @@ def main(argv=None) -> int:
                 cfg, args.steps, batch=args.batch,
                 batch_shards=args.batch_shards, impl=args.impl,
                 compress=args.compress, device=args.device,
-                state_dir=args.state_dir)
+                state_dir=args.state_dir, timed_reps=args.timed_reps,
+                shards_per_rank=args.shards_per_rank)
         else:
             out = worker_run(cfg, args.steps, impl=args.impl,
                              compress=args.compress, device=args.device,
                              state_dir=args.state_dir,
-                             ranks_per_node=args.ranks_per_node)
+                             ranks_per_node=args.ranks_per_node,
+                             timed_reps=args.timed_reps,
+                             shards_per_rank=args.shards_per_rank)
     finally:
         dist.destroy_process_group()
     if args.rank == 0:

@@ -25,33 +25,37 @@ from repro_torch.runtime.transport import LocalMesh, ProcessGroupMesh
 
 
 def service_mesh(batch_shards: int, rows: int, cols: int, device="cuda", *,
-                 compress: bool = True):
+                 compress: bool = True, shards_per_rank: int = 1):
     """The transport of a batched service run: ``batch_shards`` tenant
     shards, each over a ``rows x cols`` spatial shard grid.
 
     Without an initialised process group this process is the one rank,
     so only ``batch_shards == 1`` fits: a :class:`LocalMesh` of every
-    shard. With one, the world must hold ``batch_shards * rows * cols``
-    ranks, one shard each, on the closest-to-square grid
-    (``partition.process_grid``): a :class:`ProcessGroupMesh`, its strips
-    packed into words unless ``compress`` is False. Raises
-    with all three factors named when the rank count does not match, as
-    the reference names its device count."""
+    shard. With one, the world must hold ``batch_shards * rows * cols /
+    shards_per_rank`` ranks, ``shards_per_rank`` shards each along a row
+    of the closest-to-square process grid (``partition.process_grid``):
+    a :class:`ProcessGroupMesh`, its strips packed into words unless
+    ``compress`` is False. Raises with all three factors named when the
+    rank count does not match, as the reference names its device
+    count."""
     ranks = dist.is_initialized()
     have = dist.get_world_size() if ranks else 1
-    need = batch_shards * rows * cols
+    k = shards_per_rank
+    need = batch_shards * rows * cols // k if cols % k == 0 else 0
     if batch_shards < 1 or (have != need if ranks else batch_shards != 1):
         raise ValueError(
             f"service mesh {batch_shards}(batch) x {rows}(data) x "
-            f"{cols}(model) needs {need} ranks, have {have}")
+            f"{cols}(model) needs {need} ranks"
+            f"{f' of {k} shards' if k != 1 else ''}, have {have}")
     if not ranks:
         return LocalMesh(rows, cols, device)
-    if process_grid(rows * cols) != (rows, cols):
+    grid = process_grid(rows * cols // k)
+    if grid != (rows, cols // k):
         raise ValueError(
             f"service mesh {rows}x{cols}: the ranks of a batch shard take "
-            f"the process grid {process_grid(rows * cols)}")
+            f"the process grid {grid}")
     return ProcessGroupMesh(device, compress=compress,
-                            batch_shards=batch_shards)
+                            batch_shards=batch_shards, shards_per_rank=k)
 
 
 def batch_shards(mesh) -> int:

@@ -28,12 +28,16 @@ local shard's halo window out of the extended node frames.
   one device: a move is a slice of the stacked tile axis and a block of
   zeros, a node gather a reshape, a node move the same slice over the
   node grid. No byte crosses a wire, so it does not pack by default.
-* :class:`ProcessGroupMesh` runs one shard per process of the default
-  ``torch.distributed`` group, rank ``r`` owning tile
-  ``(r // cols, r % cols)``. A move pairs ``isend``/``irecv`` with the
-  two neighbours through ``batch_isend_irecv``; gloo carries CPU
-  tensors, so CUDA payloads are copied to the host and back. It packs
-  by default. With ``ranks_per_node`` each node group gets its own
+* :class:`ProcessGroupMesh` runs ``shards_per_rank`` k shards per
+  process of the default ``torch.distributed`` group (one by default):
+  on the (ry, rx) process grid rank ``r`` owns the k consecutive tiles
+  of row ``r // rx`` from column ``(r % rx) * k`` of the (ry, rx * k)
+  shard grid, stacked as ``local = (1, k)`` (the reference's k local
+  devices per process, extending its row). A move rolls the local
+  stack and pairs ``isend``/``irecv`` of the strip at its edge with the
+  two neighbouring ranks through ``batch_isend_irecv``; gloo carries
+  CPU tensors, so CUDA payloads are copied to the host and back. It
+  packs by default. With ``ranks_per_node`` each node group gets its own
   process group: the node frame is an all-gather within it, a node move
   a send between the lane-(0,0) corner ranks of neighbouring nodes and
   a broadcast from the corner to its node. The backend is whatever the
@@ -110,6 +114,20 @@ def assert_axis_sizes(spec: TileSpec, mesh) -> None:
             f"would pair wrong neighbours. Rebuild the spec from the mesh "
             f"(partition.make_tile_spec) or fix the mesh shape."
         )
+
+
+def check_shards_per_rank(shards_per_rank: int, ranks_per_node: int = 0
+                          ) -> None:
+    """A rank holds at least one shard, and node groups take one shard
+    per rank: the reference's text for its hierarchical mesh of processes
+    with more than one local device."""
+    if shards_per_rank < 1:
+        raise ValueError(f"shards_per_rank must be >= 1, got "
+                         f"{shards_per_rank}")
+    if ranks_per_node and shards_per_rank != 1:
+        raise ValueError(
+            f"--ranks-per-node assumes one device per process (the CPU "
+            f"rank runtime); got {shards_per_rank} local devices per rank")
 
 
 def _node_frames(tiles: torch.Tensor, node_local, node: NodeSpec
@@ -221,8 +239,10 @@ class LocalMesh(_Transport):
 
 
 class ProcessGroupMesh(_Transport):
-    """One shard per process of the initialised default process group, on
-    the closest-to-square process grid (``partition.process_grid``).
+    """``shards_per_rank`` shards per process of the initialised default
+    process group, on the closest-to-square process grid
+    (``partition.process_grid``), each process's shards extending its
+    row of the shard grid.
     Payloads live on ``device`` (CUDA by default; raises when there is
     no card); with ``compress`` (the default) strips cross packed. With
     ``ranks_per_node`` consecutive ranks form node groups
@@ -237,7 +257,8 @@ class ProcessGroupMesh(_Transport):
     rank within the shard; the reductions still run over the world."""
 
     def __init__(self, device="cuda", compress: bool = True,
-                 ranks_per_node: int = 0, batch_shards: int = 1):
+                 ranks_per_node: int = 0, batch_shards: int = 1,
+                 shards_per_rank: int = 1):
         if not dist.is_initialized():
             raise RuntimeError(
                 "ProcessGroupMesh needs an initialised torch.distributed "
@@ -248,13 +269,16 @@ class ProcessGroupMesh(_Transport):
                 "the batched multi-tenant runner does not support the "
                 "hierarchical ('ndata','data','nmodel','model') mesh — run "
                 "tenants on a flat spatial mesh, or drop --ranks-per-node")
+        check_shards_per_rank(shards_per_rank, ranks_per_node)
+        k = shards_per_rank
         rows, cols = process_grid(spatial)
         self.batch_shards = batch_shards
         self.batch_index, self.rank = divmod(dist.get_rank(), spatial)
         self.base = self.batch_index * spatial   # the shard's first rank
-        self.shape = (rows, cols)
-        self.local = (1, 1)
-        self.shards = (self.rank,)
+        self.grid = (rows, cols)                 # the process grid
+        self.shape = (rows, cols * k)            # the shard grid
+        self.local = (1, k)
+        self.shards = tuple(range(self.rank * k, (self.rank + 1) * k))
         self.coords = divmod(self.rank, cols)
         self.device = resolve_device(device)
         self.compress = compress
@@ -271,7 +295,7 @@ class ProcessGroupMesh(_Transport):
         self.lane = (ty % gy, tx % gx)
         for a in range(node.nodes_y):
             for j in range(node.nodes_x):
-                ranks = [self._node_corner_rank(a, j) + b * self.shape[1] + l
+                ranks = [self._node_corner_rank(a, j) + b * self.grid[1] + l
                          for b in range(gy) for l in range(gx)]  # noqa: E741
                 group = dist.new_group(ranks)
                 if (a, j) == self.node_coords:
@@ -280,14 +304,14 @@ class ProcessGroupMesh(_Transport):
 
     def _node_corner_rank(self, a: int, j: int) -> int:
         """The lane-(0,0) rank of node (a, j)."""
-        return a * self.node.group_h * self.shape[1] + j * self.node.group_w
+        return a * self.node.group_h * self.grid[1] + j * self.node.group_w
 
     def _peer(self, axis: int, step: int) -> int | None:
         """Rank of the neighbour ``step`` tiles away along ``axis``, or
         None beyond the sheet's edge."""
         ty, tx = self.coords
         ty, tx = (ty + step, tx) if axis == 0 else (ty, tx + step)
-        rows, cols = self.shape
+        rows, cols = self.grid
         if 0 <= ty < rows and 0 <= tx < cols:
             return self.base + ty * cols + tx
         return None
@@ -312,17 +336,27 @@ class ProcessGroupMesh(_Transport):
         recv = torch.zeros(x.shape, dtype=x.dtype)
         if src is not None:
             ops.append(dist.P2POp(dist.irecv, recv, src))
-        for work in dist.batch_isend_irecv(ops):
+        for work in dist.batch_isend_irecv(ops) if ops else ():
             work.wait()
         return recv
 
     def move(self, x: torch.Tensor, axis: int, direction: int
              ) -> torch.Tensor:
+        """Shard j of the local stack receives shard j + ``direction``'s
+        payload: inside the stack a slice, and at the stack's edge the
+        strip of the neighbouring rank's edge shard, one message per
+        rank and direction."""
         if self.shape[axis] == 1:
             return torch.zeros_like(x)
-        recv = self._send_recv(x, self._peer(axis, -direction),
-                               self._peer(axis, direction))
-        return recv.to(x.device)
+        size = x.shape[axis]
+        edge = x.narrow(axis, 0 if direction > 0 else size - 1, 1)
+        recv = self._send_recv(edge, self._peer(axis, -direction),
+                               self._peer(axis, direction)).to(x.device)
+        if size == 1:
+            return recv
+        keep = x.narrow(axis, 1 if direction > 0 else 0, size - 1)
+        return torch.cat([keep, recv] if direction > 0 else [recv, keep],
+                         axis)
 
     def node_move(self, x: torch.Tensor, axis: int, direction: int
                   ) -> torch.Tensor:
@@ -368,7 +402,7 @@ class ProcessGroupMesh(_Transport):
         return host.to(x.device)
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's (1, ...) leaf -> every rank's, (S, ...) in rank
+        """This rank's (k, ...) leaf -> every rank's, (S, ...) in rank
         (= process-major shard) order, on the host of every rank (gloo
         all-gather; bool leaves cross as bytes)."""
         if self.batch_shards != 1:

@@ -192,9 +192,10 @@ def test_payload_accounting_equals_reference(gh, gw, ry, rx, compress):
 
 
 def test_mesh_refusals_name_their_roadmap_items():
-    """A guarded mesh runs (item 6), static and plastic; the batched mesh
-    refuses the guard, naming item 7; an unknown wire format or policy
-    raises the reference's text."""
+    """A guarded mesh runs (item 6), static and plastic, and since item 7e
+    so does the guarded batched mesh, its guard leaves (n_shards,
+    b_local); an unknown wire format or policy raises the reference's
+    text."""
     from repro_torch.configs.base import GuardConfig
     base = dpsnn.reduced(4, 4, 16)
     mesh = LocalMesh(2, 2, "cpu")
@@ -204,13 +205,13 @@ def test_mesh_refusals_name_their_roadmap_items():
                                          mesh, n_steps=1, with_state=True)
         _, st = run()
         assert (st.guard is not None) == ("guard" in change)
-    for change, item in [(dict(guard=GuardConfig(enabled=True)), "item 7"),
-                         (dict(stdp=True, guard=GuardConfig(enabled=True)),
-                          "item 7")]:
-        with pytest.raises(NotImplementedError, match=item):
-            ex.make_batched_distributed_run(
-                dataclasses.replace(base, **change), mesh, n_steps=1,
-                batch=2)
+        run, _ = ex.make_batched_distributed_run(
+            dataclasses.replace(base, **change), mesh, n_steps=1, batch=2,
+            with_state=True)
+        _, st = run([0, 1])
+        assert (st.guard is not None) == ("guard" in change)
+        if st.guard is not None:
+            assert st.guard.tripped.shape == (4, 2)
     for change, text in [
             (dict(conn=dataclasses.replace(base.conn,
                                            exchange_mode="morse_code")),

@@ -1,7 +1,8 @@
 """The port imports neither JAX nor the JAX package: every module of
 ``repro_torch`` (the checkpointer and the fault-tolerance runtime of the
-durability slice among them) and ``chip_smoke.py`` (imported, not run)
-in a fresh interpreter leave no ``jax`` or ``repro`` module behind."""
+durability slice among them), ``chip_smoke.py`` and the port's example
+scripts ``examples/torch_*.py`` (imported, not run) in a fresh
+interpreter leave no ``jax`` or ``repro`` module behind."""
 import os
 import pathlib
 import subprocess
@@ -23,13 +24,17 @@ def one_thread():
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 PROBE = """
-import importlib, pkgutil, sys
+import importlib, pathlib, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                'repro_torch.')]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import runpy
+for script in sorted(pathlib.Path('examples').glob('torch_*.py')):
+    runpy.run_path(str(script), run_name='example')
+    names.append(str(script))
 bad = sorted(m for m in sys.modules
              if m in ('jax', 'repro', 'jaxlib')
              or m.startswith(('jax.', 'repro.', 'jaxlib.')))
@@ -54,5 +59,7 @@ def test_port_imports_no_jax_and_no_reference():
     for module in ("repro_torch.checkpoint", "repro_torch.checkpoint."
                    "checkpointer", "repro_torch.runtime.fault_tolerance",
                    "repro_torch.runtime.multiprocess",
-                   "repro_torch.launch.launch_distributed"):
+                   "repro_torch.launch.launch_distributed",
+                   "examples/torch_quickstart.py",
+                   "examples/torch_simulate_cortex.py"):
         assert module in names, module
