@@ -166,7 +166,28 @@ then, on the card:
    300 steps of a (576, 1240) state of RS and FS neurons on the card,
    equal to the same function on the CPU (whose run is most of the
    phase's time: 1000 steps took 64 s on the host of an H100 machine, so
-   the steps were cut, not the state).
+   the steps were cut, not the state);
+10. drives the LM zoo's serving path (``repro_torch.models``, plain torch:
+   the reference computes it in plain ``jnp``, with no Pallas kernel), its
+   parameters from the port's own ``init`` on the card from a seeded
+   generator, TF32 off: (a) qwen3-0.6b at full config, in float32 2
+   sequences of 48 tokens teacher-forced through ``decode`` equal to
+   ``forward``'s logits within 2e-2 (the reference test's tolerance),
+   then in bfloat16 ``examples/serve_decode.py``'s loop at 8 requests,
+   prompt 24, 48 generated, with its decode ms/step (median after the
+   first step, CUDA events), tokens/s, the prefill of the prompts, device
+   ops a step and busy share (profiled), parameter GB and peak memory;
+   (b) gemma2-9b at full config the same way (the float32 copy freed
+   before the bfloat16 one), and a 2048-token prefill through
+   ``_blockwise_attn`` (2 x 2 blocks of 1024, one call a layer) against
+   the direct path, within 1e-3 in float32 and within 2.0 max abs and
+   2e-2 relative in bfloat16; (c) internvl2-1b at full config,
+   ``prefill_logits`` over 256 patch embeddings and 64 tokens at batch 4,
+   then 32 greedy decode steps; (d) the reduced configs of qwen3-0.6b,
+   granite-3-2b, gemma2-9b, gemma2-27b and internvl2-1b, drawn on the
+   card and carried to the CPU: ``forward``, 48 teacher-forced decode
+   steps (gemma2's rolling caches wrap) and the final caches within
+   1e-4, and equal greedy tokens.
 
 Every phase raises on failure and the script exits non-zero. Without a
 card, or without the rest of the repository beside it, it exits
@@ -292,6 +313,23 @@ DRILL_STEPS, DRILL_EVERY, DRILL_FLIP = 60, 10, "0:25:3"
 WEAK_TILE, WEAK_RANKS, WEAK_REPS = (12, 12), (1, 2, 4), 3
 SHARDS_PER_RANK = 2
 IZH_SHAPE, IZH_STEPS, IZH_INH, IZH_BANK = (576, 1240), 300, 0.2, 16
+# phase 10, the LM serving path: the archs whose reduced configs 10d
+# holds against the CPU, and its tolerance (float32, TF32 off); the
+# float32 decode-against-forward check at full width (batch, tokens) and
+# its tolerance (tests/test_models.py's); the served requests, prompt and
+# generated tokens (examples/serve_decode.py's defaults); gemma2-9b's
+# long prefill (batch 1, two blocks of 1024 each way) and its tolerance
+# against the direct path in float32 (bfloat16's difference is reported,
+# not gated); internvl2-1b's batch, patches, text
+# tokens and decode steps; profiled decode steps
+LM_ARCHS = ("qwen3-0.6b", "granite-3-2b", "gemma2-9b", "gemma2-27b",
+            "internvl2-1b")
+LM_CARD_TOL = 1e-4
+LM_CHECK, LM_CHECK_TOL = (2, 48), 2e-2
+LM_SERVE = (8, 24, 48)
+LM_LONG, LM_LONG_F32_TOL = 2048, 1e-3
+LM_VLM = (4, 256, 64, 32)
+LM_PROFILE_STEPS = 10
 
 
 def log(*args):
@@ -367,6 +405,12 @@ class Smoke:
         from repro_torch.core import batched
         from repro_torch.launch import serve
         self.batched, self.serve = batched, serve
+        import repro_torch.configs as lm_configs
+        from repro_torch import convert
+        from repro_torch.models import attention as lm_attention
+        from repro_torch.models import model as lm_model
+        self.LC, self.LA, self.LM = lm_configs, lm_attention, lm_model
+        self.convert = convert
         self.ExchangeConfig = base.ExchangeConfig
         self.payload_bytes = compression.halo_payload_bytes
         self.comp = compression
@@ -563,7 +607,12 @@ class Smoke:
         # 9. weak scaling, several shards per rank, the guarded batched
         # mesh and the Izhikevich neuron
         self.completion_path(cfg, params, fused)
-        del params
+        del params, fused
+        torch.cuda.empty_cache()
+
+        # 10. the LM zoo's serving path: qwen3-0.6b, gemma2-9b and
+        # internvl2-1b at full config, the reduced configs against the CPU
+        self.lm_path()
 
         tenant = {f"{name}[B={TENANT_B}]": name for name in TENANT_KERNELS}
         tenant[PLASTIC_FUSED] = "fused_step"
@@ -1638,10 +1687,12 @@ class Smoke:
             self.sync()
             wall_us = (time.perf_counter() - w0) * 1e6
         by_name = {}     # device-side events only: the kernels themselves
+        launches = 0
         for ev in prof.key_averages():
             if ev.device_type == torch.autograd.DeviceType.CUDA:
                 by_name[ev.key] = (by_name.get(ev.key, 0.0)
                                    + ev.self_device_time_total)
+                launches += ev.count
         # the PyTorch op behind each launch (the port's kernels launch
         # through ctypes, outside any op)
         by_op = {ev.key: ev.self_device_time_total
@@ -1664,6 +1715,7 @@ class Smoke:
                    top_ops_us_per_step={k: v / steps for k, v in sorted(
                        by_op.items(), key=lambda kv: -kv[1])[:6]},
                    busy_share=device_us / wall_us,
+                   device_ops_per_step=launches / steps,
                    busy_share_unprofiled=device_us / steps / 1e3
                    / ms_per_step,
                    top_us_per_step={k[:60]: v / steps for k, v in top})
@@ -1675,7 +1727,8 @@ class Smoke:
             f"{largest[0][:50]} {largest[1] / steps:.1f} us; by op: "
             + ", ".join(f"{k} {v:.1f} us"
                         for k, v in out["top_ops_us_per_step"].items())
-            + f"), busy share "
+            + f"), {out['device_ops_per_step']:.1f} device ops a step, "
+            f"busy share "
             f"{out['busy_share']:.3f} (of {ms_per_step:.4f} ms/step with "
             f"the profiler off: {out['busy_share_unprofiled']:.3f}); per "
             f"step: "
@@ -4262,6 +4315,342 @@ class Smoke:
             f"spike count equal the CPU's to the bit (0 ulp)")
         return row
 
+    # ------------------------------------------------------ phase 10: LMs
+    def lm_path(self):
+        """Phase 10: the LM zoo's serving path (``repro_torch.models``,
+        plain torch, no kernel of this repo): 10a qwen3-0.6b and 10b
+        gemma2-9b at full config (:meth:`lm_full`), 10c internvl2-1b
+        (:meth:`lm_vlm`), 10d the reduced configs of LM_ARCHS against the
+        CPU (:meth:`lm_reduced`). Parameters from the port's own ``init``
+        on the card, from a seeded generator."""
+        t0 = time.perf_counter()
+        LC = self.LC
+        self.report["phase10"] = dict(
+            qwen3=self.lm_full(LC.get_config("qwen3-0.6b"), "10a"),
+            gemma2=self.lm_full(LC.get_config("gemma2-9b"), "10b",
+                                long=True),
+            internvl2=self.lm_vlm(LC.get_config("internvl2-1b")),
+            reduced=self.lm_reduced())
+        self.report["phase10"]["seconds"] = time.perf_counter() - t0
+        log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+
+    def event_ms(self, fn):
+        """(device ms between CUDA events around ``fn()``, its result)."""
+        torch = self.torch
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = fn()
+        e1.record()
+        self.sync()
+        return e0.elapsed_time(e1), out
+
+    def lm_model(self, cfg):
+        """``build_model(cfg)`` on the card and its parameters from the
+        port's ``init`` with a generator on the card seeded with 0 (the
+        generator goes on to draw the inputs); :meth:`lm_peak_gb` counts
+        from here."""
+        torch = self.torch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        self.lm_base = torch.cuda.memory_allocated(self.dev)
+        model = self.LM.build_model(cfg, device=self.dev)
+        gen = torch.Generator(device=self.dev).manual_seed(0)
+        return model, model.init(gen), gen
+
+    def lm_peak_gb(self):
+        """Peak device memory since :meth:`lm_model`, less what was
+        allocated then (what earlier phases still hold)."""
+        return (self.torch.cuda.max_memory_allocated(self.dev)
+                - self.lm_base) / 1e9
+
+    @staticmethod
+    def param_gb(params):
+        return sum(p.numel() * p.element_size()
+                   for p in params.parameters()) / 1e9
+
+    def lm_full(self, cfg, tag, long=False):
+        """10a/10b: ``cfg`` at full width. In float32, LM_CHECK tokens
+        teacher-forced through ``decode`` equal ``forward``'s logits
+        within LM_CHECK_TOL (and with ``long`` the LM_LONG-token prefill
+        through ``_blockwise_attn`` equals the direct path's); the float32
+        parameters are freed, then the config's bfloat16 model serves
+        LM_SERVE (:meth:`lm_serve`, and with ``long`` the prefill again)."""
+        torch = self.torch
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model, params, gen = self.lm_model(cfg32)
+        gb32 = self.param_gb(params)
+        b, s = LM_CHECK
+        toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                             device=self.dev)
+        with torch.no_grad():
+            full, _, _ = model.forward(params, {"tokens": toks})
+            dec, _ = self.LM.decode_all(model, params, toks)
+        err = self.close(f"phase {tag} {cfg.name} float32 decode against "
+                         f"forward", dec, full, rtol=LM_CHECK_TOL,
+                         atol=LM_CHECK_TOL)
+        if not bool(torch.isfinite(full).all()):
+            raise AssertionError(f"phase {tag}: non-finite logits")
+        row = dict(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+                   vocab=cfg.vocab_size, f32_param_gb=gb32,
+                   f32_decode_vs_forward_max_abs=err)
+        log(f"phase {tag} {cfg.name} (full config: {cfg.num_layers} layers, "
+            f"d {cfg.d_model}, vocab {cfg.vocab_size}), float32 "
+            f"{gb32:.3f} GB of parameters: {s} tokens x {b} teacher-forced "
+            f"through decode equal forward's logits within {LM_CHECK_TOL} "
+            f"(max abs err {err:.3e})")
+        del full, dec
+        if long:
+            row["long_f32"] = self.lm_long(model, params, gen, tag)
+        del params
+        model, params, gen = self.lm_model(cfg)
+        row.update(self.lm_serve(model, params, tag))
+        if long:
+            row["long_bf16"] = self.lm_long(model, params, gen, tag)
+        del params
+        torch.cuda.empty_cache()
+        return row
+
+    def lm_serve(self, model, params, tag):
+        """:meth:`lm_greedy`'s serving loop, each step between CUDA events
+        (a host-bound step's device time includes the gaps between its
+        launches), and its wall time; one ``prefill_logits`` over the
+        prompts (median of 3 after one untimed); LM_PROFILE_STEPS
+        profiled steps; peak memory from the parameters' draw on
+        (:meth:`lm_peak_gb`)."""
+        torch, cfg = self.torch, model.cfg
+        b, prompt, n_gen = LM_SERVE
+        s_cache = prompt + n_gen
+        prompts = self.prng.randint(self.prng.prng_key(1, self.dev),
+                                    (b, prompt), 0, cfg.vocab_size)
+        with torch.no_grad():
+            def prefill():
+                return model.prefill_logits(params, {"tokens": prompts})
+            self.event_ms(prefill)
+            prefill_ms = statistics.median(self.event_ms(prefill)[0]
+                                           for _ in range(3))
+            events = []
+
+            def mark():
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+            self.sync()
+            w0 = time.perf_counter()
+            gen, logits = self.lm_greedy(model, params, mark)
+            self.sync()
+            wall = time.perf_counter() - w0
+            if (not bool(torch.isfinite(logits).all())
+                    or gen.shape != (b, n_gen)
+                    or not bool(((gen >= 0) & (gen < cfg.vocab_size)).all())):
+                raise AssertionError(f"phase {tag} {cfg.name}: the served "
+                                     f"logits or tokens are not valid")
+            ms = [e0.elapsed_time(e1) for e0, e1 in zip(events, events[1:])]
+            step_ms = statistics.median(ms[1:])
+            peak = self.lm_peak_gb()
+            pcache, at = model.cache_init(b, s_cache), [0]
+
+            def run(k):
+                for _ in range(k):
+                    model.decode(params, pcache, prompts[:, :1], at[0])
+                    at[0] += 1
+            prof = self.profile(f"{cfg.name} {cfg.dtype} decode B={b}", run,
+                                step_ms, steps=LM_PROFILE_STEPS)
+        gb = self.param_gb(params)
+        row = dict(requests=b, prompt=prompt, generated=n_gen, param_gb=gb,
+                   decode_ms_per_step=step_ms, first_step_ms=ms[0],
+                   tokens_per_s=b * 1e3 / step_ms,
+                   loop_wall_s=wall,
+                   tokens_per_s_wall=b * (s_cache - 1) / wall,
+                   prefill_ms=prefill_ms, peak_memory_gb=peak,
+                   device_ops_per_step=prof["device_ops_per_step"],
+                   busy_share=prof["busy_share_unprofiled"],
+                   request0=gen[0, :12].tolist())
+        log(f"phase {tag} {cfg.name} {cfg.dtype} ({gb:.3f} GB of "
+            f"parameters) serve, {b} requests, "
+            f"prompt {prompt}, {n_gen} generated: decode "
+            f"{step_ms:.4f} ms/step (median of {len(ms) - 1} after the "
+            f"first, {ms[0]:.2f} ms), {row['tokens_per_s']:.1f} tokens/s "
+            f"({row['tokens_per_s_wall']:.1f} over the loop's "
+            f"{wall:.3f} s wall), prefill of {b}x{prompt} "
+            f"{prefill_ms:.4f} ms, {prof['device_ops_per_step']:.0f} "
+            f"device ops a step, device busy "
+            f"{row['busy_share']:.3f} of the step, peak memory "
+            f"{peak:.2f} GB; request 0: {row['request0']}")
+        return row
+
+    def lm_long(self, model, params, gen, tag):
+        """10b: one LM_LONG-token prefill (batch 1) through
+        ``_blockwise_attn`` (two query and two key blocks of 1024; one
+        call a layer, counted) against the direct ``_sdpa`` path
+        (``BLOCK_Q`` raised to LM_LONG, no blockwise call): the
+        last-position logits within LM_LONG_F32_TOL in float32; in
+        bfloat16 the max abs and relative norm of the difference are
+        reported, not gated (the float32 check carries the blockwise
+        path's correctness). Both timed once after one untimed call."""
+        torch, LA, cfg = self.torch, self.LA, model.cfg
+        toks = torch.randint(0, cfg.vocab_size, (1, LM_LONG), generator=gen,
+                             device=self.dev)
+        calls, real, block_q = [0], LA._blockwise_attn, LA.BLOCK_Q
+
+        def counted(*args, **kw):
+            calls[0] += 1
+            return real(*args, **kw)
+
+        def prefill():
+            return model.prefill_logits(params, {"tokens": toks})
+        LA._blockwise_attn = counted
+        try:
+            with torch.no_grad():
+                prefill()
+                calls[0] = 0
+                block_ms, blocked = self.event_ms(prefill)
+                n_blocked = calls[0]
+                LA.BLOCK_Q = LM_LONG
+                prefill()
+                calls[0] = 0
+                direct_ms, direct = self.event_ms(prefill)
+                n_direct = calls[0]
+        finally:
+            LA._blockwise_attn, LA.BLOCK_Q = real, block_q
+        if (n_blocked, n_direct) != (cfg.num_layers, 0):
+            raise AssertionError(f"phase {tag}: {n_blocked} blockwise calls "
+                                 f"on the long path, {n_direct} on the "
+                                 f"direct one")
+        a, d = blocked.float(), direct.float()
+        max_abs = float((a - d).abs().max())
+        rel = float((a - d).norm() / d.norm())
+        if cfg.dtype == "float32":
+            self.close(f"phase {tag} {cfg.name} float32 {LM_LONG}-token "
+                       f"prefill, blockwise against direct", a, d,
+                       rtol=LM_LONG_F32_TOL, atol=LM_LONG_F32_TOL)
+        row = dict(tokens=LM_LONG, dtype=cfg.dtype, blockwise_ms=block_ms,
+                   direct_ms=direct_ms, max_abs=max_abs, rel_norm=rel,
+                   same_argmax=bool(a.argmax() == d.argmax()))
+        log(f"phase {tag} {cfg.name} {cfg.dtype} prefill of {LM_LONG} "
+            f"tokens (batch 1): blockwise {block_ms:.3f} ms "
+            f"({n_blocked} calls of 2x2 blocks), direct {direct_ms:.3f} ms; "
+            f"last-position logits max abs difference {max_abs:.3e}, "
+            f"relative {rel:.3e}, same argmax {row['same_argmax']}")
+        return row
+
+    def lm_vlm(self, cfg):
+        """10c: ``cfg`` (internvl2-1b, bfloat16) at full width:
+        ``prefill_logits`` over LM_VLM's patch embeddings and text tokens
+        (median of 3 after one untimed), then greedy decode steps from its
+        token on a cache of patches + text + steps slots. The reference's
+        decode has no way to write a prefill's keys into the cache (nor
+        has the port's), so the steps time decode at that cache's size,
+        not a continuation of the prefill."""
+        torch = self.torch
+        b, n_patch, n_text, n_steps = LM_VLM
+        model, params, gen = self.lm_model(cfg)
+        gb = self.param_gb(params)
+        batch = {
+            "patches": torch.randn(b, n_patch, cfg.d_model, generator=gen,
+                                   device=self.dev).to(torch.bfloat16),
+            "tokens": torch.randint(0, cfg.vocab_size, (b, n_text),
+                                    generator=gen, device=self.dev)}
+        with torch.no_grad():
+            def prefill():
+                return model.prefill_logits(params, batch)
+            self.event_ms(prefill)
+            timed = [self.event_ms(prefill) for _ in range(3)]
+            prefill_ms = statistics.median(ms for ms, _ in timed)
+            logits = timed[0][1]
+            caches = model.cache_init(b, n_patch + n_text + n_steps)
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            ms = []
+            for pos in range(n_steps):
+                step_ms, (logits, caches) = self.event_ms(
+                    lambda: model.decode(params, caches, tok, pos))
+                tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+                ms.append(step_ms)
+        if (timed[0][1].shape != (b, 1, cfg.vocab_size)
+                or not bool(torch.isfinite(timed[0][1]).all())
+                or not bool(torch.isfinite(logits).all())):
+            raise AssertionError("phase 10c: prefill or decode logits not "
+                                 "finite or of the wrong shape")
+        step_ms = statistics.median(ms[1:])
+        row = dict(arch=cfg.name, batch=b, patches=n_patch, text=n_text,
+                   decode_steps=n_steps, param_gb=gb, prefill_ms=prefill_ms,
+                   decode_ms_per_step=step_ms,
+                   tokens_per_s=b * 1e3 / step_ms,
+                   peak_memory_gb=self.lm_peak_gb())
+        log(f"phase 10c {cfg.name} {cfg.dtype} (full config, {gb:.3f} GB "
+            f"of parameters): prefill_logits over {n_patch} patches + "
+            f"{n_text} tokens at batch {b} {prefill_ms:.4f} ms; {n_steps} "
+            f"greedy decode steps on a {n_patch + n_text + n_steps}-slot "
+            f"cache {step_ms:.4f} ms/step (median after the first), "
+            f"{row['tokens_per_s']:.1f} tokens/s; peak memory "
+            f"{row['peak_memory_gb']:.2f} GB")
+        del params
+        torch.cuda.empty_cache()
+        return row
+
+    def lm_reduced(self, archs=LM_ARCHS):
+        """10d: the reduced config of each arch, its parameters drawn on
+        the card and carried to the CPU through the
+        converter: ``forward``'s logits, LM_CHECK[1] teacher-forced decode
+        steps (past gemma2's reduced window of 32, so its rolling caches
+        wrap) and the final caches agree within LM_CARD_TOL, and the
+        greedy tokens of an LM_SERVE loop are equal."""
+        torch, cv = self.torch, self.convert
+        rows = {}
+        for arch in archs:
+            cfg = self.LC.reduced_config(arch)
+            model, params, _ = self.lm_model(cfg)
+            host = self.LM.build_model(cfg, device="cpu")
+            host_params = cv.lm_params_from_numpy(
+                cfg, cv.lm_params_to_numpy(params), "cpu")
+            g = torch.Generator().manual_seed(1)
+            b, s = LM_CHECK
+            toks = torch.randint(0, cfg.vocab_size, (b, s), generator=g)
+            batch = {"tokens": toks}
+            if cfg.family == "vlm":
+                batch = {"patches": torch.randn(b, 8, cfg.d_model,
+                                                generator=g),
+                         "tokens": toks[:, 8:]}
+            runs = []
+            for m, p, dev in ((model, params, self.dev),
+                              (host, host_params, host.device)):
+                with torch.no_grad():
+                    on = {k: x.to(dev) for k, x in batch.items()}
+                    fwd, _, _ = m.forward(p, on)
+                    dec, caches = self.LM.decode_all(m, p, toks.to(dev))
+                    gen, _ = self.lm_greedy(m, p)
+                runs.append((fwd.cpu(), dec.cpu(),
+                             cv.lm_cache_to_numpy(cfg, caches), gen.cpu()))
+            (fc, dc, cc, gc), (fh, dh, ch, gh) = runs
+            err = max(
+                self.close(f"phase 10d {arch} forward", fc, fh,
+                           rtol=LM_CARD_TOL, atol=LM_CARD_TOL),
+                self.close(f"phase 10d {arch} decode", dc, dh,
+                           rtol=LM_CARD_TOL, atol=LM_CARD_TOL),
+                *(self.close(f"phase 10d {arch} cache", torch.from_numpy(x),
+                             torch.from_numpy(y), rtol=LM_CARD_TOL,
+                             atol=LM_CARD_TOL)
+                  for pair_c, pair_h in zip(cc, ch)
+                  for x, y in zip(pair_c, pair_h)))
+            if not torch.equal(gc, gh):
+                raise AssertionError(f"phase 10d {arch}: greedy tokens on "
+                                     f"the card differ from the CPU's")
+            rows[arch] = dict(max_abs_err=err, greedy_equal=True)
+            del params
+        log(f"phase 10d reduced configs of {', '.join(archs)}: parameters "
+            f"drawn on the card, carried to the CPU; forward, {LM_CHECK[1]} "
+            f"teacher-forced decode steps (gemma2's rolling caches wrap at "
+            f"32) and the final caches agree within {LM_CARD_TOL} (max abs "
+            f"err {max(r['max_abs_err'] for r in rows.values()):.3e}), and "
+            f"the greedy tokens of a {LM_SERVE[0]}-request loop are equal")
+        return rows
+
+    def lm_greedy(self, model, params, on_step=None):
+        """``models.model.greedy`` at LM_SERVE, on the prompts of
+        ``examples/serve_decode.py`` (``randint(PRNGKey(1))``): (tokens
+        (B, gen), the last logits)."""
+        b, prompt, n_gen = LM_SERVE
+        prompts = self.prng.randint(self.prng.prng_key(1, model.device),
+                                    (b, prompt), 0, model.cfg.vocab_size)
+        return self.LM.greedy(model, params, prompts, n_gen, on_step)
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,12 +1,15 @@
-"""Config dataclasses of the DPSNN simulator, for the PyTorch port.
+"""Config dataclasses of the PyTorch port.
 
-A copy (fields, defaults and derived properties verbatim) of the DPSNN
-half of ``repro/configs/base.py``
-(``NeuronConfig`` .. ``DPSNNConfig`` with its derived Table-1
-bookkeeping). The port keeps its own copy so that it imports nothing of
-the JAX package; ``tests/test_torch_connectivity.py`` holds the two
-copies equal field by field and property by property. The LM-zoo
-configs are not part of this port yet.
+A copy (fields, defaults and derived properties verbatim) of
+``repro/configs/base.py``: the DPSNN half (``NeuronConfig`` ..
+``DPSNNConfig`` with its derived Table-1 bookkeeping) and the LM-zoo
+half (``MoEConfig``, ``SSMConfig``, ``AttnConfig``, ``ModelConfig`` with
+``head_dim``, ``param_count`` and ``active_param_count``,
+``ShapeConfig``, ``SHAPES`` and ``TrainConfig``). The port keeps its own
+copy so that it imports nothing of the JAX package;
+``tests/test_torch_connectivity.py`` holds the DPSNN classes equal to
+the reference's field by field and property by property, and
+``tests/test_torch_lm_configs.py`` the LM classes and every arch config.
 
 Everything is a frozen dataclass so configs hash and compare by value.
 """
@@ -14,6 +17,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # DPSNN (the paper)
@@ -280,3 +284,162 @@ class DPSNNConfig:
         return self.conn.min_delay_steps + int(
             math.ceil(self.conn.delay_per_step * math.hypot(r, r))
         )
+
+
+# ---------------------------------------------------------------------------
+# LM architecture zoo
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0          # routed experts (0 = dense FFN)
+    top_k: int = 1
+    num_shared: int = 0           # always-on shared experts (llama4 style)
+    every: int = 1                # MoE layer stride (2 = alternate dense/MoE)
+    capacity_factor: float = 1.25
+    router_z_coef: float = 1e-3
+    aux_loss_coef: float = 1e-2
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128            # mamba2 N
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 256              # SSD chunk length
+
+
+@dataclass(frozen=True)
+class AttnConfig:
+    num_heads: int = 16
+    num_kv_heads: int = 16
+    head_dim: int = 0             # 0 -> d_model // num_heads
+    rope_theta: float = 10000.0
+    qk_norm: bool = False         # qwen3
+    logit_softcap: float = 0.0    # gemma2: 50. on attn logits
+    sliding_window: int = 0       # gemma2 local layers
+    local_global_pattern: int = 0 # gemma2: 2 => alternate local/global
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """One assigned architecture. ``family`` picks the stack of blocks."""
+    name: str = "model"
+    family: str = "dense"         # dense | moe | ssm | hybrid | audio | vlm
+    num_layers: int = 12
+    d_model: int = 1024
+    d_ff: int = 4096
+    vocab_size: int = 32000
+    attn: AttnConfig = field(default_factory=AttnConfig)
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # gemma2 extras
+    final_logit_softcap: float = 0.0
+    post_norms: bool = False      # gemma2 sandwich norms
+    act: str = "silu"             # silu | gelu | geglu
+    tie_embeddings: bool = True
+    # enc-dec (whisper)
+    num_decoder_layers: int = 0   # >0 => encoder-decoder
+    # hybrid (zamba2): one shared attention block every `shared_every` blocks
+    shared_every: int = 0
+    # frontend stubs
+    frontend: str = "none"        # none | audio_frames | vision_patches
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"
+    remat: str = "block"          # none | block | full
+    # which shapes this arch skips (see DESIGN.md §6)
+    skip_shapes: Tuple[str, ...] = ()
+
+    @property
+    def head_dim(self) -> int:
+        return self.attn.head_dim or self.d_model // self.attn.num_heads
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embedding + blocks)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        n_q = self.attn.num_heads * self.head_dim
+        n_kv = self.attn.num_kv_heads * self.head_dim
+        attn = d * n_q + 2 * d * n_kv + n_q * d
+        if self.act == "geglu" or self.act == "silu":
+            ffn_dense = 3 * d * f
+        else:
+            ffn_dense = 2 * d * f
+        total = emb
+        if self.family == "ssm":
+            inner = self.ssm.expand * d
+            heads = inner // self.ssm.head_dim
+            blk = d * (2 * inner + 2 * heads * self.ssm.d_state  # x,z,B,C
+                       ) + inner * d + heads + inner  # out, A, dt, D-ish
+            total += self.num_layers * blk
+            return total
+        for layer in range(self.num_layers):
+            is_moe = (
+                self.moe is not None
+                and self.moe.num_experts > 0
+                and layer % self.moe.every == (self.moe.every - 1)
+            )
+            if is_moe:
+                total += attn + ffn_dense * (self.moe.num_experts + self.moe.num_shared)
+                total += d * self.moe.num_experts  # router
+            else:
+                total += attn + ffn_dense
+        if self.num_decoder_layers:
+            total += self.num_decoder_layers * (2 * attn + ffn_dense)
+        return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed top-k + shared)."""
+        if self.moe is None or self.moe.num_experts == 0:
+            return self.param_count()
+        full = self.param_count()
+        d, f = self.d_model, self.d_ff
+        ffn = 3 * d * f if self.act in ("silu", "geglu") else 2 * d * f
+        n_moe_layers = sum(
+            1 for layer in range(self.num_layers)
+            if layer % self.moe.every == (self.moe.every - 1)
+        )
+        inactive = n_moe_layers * ffn * (
+            self.moe.num_experts - self.moe.top_k
+        )
+        return full - inactive
+
+
+# ---------------------------------------------------------------------------
+# Shapes (assigned input-shape set) and meshes
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str = "train_4k"
+    seq_len: int = 4096
+    global_batch: int = 256
+    kind: str = "train"           # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "adamw"      # adamw | adafactor | adamw8bit
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    microbatch: int = 0           # 0 = no gradient accumulation
+    accum_dtype: str = "float32"  # bfloat16 for the very largest models
+    grad_compression: str = "none"  # none | int8_ef

@@ -28,8 +28,12 @@ the reference's layout, every leaf (n_shards, b_local, ...), and
 comes across with the ``DistState`` functions as it is;
 :func:`merge_batch_shards` folds the batch shards of a run over several
 (the reference's batch-major shard axis) into the (S, B, ...) layout of
-one process holding every tenant. This module imports neither JAX nor
-the reference: the caller hands it arrays.
+one process holding every tenant. The LM zoo's parameters and decode
+caches come across with :func:`lm_params_from_numpy` /
+:func:`lm_params_to_numpy` and :func:`lm_cache_from_numpy` /
+:func:`lm_cache_to_numpy`: the reference's stacked layer groups are
+unstacked into the port's layers and stacked back. This module imports
+neither JAX nor the reference: the caller hands it arrays.
 """
 from __future__ import annotations
 
@@ -40,6 +44,9 @@ from repro_torch.core.exchange import DistState, PlasticState
 from repro_torch.core.network import NetworkParams, NetworkState
 from repro_torch.core.neuron import LIFState
 from repro_torch.core.plasticity import STDPState
+from repro_torch.models import attention as A
+from repro_torch.models import transformer as T
+from repro_torch.models.model import build_model
 from repro_torch.runtime.integrity import GuardState
 
 PARAM_LEAVES = ("w_local", "rem_flat", "rem_w", "local_outdeg")
@@ -176,3 +183,155 @@ def merge_batch_shards(leaves: dict, batch_shards: int) -> dict:
         y = np.moveaxis(x.reshape(batch_shards, s, *x.shape[1:]), 0, 1)
         out[name] = y.reshape(s, batch_shards * x.shape[1], *x.shape[2:])
     return out
+
+
+# ---------------------------------------------------------------------------
+# The LM zoo: parameters and decode caches
+# ---------------------------------------------------------------------------
+
+def lm_flatten(tree, prefix="") -> dict:
+    """An LM pytree (nested dicts, lists and tuples of arrays) ->
+    {"groups.0.attn.wq": array}, the reference's leaf paths."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for key, sub in items:
+        out.update(lm_flatten(sub, f"{prefix}.{key}" if prefix
+                              else str(key)))
+    return out
+
+
+def lm_unflatten(flat: dict) -> dict:
+    """The inverse of :func:`lm_flatten`, ``groups`` as a list."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        node, keys = tree, path.split(".")
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = leaf
+    tree["groups"] = [tree["groups"][str(slot)]
+                      for slot in range(len(tree["groups"]))]
+    return tree
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _lm_tensor(x, device) -> torch.Tensor:
+    """A numpy leaf as a tensor; bfloat16 (``ml_dtypes``, as JAX hands
+    it) through its 16-bit pattern."""
+    x = np.ascontiguousarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(x.copy()).to(device)
+
+
+def _lm_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _tree_path(name: str, gsize: int):
+    """A port parameter's name -> (the reference's leaf path, group)."""
+    if not name.startswith("layers."):
+        return name, None
+    _, layer, rest = name.split(".", 2)
+    group, slot = divmod(int(layer), gsize)
+    return f"groups.{slot}.{rest}", group
+
+
+def lm_params_from_numpy(cfg, tree, device="cuda") -> T.DecoderLM:
+    """The reference's ``build_model(cfg).init(key)`` pytree, as nested
+    dicts and lists of numpy arrays, -> the port's params (a
+    ``DecoderLM``, with ``adapter`` for a VLM) on ``device``: group
+    ``g`` of slot ``slot`` becomes layer ``g * gsize + slot``. Every
+    leaf's dtype and shape is checked; a missing or extra leaf raises,
+    naming its path."""
+    params = build_model(cfg, device="meta").init()
+    gsize, ngroups, _ = T._group_layout(cfg)
+    flat = lm_flatten(tree)
+    want = {}
+    for name, p in params.named_parameters():
+        path, group = _tree_path(name, gsize)
+        shape = tuple(p.shape) if group is None else (ngroups, *p.shape)
+        want[path] = (shape, _dtype_name(p.dtype))
+    missing = sorted(set(want) - set(flat))
+    extra = sorted(set(flat) - set(want))
+    if missing or extra:
+        raise KeyError(f"{cfg.name}: leaves missing {missing}, extra {extra}")
+    for path, (shape, dtype) in want.items():
+        got = (tuple(flat[path].shape), flat[path].dtype.name)
+        if got != (shape, dtype):
+            raise ValueError(f"{cfg.name}: leaf {path} is {got[1]} "
+                             f"{got[0]}, expected {dtype} {shape}")
+    dev = torch.device(device)
+    for name, _ in list(params.named_parameters()):
+        path, group = _tree_path(name, gsize)
+        leaf = flat[path] if group is None else flat[path][group]
+        owner, _, attr = name.rpartition(".")
+        setattr(params.get_submodule(owner), attr, torch.nn.Parameter(
+            _lm_tensor(leaf, dev), requires_grad=False))
+    return params
+
+
+def lm_params_to_numpy(params: T.DecoderLM) -> dict:
+    """The exact inverse of :func:`lm_params_from_numpy`: the
+    reference's pytree of numpy arrays, layers stacked back into
+    groups."""
+    gsize, ngroups, _ = T._group_layout(params.cfg)
+    stacks: dict = {}
+    for name, p in params.named_parameters():
+        path, group = _tree_path(name, gsize)
+        stacks.setdefault(path, [None] * ngroups if group is not None
+                          else [None])[group or 0] = _lm_numpy(p)
+    flat = {path: np.stack(leaves) if path.startswith("groups.")
+            else leaves[0] for path, leaves in stacks.items()}
+    return lm_unflatten(flat)
+
+
+def lm_cache_from_numpy(cfg, caches, device="cuda") -> list[A.KVCache]:
+    """The reference's decode caches (``lm_cache_init``'s layout: one
+    (k, v) pair per slot of the layer group, each (n_groups, B, S, Hkv,
+    hd)) -> the port's one ``KVCache`` per layer, on ``device``."""
+    gsize, ngroups, _ = T._group_layout(cfg)
+    if len(caches) != gsize:
+        raise KeyError(f"{cfg.name}: {len(caches)} cache slots, expected "
+                       f"{gsize}")
+    dtype = cfg.dtype
+    tail = (cfg.attn.num_kv_heads, cfg.head_dim)
+    out = []
+    for layer in range(cfg.num_layers):
+        group, slot = divmod(layer, gsize)
+        if len(caches[slot]) != 2:
+            raise KeyError(f"{cfg.name}: cache slot {slot} holds "
+                           f"{len(caches[slot])} leaves, expected (k, v)")
+        pair = []
+        for name, x in zip(("k", "v"), caches[slot]):
+            if (x.ndim != 5 or x.shape[0] != ngroups
+                    or tuple(x.shape[3:]) != tail or x.dtype.name != dtype):
+                raise ValueError(
+                    f"{cfg.name}: cache {slot}.{name} is {x.dtype.name} "
+                    f"{x.shape}, expected {dtype} ({ngroups}, B, S, "
+                    f"{cfg.attn.num_kv_heads}, {cfg.head_dim})")
+            pair.append(_lm_tensor(x[group], device))
+        out.append(A.KVCache(*pair))
+    return out
+
+
+def lm_cache_to_numpy(cfg, caches: list[A.KVCache]) -> list[tuple]:
+    """The exact inverse of :func:`lm_cache_from_numpy`: one stacked
+    (k, v) pair of numpy arrays per slot."""
+    gsize, _, _ = T._group_layout(cfg)
+    return [tuple(np.stack([_lm_numpy(getattr(c, name))
+                            for c in caches[slot::gsize]])
+                  for name in ("k", "v"))
+            for slot in range(gsize)]

@@ -145,7 +145,9 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int
     keys = split(key)
     hi = random_bits(keys[..., 0, :], shape)
     lo = random_bits(keys[..., 1, :], shape)
-    mult = (2 ** 16 % span) ** 2 % span
+    # the reference squares 2**16 mod span in uint32, so past a span of
+    # 2**16 the square wraps to 0
+    mult = ((2 ** 16 % span) ** 2 & MASK) % span
     offset = (((hi % span) * mult) & MASK) + lo % span
     return ((offset & MASK) % span + minval).to(torch.int32)
 

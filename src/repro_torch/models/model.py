@@ -1,0 +1,133 @@
+"""Unified model API over the LM zoo, for the PyTorch port: the
+counterpart of ``repro/models/model.py`` for the families this port
+serves, ``dense`` (qwen3, granite, gemma2) and ``vlm`` (internvl2).
+
+``build_model(cfg, device=...)`` returns a :class:`Model` with:
+
+* ``init(generator=None) -> params`` (a ``transformer.DecoderLM``,
+  with the patch ``adapter`` for a VLM)
+* ``forward(params, batch) -> (logits, aux, hidden)``
+* ``prefill_logits(params, batch)`` (last-position logits, soft-capped)
+* ``cache_init(batch, s_cache) -> caches`` (one ``KVCache`` per layer)
+* ``decode(params, caches, token, pos) -> (logits, caches)``
+
+and the two loops that serving and its checks run over ``decode``:
+:func:`decode_all` (every position teacher-forced) and :func:`greedy`
+(the loop of ``examples/serve_decode.py``).
+
+The params are the functions' first argument, as the reference's
+pytrees are. ``moe``, ``ssm``, ``hybrid`` and ``audio`` are refused
+(ROADMAP queue 1 items 8b and 8c). What belongs to training and the dry
+run waits for items 8d and 8e: ``cross_entropy``, ``chunked_xent_head``,
+``train_loss``, ``input_specs`` and ``cache_specs``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.network import resolve_device
+from repro_torch.models import frontends as F
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+FAMILIES = ("dense", "vlm")
+REFUSED = {
+    "moe": "ROADMAP queue 1 item 8b (MoE serving)",
+    "ssm": "ROADMAP queue 1 item 8c (SSM and hybrid serving)",
+    "hybrid": "ROADMAP queue 1 item 8c (SSM and hybrid serving)",
+    "audio": "ROADMAP queue 1 item 8c (whisper, cross-attention and the "
+             "audio frontend)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+
+    def init(self, generator: torch.Generator | None = None
+             ) -> T.DecoderLM:
+        """Parameters drawn on the model's device from ``generator``,
+        else from a generator seeded with 0 (none on the ``meta`` device,
+        which makes an empty skeleton)."""
+        cfg, dev = self.cfg, self.device
+        if generator is None and dev.type != "meta":
+            generator = torch.Generator(device=dev).manual_seed(0)
+        params = T.DecoderLM(cfg, generator=generator, device=dev)
+        if cfg.family == "vlm":
+            params.adapter = L.Params(F.adapter_init(
+                generator, cfg.d_model, cfg.d_model, L.torch_dtype(cfg.dtype),
+                device=dev))
+        return params
+
+    def forward(self, params: T.DecoderLM, batch: dict, with_logits=True):
+        prefix = None
+        if self.cfg.family == "vlm":
+            prefix = F.vision_patches_apply(params.adapter, batch["patches"])
+        return params(batch["tokens"], prefix_embeds=prefix,
+                      with_logits=with_logits)
+
+    def prefill_logits(self, params: T.DecoderLM, batch: dict):
+        """Last-position logits only (what serving needs): skips the
+        full (B, S, V) head."""
+        _, _, hidden = self.forward(params, batch, with_logits=False)
+        return params.head(hidden[:, -1:])
+
+    def cache_init(self, batch: int, s_cache: int):
+        return T.lm_cache_init(self.cfg, batch, s_cache, device=self.device)
+
+    def decode(self, params: T.DecoderLM, caches, token, pos: int):
+        return params.decode_step(caches, token, pos)
+
+
+def build_model(cfg: ModelConfig, *, device="cuda") -> Model:
+    """The model of ``cfg`` on ``device`` (``cuda`` without a card
+    raises, never falling back to the CPU)."""
+    if cfg.family in REFUSED:
+        raise ValueError(f"{cfg.name}: the {cfg.family!r} family is not "
+                         f"ported yet ({REFUSED[cfg.family]})")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    return Model(cfg, resolve_device(device))
+
+
+def decode_all(model: Model, params: T.DecoderLM, toks):
+    """Every position of ``toks`` (B, S) teacher-forced through
+    ``decode`` from an empty cache of S slots: (logits (B, S, V), the
+    final caches)."""
+    b, s = toks.shape
+    caches = model.cache_init(b, s)
+    steps = []
+    for t in range(s):
+        logits, caches = model.decode(params, caches, toks[:, t:t + 1], t)
+        steps.append(logits)
+    return torch.cat(steps, dim=1), caches
+
+
+def greedy(model: Model, params: T.DecoderLM, prompts, n_gen: int,
+           on_step=None):
+    """The loop of ``examples/serve_decode.py``: ``prompts`` (B, P)
+    teacher-forced through ``decode``, then ``n_gen`` greedy tokens, on
+    a cache of P + n_gen slots. Returns (tokens (B, n_gen) int32, the
+    last step's logits). ``on_step()``, if given, is called once when
+    the cache is ready and once after each step (a timer's marks: step
+    i lies between calls i and i + 1)."""
+    prompt = prompts.shape[1]
+    caches = model.cache_init(prompts.shape[0], prompt + n_gen)
+    tok, generated = prompts[:, :1], []
+    if on_step is not None:
+        on_step()
+    for pos in range(prompt + n_gen - 1):
+        logits, caches = model.decode(params, caches, tok, pos)
+        nxt = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        if on_step is not None:
+            on_step()
+        if pos + 1 < prompt:
+            tok = prompts[:, pos + 1:pos + 2]          # teacher-forced
+        else:
+            tok = nxt
+            generated.append(nxt)
+    return torch.cat(generated, dim=1), logits

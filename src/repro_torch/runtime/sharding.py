@@ -12,8 +12,8 @@ batch shards of ``world / K`` spatial ranks each, batch-major: ranks
 ``[k*S, (k+1)*S)`` form batch shard k. Tenants never cross a batch
 shard; only the per-tenant totals do.
 
-The LM rules of the reference's file wait for the LM zoo (ROADMAP queue
-1 item 8). Nothing here initialises a process group or touches a device
+The LM rules of the reference's file (``param_spec``, ``batch_spec``
+and the rest) wait for ROADMAP queue 1 item 8e. Nothing here initialises a process group or touches a device
 at import.
 """
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: against their plain PyTorch
 versions (``chip_smoke.py``'s ragged-shape checks), the wrappers' input
-checks, and a small run under the three impls. Marked ``cuda``: they
+checks, a small run under the three impls, and the reduced LMs against
+the CPU (plain torch, no kernel). Marked ``cuda``: they
 skip with a reason where there is no card or no nvcc. This file imports
 neither JAX nor the reference, so it also runs on a machine that has
 only PyTorch:
@@ -597,3 +598,18 @@ def test_guarded_mesh_is_neutral_and_trips(cuda_device, node):
                               chaos_flip_step=7, chaos_flip_word=1))
     assert bool((flip.guard.trip_step == 7).all())
     assert bool((flip.guard.trip_code == integrity.TRIP_CHECKSUM).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-9b"])
+def test_lm_reduced_on_the_card_equals_the_cpu(cuda_device, arch):
+    """The reduced config's parameters drawn on the card and carried to
+    the CPU: forward logits, 48 teacher-forced decode steps (gemma2's
+    rolling caches wrap) and the final caches within 1e-4, and equal
+    greedy tokens: ``chip_smoke.Smoke.lm_reduced`` (phase 10d), which
+    raises on a miss."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    rows = chip_smoke.Smoke(torch, str(cuda_device)).lm_reduced(
+        archs=(arch,))
+    assert rows[arch]["greedy_equal"]

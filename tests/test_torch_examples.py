@@ -1,12 +1,15 @@
 """The port's example scripts (``examples/torch_quickstart.py``,
-``examples/torch_simulate_cortex.py``) run with ``--device cpu`` at a
-small size, and their numbers are the reference's: the quickstart's
-static run equals the JAX quickstart's ``simulation.run`` of the same
-sheet, the distributed example's 2x2 shards equal its single shard and
-the JAX package's 2x2 mesh (one forced 4-device subprocess for the
-module, started in the background); without ``--device cpu`` they need a
-card and raise. Also ``launch/sim.py --mesh --no-compress``, the
-reference's flag."""
+``examples/torch_simulate_cortex.py``, ``examples/torch_serve_decode.py``)
+run with ``--device cpu`` at a small size, and their numbers are the
+reference's: the quickstart's static run equals the JAX quickstart's
+``simulation.run`` of the same sheet, the distributed example's 2x2
+shards equal its single shard and the JAX package's 2x2 mesh (one forced
+4-device subprocess for the module, started in the background), and the
+serving example's request-0 tokens equal those that
+``examples/serve_decode.py`` prints, with its parameters carried in (a
+second background subprocess); without ``--device cpu`` they need a card
+and raise. Also ``launch/sim.py --mesh --no-compress``, the reference's
+flag."""
 import importlib.util
 import pathlib
 import re
@@ -73,6 +76,47 @@ def jax_examples(jax_started):
     return dict(np.load(out / "examples.npz"))
 
 
+SERVE = ["--batch", "2", "--prompt-len", "8", "--gen", "16"]
+
+JAX_SERVE = """
+import contextlib, io, runpy, sys
+import jax, numpy as np
+import repro.configs as C
+from repro.models.model import build_model
+
+def flat(tree, prefix=''):
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {{prefix: np.asarray(tree)}}
+    out = {{}}
+    for k, v in items:
+        out.update(flat(v, '%s.%s' % (prefix, k) if prefix else str(k)))
+    return out
+
+sys.argv = ['serve_decode.py'] + {argv!r}
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    runpy.run_path('{root}/examples/serve_decode.py', run_name='__main__')
+params = build_model(C.reduced_config('granite-3-2b')).init(
+    jax.random.PRNGKey(0))
+np.savez('{out}/serve', **flat(params))
+print(buf.getvalue())
+print('OK')
+"""
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_serve_started(tmp_path_factory):
+    out = tmp_path_factory.mktemp("jax_serve")
+    job = JaxInBackground(JAX_SERVE.format(argv=SERVE, root=ROOT, out=out),
+                          n_devices=1, timeout=600)
+    yield out, job
+    job.stop()
+
+
 def example(name):
     """The script as a module (its ``main`` runs only when called)."""
     spec = importlib.util.spec_from_file_location(
@@ -112,15 +156,43 @@ def test_simulate_cortex_matches_single_shard_and_jax(capsys, jax_examples):
                                    rel=1e-3)   # printed to 4 digits
 
 
+def test_serve_decode_prints_the_reference_s_tokens(capsys,
+                                                   jax_serve_started):
+    """``examples/torch_serve_decode.py --device cpu`` with the parameters
+    of ``examples/serve_decode.py`` (``init(PRNGKey(0))`` of the reduced
+    granite-3-2b) carried in: the prompts are the same
+    ``randint(PRNGKey(1))`` draws, and its request-0 line is the
+    reference's."""
+    from repro_torch import configs as C
+    from repro_torch import convert
+    out, job = jax_serve_started
+    printed = job.result()
+    assert "OK" in printed
+    tree = convert.lm_unflatten(dict(np.load(out / "serve.npz")))
+    params = convert.lm_params_from_numpy(C.reduced_config("granite-3-2b"),
+                                          tree, "cpu")
+    gen = example("torch_serve_decode").main(SERVE + ["--device", "cpu"],
+                                             params=params)
+    mine = capsys.readouterr().out
+    assert gen.shape == (2, 16) and gen.dtype == torch.int32
+    want = re.search(r"request 0 tokens: .*", printed)[0]
+    assert re.search(r"request 0 tokens: .*", mine)[0] == want
+    assert "granite-3-2b (reduced): batch 2, 23 decode steps" in mine
+    assert "on this host's CPU" in mine
+
+
 @pytest.mark.parametrize("name", ["torch_quickstart",
-                                  "torch_simulate_cortex"])
+                                  "torch_simulate_cortex",
+                                  "torch_serve_decode"])
 def test_examples_default_to_the_card(name):
     """Without ``--device cpu`` an example runs on the card: with none it
     raises, never falling back to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the example would run on it")
+    argv = (["--batch", "1", "--gen", "2"] if name == "torch_serve_decode"
+            else ["--grid", "4x4", "--neurons", "32"])
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
-        example(name).main(["--grid", "4x4", "--neurons", "32"])
+        example(name).main(argv)
 
 
 def test_sim_cli_no_compress_moves_float_strips(capsys):

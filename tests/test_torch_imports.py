@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package: every module of
 ``repro_torch`` (the checkpointer and the fault-tolerance runtime of the
-durability slice among them), ``chip_smoke.py`` and the port's example
+durability slice, the LM zoo's configs and models among them),
+``chip_smoke.py`` and the port's example
 scripts ``examples/torch_*.py`` (imported, not run) in a fresh
 interpreter leave no ``jax`` or ``repro`` module behind."""
 import os
@@ -61,5 +62,13 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.runtime.multiprocess",
                    "repro_torch.launch.launch_distributed",
                    "examples/torch_quickstart.py",
-                   "examples/torch_simulate_cortex.py"):
+                   "examples/torch_simulate_cortex.py",
+                   "repro_torch.configs.gemma2_9b",
+                   "repro_torch.configs.zamba2_7b",
+                   "repro_torch.models.layers",
+                   "repro_torch.models.attention",
+                   "repro_torch.models.transformer",
+                   "repro_torch.models.frontends",
+                   "repro_torch.models.model",
+                   "examples/torch_serve_decode.py"):
         assert module in names, module

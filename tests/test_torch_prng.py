@@ -125,6 +125,17 @@ def test_uniform_bernoulli_randint_match_reference(seed, shape):
             np.asarray(jax.random.randint(jk, shape, lo, hi, jnp.int32)))
 
 
+@pytest.mark.parametrize("span", [65_536, 65_537, 151_936, 256_000])
+def test_randint_wide_spans_match_reference(span):
+    """Past a span of 2**16 the reference's multiplier, (2**16 mod
+    span)**2 mod span taken in uint32, wraps to 0; the port's draws of a
+    vocabulary's width (the LM prompts) equal ``jax.random.randint``."""
+    for seed in (1, 7):
+        got = prng.randint(prng.prng_key(seed), (8, 24), 0, span)
+        want = jax.random.randint(jax.random.PRNGKey(seed), (8, 24), 0, span)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_remote_key_adds_to_both_words():
     """``PRNGKey(seed) + uint32(0x9E3779B9)`` adds the constant to both
     words of the key: it is not ``PRNGKey(seed + 0x9E3779B9)``."""
