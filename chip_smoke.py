@@ -187,7 +187,24 @@ then, on the card:
    granite-3-2b, gemma2-9b, gemma2-27b and internvl2-1b, drawn on the
    card and carried to the CPU: ``forward``, 48 teacher-forced decode
    steps (gemma2's rolling caches wrap) and the final caches within
-   1e-4, and equal greedy tokens.
+   1e-4, and equal greedy tokens;
+11. drives the rest of the LM zoo's serving path (MoE, Mamba2, Zamba2,
+   Whisper: no Pallas kernel in the reference either) the same way, each
+   model at full width from the port's ``init`` (seed 0), freed before
+   the next, bfloat16 serving at 8 requests x (24 + 48) through
+   ``models.model.greedy`` with phase 10's figures: (a)
+   llama4-scout-17b-a16e cut to 12 of its 48 layers (54.9 GB of
+   bfloat16 parameters; all 48 are 213 GB), after a float32 check at 4
+   layers (1 x 8 tokens through ``decode`` equal to ``forward`` within
+   2e-2; no token can drop there); (b) llama4-maverick-400b-a17b cut to
+   2 of 48 layers, one (dense, MoE) group (35.0 GB), served only; (c)
+   mamba2-780m and (d) zamba2-7b at full depth, each with a float32
+   check on 1 x 256 tokens and ``prefill_logits`` on 8 x 256 (whole SSD
+   chunks of 256); (e) whisper-medium at full depth, its encoder on 8 x
+   2048 frames (timed; 3000 are not whole blocks of 1024, which both
+   packages refuse), the cross caches primed from it and served over,
+   after a float32 check on 1 x 2048 frames x 48 tokens; (f) the reduced
+   configs of the five archs, card against CPU as in (10d).
 
 Every phase raises on failure and the script exits non-zero. Without a
 card, or without the rest of the repository beside it, it exits
@@ -330,6 +347,20 @@ LM_SERVE = (8, 24, 48)
 LM_LONG, LM_LONG_F32_TOL = 2048, 1e-3
 LM_VLM = (4, 256, 64, 32)
 LM_PROFILE_STEPS = 10
+# phase 11, the rest of the LM zoo: the five archs (11f holds their
+# reduced configs against the CPU); the layers served of the two MoE
+# configs (bfloat16 parameters that fit one card: 12 of 48 is 54.9 GB
+# for scout, 2 is one (dense, MoE) group of 35.0 GB for maverick); the
+# float32 MoE check's layers and (batch, tokens); the SSM checks' (batch,
+# tokens) and their prefill, whole chunks of 256; whisper's frames (the
+# encoder's batch is LM_SERVE's) and its float32 check (batch, frames,
+# tokens)
+LM_FAMILY_ARCHS = ("llama4-scout-17b-a16e", "llama4-maverick-400b-a17b",
+                   "mamba2-780m", "zamba2-7b", "whisper-medium")
+LM_MOE_LAYERS = {"llama4-scout-17b-a16e": 12, "llama4-maverick-400b-a17b": 2}
+LM_MOE_CHECK_LAYERS, LM_MOE_CHECK = 4, (1, 8)
+LM_SSM_CHECK, LM_SSM_PREFILL = (1, 256), (8, 256)
+LM_WHISPER_FRAMES, LM_WHISPER_CHECK = 2048, (1, 2048, 48)
 
 
 def log(*args):
@@ -409,7 +440,9 @@ class Smoke:
         from repro_torch import convert
         from repro_torch.models import attention as lm_attention
         from repro_torch.models import model as lm_model
+        from repro_torch.models import transformer as lm_transformer
         self.LC, self.LA, self.LM = lm_configs, lm_attention, lm_model
+        self.LT = lm_transformer
         self.convert = convert
         self.ExchangeConfig = base.ExchangeConfig
         self.payload_bytes = compression.halo_payload_bytes
@@ -613,6 +646,11 @@ class Smoke:
         # 10. the LM zoo's serving path: qwen3-0.6b, gemma2-9b and
         # internvl2-1b at full config, the reduced configs against the CPU
         self.lm_path()
+
+        # 11. the rest of the LM zoo: the two llama4 MoE configs cut in
+        # depth, mamba2, zamba2 and whisper at full size, the reduced
+        # configs against the CPU
+        self.lm_families_path()
 
         tenant = {f"{name}[B={TENANT_B}]": name for name in TENANT_KERNELS}
         tenant[PLASTIC_FUSED] = "fused_step"
@@ -4410,21 +4448,28 @@ class Smoke:
         torch.cuda.empty_cache()
         return row
 
-    def lm_serve(self, model, params, tag):
+    def lm_serve(self, model, params, tag, prefill=None, caches=None):
         """:meth:`lm_greedy`'s serving loop, each step between CUDA events
         (a host-bound step's device time includes the gaps between its
         launches), and its wall time; one ``prefill_logits`` over the
-        prompts (median of 3 after one untimed); LM_PROFILE_STEPS
+        prompts, updated with ``prefill`` (whisper's frames, or the SSMs'
+        longer tokens; median of 3 after one untimed); LM_PROFILE_STEPS
         profiled steps; peak memory from the parameters' draw on
-        (:meth:`lm_peak_gb`)."""
+        (:meth:`lm_peak_gb`). ``caches()``, if given, makes the loop's
+        and the profile's starting caches (whisper's primed ones), else
+        ``cache_init``."""
         torch, cfg = self.torch, model.cfg
         b, prompt, n_gen = LM_SERVE
         s_cache = prompt + n_gen
         prompts = self.prng.randint(self.prng.prng_key(1, self.dev),
                                     (b, prompt), 0, cfg.vocab_size)
+        batch = {"tokens": prompts, **(prefill or {})}
+        pb, ps = batch["tokens"].shape
+        over = (f" over {batch['frames'].shape[1]} frames"
+                if "frames" in batch else "")
         with torch.no_grad():
             def prefill():
-                return model.prefill_logits(params, {"tokens": prompts})
+                return model.prefill_logits(params, batch)
             self.event_ms(prefill)
             prefill_ms = statistics.median(self.event_ms(prefill)[0]
                                            for _ in range(3))
@@ -4435,7 +4480,8 @@ class Smoke:
                 events[-1].record()
             self.sync()
             w0 = time.perf_counter()
-            gen, logits = self.lm_greedy(model, params, mark)
+            gen, logits = self.lm_greedy(model, params, mark,
+                                         caches() if caches else None)
             self.sync()
             wall = time.perf_counter() - w0
             if (not bool(torch.isfinite(logits).all())
@@ -4446,7 +4492,8 @@ class Smoke:
             ms = [e0.elapsed_time(e1) for e0, e1 in zip(events, events[1:])]
             step_ms = statistics.median(ms[1:])
             peak = self.lm_peak_gb()
-            pcache, at = model.cache_init(b, s_cache), [0]
+            pcache = caches() if caches else model.cache_init(b, s_cache)
+            at = [0]
 
             def run(k):
                 for _ in range(k):
@@ -4460,7 +4507,8 @@ class Smoke:
                    tokens_per_s=b * 1e3 / step_ms,
                    loop_wall_s=wall,
                    tokens_per_s_wall=b * (s_cache - 1) / wall,
-                   prefill_ms=prefill_ms, peak_memory_gb=peak,
+                   prefill_ms=prefill_ms, prefill_shape=[pb, ps],
+                   peak_memory_gb=peak,
                    device_ops_per_step=prof["device_ops_per_step"],
                    busy_share=prof["busy_share_unprofiled"],
                    request0=gen[0, :12].tolist())
@@ -4470,7 +4518,7 @@ class Smoke:
             f"{step_ms:.4f} ms/step (median of {len(ms) - 1} after the "
             f"first, {ms[0]:.2f} ms), {row['tokens_per_s']:.1f} tokens/s "
             f"({row['tokens_per_s_wall']:.1f} over the loop's "
-            f"{wall:.3f} s wall), prefill of {b}x{prompt} "
+            f"{wall:.3f} s wall), prefill of {pb}x{ps}{over} "
             f"{prefill_ms:.4f} ms, {prof['device_ops_per_step']:.0f} "
             f"device ops a step, device busy "
             f"{row['busy_share']:.3f} of the step, peak memory "
@@ -4586,13 +4634,15 @@ class Smoke:
         torch.cuda.empty_cache()
         return row
 
-    def lm_reduced(self, archs=LM_ARCHS):
-        """10d: the reduced config of each arch, its parameters drawn on
-        the card and carried to the CPU through the
+    def lm_reduced(self, archs=LM_ARCHS, tag="10d"):
+        """10d, 11f: the reduced config of each arch, its parameters drawn
+        on the card and carried to the CPU through the
         converter: ``forward``'s logits, LM_CHECK[1] teacher-forced decode
         steps (past gemma2's reduced window of 32, so its rolling caches
-        wrap) and the final caches agree within LM_CARD_TOL, and the
-        greedy tokens of an LM_SERVE loop are equal."""
+        wrap; whisper's from ``cache_init``'s zeroed cross caches, over 64
+        frames in ``forward``) and the final caches agree within
+        LM_CARD_TOL, and the greedy tokens of an LM_SERVE loop are
+        equal."""
         torch, cv = self.torch, self.convert
         rows = {}
         for arch in archs:
@@ -4609,6 +4659,8 @@ class Smoke:
                 batch = {"patches": torch.randn(b, 8, cfg.d_model,
                                                 generator=g),
                          "tokens": toks[:, 8:]}
+            if cfg.family == "audio":
+                batch["frames"] = torch.randn(b, 64, cfg.d_model, generator=g)
             runs = []
             for m, p, dev in ((model, params, self.dev),
                               (host, host_params, host.device)):
@@ -4620,37 +4672,194 @@ class Smoke:
                 runs.append((fwd.cpu(), dec.cpu(),
                              cv.lm_cache_to_numpy(cfg, caches), gen.cpu()))
             (fc, dc, cc, gc), (fh, dh, ch, gh) = runs
+            cc, ch = cv.lm_flatten(cc), cv.lm_flatten(ch)
+            if sorted(cc) != sorted(ch):
+                raise AssertionError(f"phase {tag} {arch}: cache leaves "
+                                     f"{sorted(cc)} against {sorted(ch)}")
             err = max(
-                self.close(f"phase 10d {arch} forward", fc, fh,
+                self.close(f"phase {tag} {arch} forward", fc, fh,
                            rtol=LM_CARD_TOL, atol=LM_CARD_TOL),
-                self.close(f"phase 10d {arch} decode", dc, dh,
+                self.close(f"phase {tag} {arch} decode", dc, dh,
                            rtol=LM_CARD_TOL, atol=LM_CARD_TOL),
-                *(self.close(f"phase 10d {arch} cache", torch.from_numpy(x),
-                             torch.from_numpy(y), rtol=LM_CARD_TOL,
-                             atol=LM_CARD_TOL)
-                  for pair_c, pair_h in zip(cc, ch)
-                  for x, y in zip(pair_c, pair_h)))
+                *(self.close(f"phase {tag} {arch} cache {path}",
+                             torch.from_numpy(x), torch.from_numpy(ch[path]),
+                             rtol=LM_CARD_TOL, atol=LM_CARD_TOL)
+                  for path, x in cc.items()))
             if not torch.equal(gc, gh):
-                raise AssertionError(f"phase 10d {arch}: greedy tokens on "
+                raise AssertionError(f"phase {tag} {arch}: greedy tokens on "
                                      f"the card differ from the CPU's")
             rows[arch] = dict(max_abs_err=err, greedy_equal=True)
             del params
-        log(f"phase 10d reduced configs of {', '.join(archs)}: parameters "
-            f"drawn on the card, carried to the CPU; forward, {LM_CHECK[1]} "
-            f"teacher-forced decode steps (gemma2's rolling caches wrap at "
-            f"32) and the final caches agree within {LM_CARD_TOL} (max abs "
+        wrap = (" (gemma2's rolling caches wrap at 32)"
+                if any(a.startswith("gemma2") for a in archs) else "")
+        log(f"phase {tag} reduced configs of {', '.join(archs)}: "
+            f"parameters drawn on the card, carried to the CPU; forward, "
+            f"{LM_CHECK[1]} teacher-forced decode steps{wrap} and the final "
+            f"caches agree within "
+            f"{LM_CARD_TOL} (max abs "
             f"err {max(r['max_abs_err'] for r in rows.values()):.3e}), and "
             f"the greedy tokens of a {LM_SERVE[0]}-request loop are equal")
         return rows
 
-    def lm_greedy(self, model, params, on_step=None):
+    def lm_greedy(self, model, params, on_step=None, caches=None):
         """``models.model.greedy`` at LM_SERVE, on the prompts of
-        ``examples/serve_decode.py`` (``randint(PRNGKey(1))``): (tokens
-        (B, gen), the last logits)."""
+        ``examples/serve_decode.py`` (``randint(PRNGKey(1))``), from
+        ``caches`` (default ``cache_init``'s): (tokens (B, gen), the last
+        logits)."""
         b, prompt, n_gen = LM_SERVE
         prompts = self.prng.randint(self.prng.prng_key(1, model.device),
                                     (b, prompt), 0, model.cfg.vocab_size)
-        return self.LM.greedy(model, params, prompts, n_gen, on_step)
+        return self.LM.greedy(model, params, prompts, n_gen, on_step,
+                              caches=caches)
+
+    # ------------------------------------- phase 11: the rest of the LM zoo
+    def lm_families_path(self):
+        """Phase 11: the MoE, Mamba2, Zamba2 and Whisper stacks
+        (``repro_torch.models``, plain torch, no kernel of this repo):
+        11a llama4-scout and 11b llama4-maverick cut in depth
+        (:meth:`lm_moe`), 11c mamba2-780m and 11d zamba2-7b
+        (:meth:`lm_ssm`), 11e whisper-medium (:meth:`lm_whisper`), 11f the
+        reduced configs of LM_FAMILY_ARCHS against the CPU. Each model at
+        full width from the port's own ``init`` on the card, freed before
+        the next."""
+        t0 = time.perf_counter()
+        get = self.LC.get_config
+        self.report["phase11"] = dict(
+            scout=self.lm_moe(get("llama4-scout-17b-a16e"), "11a"),
+            maverick=self.lm_moe(get("llama4-maverick-400b-a17b"), "11b",
+                                 check=False),
+            mamba2=self.lm_ssm(get("mamba2-780m"), "11c"),
+            zamba2=self.lm_ssm(get("zamba2-7b"), "11d"),
+            whisper=self.lm_whisper(get("whisper-medium"), "11e"),
+            reduced=self.lm_reduced(LM_FAMILY_ARCHS, "11f"))
+        self.report["phase11"]["seconds"] = time.perf_counter() - t0
+        log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+
+    def lm_check(self, tag, cfg, batch, caches=None):
+        """``cfg`` in float32 (its draw, freed after): ``toks``
+        teacher-forced through ``decode`` (from ``caches(params)`` if
+        given) equal ``forward``'s logits over ``batch(gen)`` within
+        LM_CHECK_TOL; finite logits. Returns the row."""
+        torch = self.torch
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model, params, gen = self.lm_model(cfg32)
+        batch = batch(gen)
+        with torch.no_grad():
+            full, aux, _ = model.forward(params, batch)
+            dec, _ = self.LM.decode_all(model, params, batch["tokens"],
+                                        caches(params, batch) if caches
+                                        else None)
+        err = self.close(f"phase {tag} {cfg.name} float32 decode against "
+                         f"forward", dec, full, rtol=LM_CHECK_TOL,
+                         atol=LM_CHECK_TOL)
+        if not bool(torch.isfinite(full).all()):
+            raise AssertionError(f"phase {tag}: non-finite logits")
+        shape = "x".join(str(n) for n in batch["tokens"].shape)
+        if "frames" in batch:
+            shape += f" (over {batch['frames'].shape[1]} frames)"
+        row = dict(layers=cfg.num_layers, f32_param_gb=self.param_gb(params),
+                   tokens=list(batch["tokens"].shape),
+                   f32_decode_vs_forward_max_abs=err,
+                   aux=[float(a) for a in aux])
+        log(f"phase {tag} {cfg.name} float32 at {cfg.num_layers} layers "
+            f"({row['f32_param_gb']:.3f} GB of parameters): {shape} tokens "
+            f"teacher-forced through decode equal forward's logits within "
+            f"{LM_CHECK_TOL} (max abs err {err:.3e}); aux (load balance, "
+            f"router z) {row['aux']}")
+        del params, full, dec
+        torch.cuda.empty_cache()
+        return row
+
+    def lm_served(self, tag, cfg, full_layers, setup=None):
+        """``cfg`` (bfloat16) drawn and served (:meth:`lm_serve`, with the
+        keyword arguments that ``setup(model, params, gen)`` returns),
+        then freed."""
+        model, params, gen = self.lm_model(cfg)
+        kw = setup(model, params, gen) if setup else {}
+        row = dict(arch=cfg.name, layers=cfg.num_layers,
+                   published_layers=full_layers, d_model=cfg.d_model,
+                   vocab=cfg.vocab_size)
+        row.update(self.lm_serve(model, params, tag, **kw))
+        del params, kw
+        self.torch.cuda.empty_cache()
+        return row
+
+    def lm_moe(self, cfg, tag, check=True):
+        """11a/11b: a llama4 config at full width cut to
+        LM_MOE_LAYERS[name] of its layers (what one card holds in
+        bfloat16), served; with ``check`` first LM_MOE_CHECK_LAYERS layers
+        in float32 through :meth:`lm_check` on LM_MOE_CHECK tokens, where
+        ``cap = min(T, 8) = T``, so no token can drop."""
+        torch = self.torch
+        row = {}
+        if check:
+            b, s = LM_MOE_CHECK
+            small = dataclasses.replace(cfg, num_layers=LM_MOE_CHECK_LAYERS)
+            row["check"] = self.lm_check(tag, small, lambda g: {
+                "tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                        generator=g, device=self.dev)})
+        cut = dataclasses.replace(cfg, num_layers=LM_MOE_LAYERS[cfg.name])
+        row.update(self.lm_served(tag, cut, cfg.num_layers))
+        log(f"phase {tag} {cfg.name}: {cut.num_layers} of "
+            f"{cfg.num_layers} layers served (cut in depth to fit one card "
+            f"in bfloat16; full width)")
+        return row
+
+    def lm_ssm(self, cfg, tag):
+        """11c/11d: mamba2 or zamba2 at full size: :meth:`lm_check` on
+        LM_SSM_CHECK tokens, then served, with ``prefill_logits`` over
+        LM_SSM_PREFILL (whole SSD chunks; the serving prompts of 24 are
+        not)."""
+        torch = self.torch
+        b, s = LM_SSM_CHECK
+        pb, ps = LM_SSM_PREFILL
+        row = dict(check=self.lm_check(tag, cfg, lambda g: {
+            "tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                    device=self.dev)}))
+        row.update(self.lm_served(tag, cfg, cfg.num_layers, lambda m, p, g: {
+            "prefill": {"tokens": torch.randint(
+                0, cfg.vocab_size, (pb, ps), generator=g, device=self.dev)}}))
+        return row
+
+    def lm_whisper(self, cfg, tag):
+        """11e: whisper-medium at full size. :meth:`lm_check` on
+        LM_WHISPER_CHECK (decode over the cross caches primed from the
+        forward's frames); then in bfloat16 the encoder over LM_SERVE[0] x
+        LM_WHISPER_FRAMES frames (median of 3 after one untimed), the
+        cross caches primed from its output, and the serving loop over
+        them (``prefill_logits`` runs the encoder too)."""
+        torch, LT = self.torch, self.LT
+        b, frames, s = LM_WHISPER_CHECK
+        row = dict(check=self.lm_check(
+            tag, cfg, lambda g: {
+                "frames": torch.randn(b, frames, cfg.d_model, generator=g,
+                                      device=self.dev),
+                "tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                        generator=g, device=self.dev)},
+            lambda p, batch: p.primed_caches(batch["frames"], s)))
+        n, (batch, prompt, n_gen) = LM_WHISPER_FRAMES, LM_SERVE
+        enc_ms = []
+
+        def setup(model, params, gen):
+            frames = torch.randn(batch, n, cfg.d_model, generator=gen,
+                                 device=self.dev).to(torch.bfloat16)
+            with torch.no_grad():
+                self.event_ms(lambda: params.encode(frames))
+                timed = [self.event_ms(lambda: params.encode(frames))
+                         for _ in range(3)]
+                cross = params.prime_cross(timed[0][1])
+            enc_ms.append(statistics.median(ms for ms, _ in timed))
+            return dict(prefill={"frames": frames}, caches=lambda: {
+                "self": LT.whisper_self_caches(cfg, batch, prompt + n_gen,
+                                               self.dev),
+                "cross": cross})
+        row.update(self.lm_served(tag, cfg, cfg.num_layers, setup))
+        row.update(frames=n, encoder_ms=enc_ms[0])
+        log(f"phase {tag} {cfg.name} encoder over {batch}x{n} frames "
+            f"{enc_ms[0]:.4f} ms (median of 3 after one); served over the "
+            f"cross caches primed from it")
+        return row
+
 
 if __name__ == "__main__":
     sys.exit(main())

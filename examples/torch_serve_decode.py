@@ -5,11 +5,15 @@ prefill via teacher-forced decode, then batched greedy generation.
 
 The counterpart of ``examples/serve_decode.py``, with its flags and its
 loop, plus ``--device`` (the card by default; ``cpu`` for the plain
-run, and without a card the default raises). The reduced config of the
-arch is built on the device with parameters drawn from a generator
-seeded with 0, and the prompts are ``jax.random.randint(PRNGKey(1),
-...)``'s own draws (``repro_torch.core.prng``), so that the reference's
-parameters carried in give the reference's tokens.
+run, and without a card the default raises). Every arch of
+``repro_torch.configs.ARCH_IDS`` serves: the dense, MoE, VLM, Mamba2
+and Zamba2 stacks from their empty caches, whisper, as the reference's
+example does, over ``cache_init``'s zeroed cross caches. The reduced
+config of the arch is built on the device with parameters drawn from a
+generator seeded with 0, and the prompts are
+``jax.random.randint(PRNGKey(1), ...)``'s own draws
+(``repro_torch.core.prng``), so that the reference's parameters carried
+in give the reference's tokens.
 """
 import argparse
 import os

@@ -31,8 +31,10 @@ comes across with the ``DistState`` functions as it is;
 one process holding every tenant. The LM zoo's parameters and decode
 caches come across with :func:`lm_params_from_numpy` /
 :func:`lm_params_to_numpy` and :func:`lm_cache_from_numpy` /
-:func:`lm_cache_to_numpy`: the reference's stacked layer groups are
-unstacked into the port's layers and stacked back. This module imports
+:func:`lm_cache_to_numpy`, for every family: the reference's stacked
+layers (its groups, mamba's blocks, zamba's (G, 6) groups and tail,
+whisper's encoder and decoder) are unstacked into the port's one module
+or cache per layer and stacked back. This module imports
 neither JAX nor the reference: the caller hands it arrays.
 """
 from __future__ import annotations
@@ -45,6 +47,7 @@ from repro_torch.core.network import NetworkParams, NetworkState
 from repro_torch.core.neuron import LIFState
 from repro_torch.core.plasticity import STDPState
 from repro_torch.models import attention as A
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models.model import build_model
 from repro_torch.runtime.integrity import GuardState
@@ -191,7 +194,10 @@ def merge_batch_shards(leaves: dict, batch_shards: int) -> dict:
 
 def lm_flatten(tree, prefix="") -> dict:
     """An LM pytree (nested dicts, lists and tuples of arrays) ->
-    {"groups.0.attn.wq": array}, the reference's leaf paths."""
+    {"groups.0.attn.wq": array}, the reference's leaf paths; a ``None``
+    subtree (zamba's absent tail) has no leaves, as in JAX."""
+    if tree is None:
+        return {}
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
@@ -205,17 +211,26 @@ def lm_flatten(tree, prefix="") -> dict:
     return out
 
 
+def _listed(node):
+    """Dicts keyed "0", "1", ... back into lists, all the way down."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listed(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
 def lm_unflatten(flat: dict) -> dict:
-    """The inverse of :func:`lm_flatten`, ``groups`` as a list."""
+    """The inverse of :func:`lm_flatten`, the decoder-only ``groups`` as
+    a list of slots."""
     tree: dict = {}
     for path, leaf in flat.items():
         node, keys = tree, path.split(".")
         for key in keys[:-1]:
             node = node.setdefault(key, {})
         node[keys[-1]] = leaf
-    tree["groups"] = [tree["groups"][str(slot)]
-                      for slot in range(len(tree["groups"]))]
-    return tree
+    return _listed(tree)
 
 
 def _dtype_name(dtype) -> str:
@@ -240,98 +255,199 @@ def _lm_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _tree_path(name: str, gsize: int):
-    """A port parameter's name -> (the reference's leaf path, group)."""
-    if not name.startswith("layers."):
-        return name, None
-    _, layer, rest = name.split(".", 2)
-    group, slot = divmod(int(layer), gsize)
-    return f"groups.{slot}.{rest}", group
+def _tree_path(cfg, name: str):
+    """A port parameter's name -> (the reference's leaf path, its index
+    in the reference's stack; () for an unstacked leaf). Decoder-only
+    layer ``l`` is slot ``l % gsize`` of group ``l // gsize``; zamba's
+    ``groups.g.j`` is (g, j) of its (G, 6) stack."""
+    head, _, rest = name.partition(".")
+    if head == "layers":
+        gsize = T._group_layout(cfg)[0]
+        layer, rest = rest.split(".", 1)
+        group, slot = divmod(int(layer), gsize)
+        return f"groups.{slot}.{rest}", (group,)
+    if head == "groups":
+        g, j, rest = rest.split(".", 2)
+        return f"groups.{rest}", (int(g), int(j))
+    if head in ("blocks", "tail", "encoder", "decoder"):
+        i, rest = rest.split(".", 1)
+        return f"{head}.{rest}", (int(i),)
+    return name, ()
 
 
-def lm_params_from_numpy(cfg, tree, device="cuda") -> T.DecoderLM:
-    """The reference's ``build_model(cfg).init(key)`` pytree, as nested
-    dicts and lists of numpy arrays, -> the port's params (a
-    ``DecoderLM``, with ``adapter`` for a VLM) on ``device``: group
-    ``g`` of slot ``slot`` becomes layer ``g * gsize + slot``. Every
-    leaf's dtype and shape is checked; a missing or extra leaf raises,
-    naming its path."""
-    params = build_model(cfg, device="meta").init()
-    gsize, ngroups, _ = T._group_layout(cfg)
-    flat = lm_flatten(tree)
-    want = {}
+def _stacks(params) -> dict:
+    """{reference path: (stack dims, port names by index, leaf shape,
+    dtype name)} of a port model's parameters."""
+    out: dict = {}
     for name, p in params.named_parameters():
-        path, group = _tree_path(name, gsize)
-        shape = tuple(p.shape) if group is None else (ngroups, *p.shape)
-        want[path] = (shape, _dtype_name(p.dtype))
-    missing = sorted(set(want) - set(flat))
-    extra = sorted(set(flat) - set(want))
+        path, index = _tree_path(params.cfg, name)
+        dims, names, _, _ = out.setdefault(
+            path, [[0] * len(index), {}, tuple(p.shape),
+                   _dtype_name(p.dtype)])
+        out[path][0] = [max(d, i + 1) for d, i in zip(dims, index)]
+        names[index] = name
+    return {path: (tuple(dims), names, shape, dtype)
+            for path, (dims, names, shape, dtype) in out.items()}
+
+
+def lm_params_from_numpy(cfg, tree, device="cuda"):
+    """The reference's ``build_model(cfg).init(key)`` pytree, as nested
+    dicts and lists of numpy arrays, -> the port's params (the family's
+    stack of ``transformer.py``) on ``device``: entry ``index`` of a
+    stacked leaf becomes the layer's parameter (:func:`_tree_path`).
+    Every leaf's dtype and shape is checked; a missing or extra leaf
+    raises, naming its path."""
+    params = build_model(cfg, device="meta").init()
+    stacks = _stacks(params)
+    flat = lm_flatten(tree)
+    missing = sorted(set(stacks) - set(flat))
+    extra = sorted(set(flat) - set(stacks))
     if missing or extra:
         raise KeyError(f"{cfg.name}: leaves missing {missing}, extra {extra}")
-    for path, (shape, dtype) in want.items():
+    for path, (dims, _, shape, dtype) in stacks.items():
         got = (tuple(flat[path].shape), flat[path].dtype.name)
-        if got != (shape, dtype):
+        if got != (dims + shape, dtype):
             raise ValueError(f"{cfg.name}: leaf {path} is {got[1]} "
-                             f"{got[0]}, expected {dtype} {shape}")
+                             f"{got[0]}, expected {dtype} {dims + shape}")
     dev = torch.device(device)
-    for name, _ in list(params.named_parameters()):
-        path, group = _tree_path(name, gsize)
-        leaf = flat[path] if group is None else flat[path][group]
-        owner, _, attr = name.rpartition(".")
-        setattr(params.get_submodule(owner), attr, torch.nn.Parameter(
-            _lm_tensor(leaf, dev), requires_grad=False))
+    for path, (_, names, _, _) in stacks.items():
+        for index, name in names.items():
+            owner, _, attr = name.rpartition(".")
+            setattr(params.get_submodule(owner), attr, torch.nn.Parameter(
+                _lm_tensor(flat[path][index], dev), requires_grad=False))
     return params
 
 
-def lm_params_to_numpy(params: T.DecoderLM) -> dict:
+def lm_params_to_numpy(params) -> dict:
     """The exact inverse of :func:`lm_params_from_numpy`: the
-    reference's pytree of numpy arrays, layers stacked back into
-    groups."""
-    gsize, ngroups, _ = T._group_layout(params.cfg)
-    stacks: dict = {}
-    for name, p in params.named_parameters():
-        path, group = _tree_path(name, gsize)
-        stacks.setdefault(path, [None] * ngroups if group is not None
-                          else [None])[group or 0] = _lm_numpy(p)
-    flat = {path: np.stack(leaves) if path.startswith("groups.")
-            else leaves[0] for path, leaves in stacks.items()}
+    reference's pytree of numpy arrays, layers stacked back."""
+    got = dict(params.named_parameters())
+    flat = {}
+    for path, (dims, names, shape, _) in _stacks(params).items():
+        leaves = {index: _lm_numpy(got[name])
+                  for index, name in names.items()}
+        if not dims:
+            flat[path] = leaves[()]
+            continue
+        first = next(iter(leaves.values()))
+        out = np.empty(dims + shape, first.dtype)
+        for index, leaf in leaves.items():
+            out[index] = leaf
+        flat[path] = out
     return lm_unflatten(flat)
 
 
-def lm_cache_from_numpy(cfg, caches, device="cuda") -> list[A.KVCache]:
-    """The reference's decode caches (``lm_cache_init``'s layout: one
-    (k, v) pair per slot of the layer group, each (n_groups, B, S, Hkv,
-    hd)) -> the port's one ``KVCache`` per layer, on ``device``."""
+def _cache_leaves(cfg, cls):
+    """(leaf names, their trailing shapes after the batch axis with None
+    for the sequence axis, their dtypes) of a ``KVCache`` or
+    ``SSMCache``."""
+    if cls is A.KVCache:
+        tail = (None, cfg.attn.num_kv_heads, cfg.head_dim)
+        return {"k": (tail, cfg.dtype), "v": (tail, cfg.dtype)}
+    inner, n, heads = S._dims(cfg.ssm, cfg.d_model)
+    return {"state": ((heads, n, cfg.ssm.head_dim), "float32"),
+            "conv_buf": ((cfg.ssm.d_conv - 1, inner + 2 * n), cfg.dtype)}
+
+
+def _unstack(cfg, name, cls, arrays, lead, device):
+    """The reference's stacked cache ``arrays`` (a ``cls``'s leaves, each
+    with the leading stack dims ``lead``) -> nested lists (one level a
+    stack dim) of ``cls``, checked leaf by leaf."""
+    leaves = _cache_leaves(cfg, cls)
+    if len(arrays) != len(leaves):
+        raise KeyError(f"{cfg.name}: cache {name} holds {len(arrays)} "
+                       f"leaves, expected {tuple(leaves)}")
+    for (field, (tail, dtype)), x in zip(leaves.items(), arrays):
+        want = lead + (None,) + tail
+        if (x.ndim != len(want) or x.dtype.name != dtype
+                or any(w is not None and w != g
+                       for w, g in zip(want, x.shape))):
+            shape = ", ".join("?" if w is None else str(w) for w in want)
+            raise ValueError(f"{cfg.name}: cache {name}.{field} is "
+                             f"{x.dtype.name} {x.shape}, expected {dtype} "
+                             f"({shape})")
+
+    def build(index):
+        if len(index) == len(lead):
+            return cls(*(_lm_tensor(x[index], device) for x in arrays))
+        return [build(index + (i,)) for i in range(lead[len(index)])]
+    return build(())
+
+
+def _stack(caches, depth: int) -> tuple:
+    """The inverse of :func:`_unstack`: nested lists of caches -> one
+    stacked numpy array per leaf."""
+    def flat(node, d):
+        return [c for sub in node for c in flat(sub, d - 1)] if d else [node]
+    lead, node = [], caches
+    for _ in range(depth):
+        lead.append(len(node))
+        node = node[0] if node else None
+    items = flat(caches, depth)
+    return tuple(np.stack([_lm_numpy(getattr(c, f)) for c in items]).reshape(
+        tuple(lead) + tuple(getattr(items[0], f).shape))
+        for f in items[0]._fields)
+
+
+def lm_cache_from_numpy(cfg, caches, device="cuda"):
+    """The reference's decode caches -> the port's, on ``device``:
+    - dense, moe, vlm (``lm_cache_init``: one (k, v) pair per slot of the
+      layer group, each (n_groups, B, S, Hkv, hd)) -> one ``KVCache``
+      per layer;
+    - ssm (one (state, conv_buf) pair, each (L, B, ...)) -> one
+      ``SSMCache`` per layer;
+    - hybrid ({"groups_ssm": (state, conv_buf) (G, 6, B, ...),
+      "groups_kv": (k, v) (G, B, ...), "tail_ssm": (tail, B, ...) or
+      None}) -> the same keys, G lists of 6 ``SSMCache``, G ``KVCache``,
+      a list of ``SSMCache``;
+    - audio ({"self": (k, v), "cross": (k, v)}, each (L_dec, B, ...))
+      -> a list of ``KVCache`` each."""
+    fam = cfg.family
+    if fam == "ssm":
+        return _unstack(cfg, "blocks", S.SSMCache, caches,
+                        (cfg.num_layers,), device)
+    if fam == "hybrid":
+        ngroups, tail = T.zamba_layout(cfg)
+        if set(caches) != {"groups_ssm", "groups_kv", "tail_ssm"}:
+            raise KeyError(f"{cfg.name}: cache keys {sorted(caches)}")
+        return {
+            "groups_ssm": _unstack(cfg, "groups_ssm", S.SSMCache,
+                                   caches["groups_ssm"],
+                                   (ngroups, T.ZAMBA_GROUP), device),
+            "groups_kv": _unstack(cfg, "groups_kv", A.KVCache,
+                                  caches["groups_kv"], (ngroups,), device),
+            "tail_ssm": (_unstack(cfg, "tail_ssm", S.SSMCache,
+                                  caches["tail_ssm"], (tail,), device)
+                         if tail else [])}
+    if fam == "audio":
+        if set(caches) != {"self", "cross"}:
+            raise KeyError(f"{cfg.name}: cache keys {sorted(caches)}")
+        return {key: _unstack(cfg, key, A.KVCache, caches[key],
+                              (cfg.num_decoder_layers,), device)
+                for key in ("self", "cross")}
     gsize, ngroups, _ = T._group_layout(cfg)
     if len(caches) != gsize:
         raise KeyError(f"{cfg.name}: {len(caches)} cache slots, expected "
                        f"{gsize}")
-    dtype = cfg.dtype
-    tail = (cfg.attn.num_kv_heads, cfg.head_dim)
-    out = []
-    for layer in range(cfg.num_layers):
-        group, slot = divmod(layer, gsize)
-        if len(caches[slot]) != 2:
-            raise KeyError(f"{cfg.name}: cache slot {slot} holds "
-                           f"{len(caches[slot])} leaves, expected (k, v)")
-        pair = []
-        for name, x in zip(("k", "v"), caches[slot]):
-            if (x.ndim != 5 or x.shape[0] != ngroups
-                    or tuple(x.shape[3:]) != tail or x.dtype.name != dtype):
-                raise ValueError(
-                    f"{cfg.name}: cache {slot}.{name} is {x.dtype.name} "
-                    f"{x.shape}, expected {dtype} ({ngroups}, B, S, "
-                    f"{cfg.attn.num_kv_heads}, {cfg.head_dim})")
-            pair.append(_lm_tensor(x[group], device))
-        out.append(A.KVCache(*pair))
-    return out
+    slots = [_unstack(cfg, str(slot), A.KVCache, caches[slot], (ngroups,),
+                      device) for slot in range(gsize)]
+    return [slots[slot][group] for group, slot in
+            (divmod(layer, gsize) for layer in range(cfg.num_layers))]
 
 
-def lm_cache_to_numpy(cfg, caches: list[A.KVCache]) -> list[tuple]:
-    """The exact inverse of :func:`lm_cache_from_numpy`: one stacked
-    (k, v) pair of numpy arrays per slot."""
+def lm_cache_to_numpy(cfg, caches):
+    """The exact inverse of :func:`lm_cache_from_numpy`: the reference's
+    layout of stacked numpy arrays, a tuple of leaves for each
+    ``KVCache`` or ``SSMCache`` stack (zamba's empty tail as None)."""
+    fam = cfg.family
+    if fam == "ssm":
+        return _stack(caches, 1)
+    if fam == "hybrid":
+        return {"groups_ssm": _stack(caches["groups_ssm"], 2),
+                "groups_kv": _stack(caches["groups_kv"], 1),
+                "tail_ssm": (_stack(caches["tail_ssm"], 1)
+                             if caches["tail_ssm"] else None)}
+    if fam == "audio":
+        return {key: _stack(caches[key], 1) for key in ("self", "cross")}
     gsize, _, _ = T._group_layout(cfg)
-    return [tuple(np.stack([_lm_numpy(getattr(c, name))
-                            for c in caches[slot::gsize]])
-                  for name in ("k", "v"))
-            for slot in range(gsize)]
+    return [_stack(caches[slot::gsize], 1) for slot in range(gsize)]

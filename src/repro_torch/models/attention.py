@@ -1,7 +1,8 @@
 """GQA attention with RoPE, qk-norm, soft-capping, sliding windows and a
 KV cache, for the PyTorch port: the counterpart of
-``repro/models/attention.py`` for the decoder-only stacks (qwen3,
-granite, gemma2, internvl2).
+``repro/models/attention.py`` for every stack of the zoo (qwen3,
+granite, gemma2, llama4, internvl2, zamba2's shared block, and
+whisper's encoder, decoder and cross attention).
 
 Plain torch, written as the reference writes it: the direct softmax
 (:func:`_sdpa`) and the online-softmax blockwise form
@@ -16,7 +17,7 @@ probabilities are cast to v's dtype before the second product.
 Left out, because the port has no device mesh for LMs yet (ROADMAP
 queue 1 item 8e): the reference's GQA head expansion under a mesh
 (``attention.py:115-121``) and its ``SH.constrain`` calls, which are
-no-ops off a mesh. ``cross_attn_apply`` waits for whisper (item 8c).
+no-ops off a mesh.
 
 Decode consumes a cache laid out (B, S_cache, Hkv, hd): global layers
 the full context written at ``pos``, sliding layers a rolling window of
@@ -183,6 +184,26 @@ def attn_apply(params, cfg: AttnConfig, x, positions, *,
     else:
         out = _blockwise_attn(q, k, v, positions, positions, causal=causal,
                               window=window, softcap_val=cfg.logit_softcap)
+    return torch.einsum("bshk,dhk->bsd", out, params["wo"])
+
+
+def cross_attn_apply(params, cfg: AttnConfig, x, ctx):
+    """Encoder-decoder cross attention (whisper): queries from x (B, Sq,
+    d), keys and values from ctx (B, Sk, d). No RoPE, no mask: the direct
+    softmax up to ``BLOCK_Q`` queries and ``4 * BLOCK_K`` keys, else the
+    blockwise form with every key at position 0."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", ctx, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", ctx, params["wv"])
+    b, sq, sk = x.shape[0], x.shape[1], ctx.shape[1]
+    if sq <= BLOCK_Q and sk <= 4 * BLOCK_K:
+        zeros = torch.zeros((b, sq, sk), dtype=x.dtype, device=x.device)
+        out = _sdpa(q, k, v, zeros, softcap_val=cfg.logit_softcap)
+    else:
+        qp = torch.arange(sq, dtype=torch.int32, device=x.device).expand(b, sq)
+        kp = torch.zeros((b, sk), dtype=torch.int32, device=x.device)
+        out = _blockwise_attn(q, k, v, qp, kp, causal=False, window=0,
+                              softcap_val=cfg.logit_softcap)
     return torch.einsum("bshk,dhk->bsd", out, params["wo"])
 
 

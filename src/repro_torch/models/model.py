@@ -1,24 +1,29 @@
 """Unified model API over the LM zoo, for the PyTorch port: the
-counterpart of ``repro/models/model.py`` for the families this port
-serves, ``dense`` (qwen3, granite, gemma2) and ``vlm`` (internvl2).
+counterpart of ``repro/models/model.py`` for serving, every family:
+``dense`` and ``moe`` (qwen3, granite, gemma2, llama4), ``vlm``
+(internvl2), ``ssm`` (mamba2), ``hybrid`` (zamba2) and ``audio``
+(whisper).
 
 ``build_model(cfg, device=...)`` returns a :class:`Model` with:
 
-* ``init(generator=None) -> params`` (a ``transformer.DecoderLM``,
-  with the patch ``adapter`` for a VLM)
-* ``forward(params, batch) -> (logits, aux, hidden)``
+* ``init(generator=None) -> params`` (the family's stack of
+  ``transformer.py``: ``DecoderLM``, with the patch ``adapter`` for a
+  VLM, ``MambaLM``, ``ZambaLM`` or ``WhisperLM``)
+* ``forward(params, batch) -> (logits, aux, hidden)`` (``batch`` holds
+  ``tokens``, and ``patches`` for a VLM, ``frames`` for whisper)
 * ``prefill_logits(params, batch)`` (last-position logits, soft-capped)
-* ``cache_init(batch, s_cache) -> caches`` (one ``KVCache`` per layer)
+* ``cache_init(batch, s_cache) -> caches`` (whisper's cross caches at
+  ``WHISPER_ENC_FRAMES`` zeroed slots, as the reference's)
 * ``decode(params, caches, token, pos) -> (logits, caches)``
 
 and the two loops that serving and its checks run over ``decode``:
 :func:`decode_all` (every position teacher-forced) and :func:`greedy`
-(the loop of ``examples/serve_decode.py``).
+(the loop of ``examples/serve_decode.py``; whisper's primed caches,
+``WhisperLM.primed_caches``, go through it too).
 
 The params are the functions' first argument, as the reference's
-pytrees are. ``moe``, ``ssm``, ``hybrid`` and ``audio`` are refused
-(ROADMAP queue 1 items 8b and 8c). What belongs to training and the dry
-run waits for items 8d and 8e: ``cross_entropy``, ``chunked_xent_head``,
+pytrees are. What belongs to training and the dry run waits for ROADMAP
+queue 1 items 8d and 8e: ``cross_entropy``, ``chunked_xent_head``,
 ``train_loss``, ``input_specs`` and ``cache_specs``.
 """
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.network import resolve_device
@@ -33,14 +39,11 @@ from repro_torch.models import frontends as F
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
-FAMILIES = ("dense", "vlm")
-REFUSED = {
-    "moe": "ROADMAP queue 1 item 8b (MoE serving)",
-    "ssm": "ROADMAP queue 1 item 8c (SSM and hybrid serving)",
-    "hybrid": "ROADMAP queue 1 item 8c (SSM and hybrid serving)",
-    "audio": "ROADMAP queue 1 item 8c (whisper, cross-attention and the "
-             "audio frontend)",
-}
+WHISPER_ENC_FRAMES = 3000      # whisper-medium 30 s window (stub frontend)
+VLM_PATCHES = 256              # internvl2 tile -> 256 patch embeddings
+
+STACKS = {"dense": T.DecoderLM, "moe": T.DecoderLM, "vlm": T.DecoderLM,
+          "ssm": T.MambaLM, "hybrid": T.ZambaLM, "audio": T.WhisperLM}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,58 +51,67 @@ class Model:
     cfg: ModelConfig
     device: torch.device
 
-    def init(self, generator: torch.Generator | None = None
-             ) -> T.DecoderLM:
+    def init(self, generator: torch.Generator | None = None) -> nn.Module:
         """Parameters drawn on the model's device from ``generator``,
         else from a generator seeded with 0 (none on the ``meta`` device,
         which makes an empty skeleton)."""
         cfg, dev = self.cfg, self.device
         if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(0)
-        params = T.DecoderLM(cfg, generator=generator, device=dev)
+        params = STACKS[cfg.family](cfg, generator=generator, device=dev)
         if cfg.family == "vlm":
             params.adapter = L.Params(F.adapter_init(
                 generator, cfg.d_model, cfg.d_model, L.torch_dtype(cfg.dtype),
                 device=dev))
         return params
 
-    def forward(self, params: T.DecoderLM, batch: dict, with_logits=True):
-        prefix = None
-        if self.cfg.family == "vlm":
+    def forward(self, params: nn.Module, batch: dict, with_logits=True):
+        fam = self.cfg.family
+        if fam == "audio":
+            return params(batch["frames"], batch["tokens"],
+                          with_logits=with_logits)
+        if fam == "vlm":
             prefix = F.vision_patches_apply(params.adapter, batch["patches"])
-        return params(batch["tokens"], prefix_embeds=prefix,
-                      with_logits=with_logits)
+            return params(batch["tokens"], prefix_embeds=prefix,
+                          with_logits=with_logits)
+        return params(batch["tokens"], with_logits=with_logits)
 
-    def prefill_logits(self, params: T.DecoderLM, batch: dict):
+    def prefill_logits(self, params: nn.Module, batch: dict):
         """Last-position logits only (what serving needs): skips the
         full (B, S, V) head."""
         _, _, hidden = self.forward(params, batch, with_logits=False)
         return params.head(hidden[:, -1:])
 
     def cache_init(self, batch: int, s_cache: int):
-        return T.lm_cache_init(self.cfg, batch, s_cache, device=self.device)
+        cfg, dev, fam = self.cfg, self.device, self.cfg.family
+        if fam == "ssm":
+            return T.mamba_cache_init(cfg, batch, device=dev)
+        if fam == "hybrid":
+            return T.zamba_cache_init(cfg, batch, s_cache, device=dev)
+        if fam == "audio":
+            return T.whisper_cache_init(cfg, batch, s_cache,
+                                        WHISPER_ENC_FRAMES, device=dev)
+        return T.lm_cache_init(cfg, batch, s_cache, device=dev)
 
-    def decode(self, params: T.DecoderLM, caches, token, pos: int):
+    def decode(self, params: nn.Module, caches, token, pos: int):
         return params.decode_step(caches, token, pos)
 
 
 def build_model(cfg: ModelConfig, *, device="cuda") -> Model:
     """The model of ``cfg`` on ``device`` (``cuda`` without a card
     raises, never falling back to the CPU)."""
-    if cfg.family in REFUSED:
-        raise ValueError(f"{cfg.name}: the {cfg.family!r} family is not "
-                         f"ported yet ({REFUSED[cfg.family]})")
-    if cfg.family not in FAMILIES:
+    if cfg.family not in STACKS:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     return Model(cfg, resolve_device(device))
 
 
-def decode_all(model: Model, params: T.DecoderLM, toks):
+def decode_all(model: Model, params: nn.Module, toks, caches=None):
     """Every position of ``toks`` (B, S) teacher-forced through
-    ``decode`` from an empty cache of S slots: (logits (B, S, V), the
-    final caches)."""
+    ``decode`` from ``caches`` (default an empty cache of S slots):
+    (logits (B, S, V), the final caches)."""
     b, s = toks.shape
-    caches = model.cache_init(b, s)
+    if caches is None:
+        caches = model.cache_init(b, s)
     steps = []
     for t in range(s):
         logits, caches = model.decode(params, caches, toks[:, t:t + 1], t)
@@ -107,16 +119,18 @@ def decode_all(model: Model, params: T.DecoderLM, toks):
     return torch.cat(steps, dim=1), caches
 
 
-def greedy(model: Model, params: T.DecoderLM, prompts, n_gen: int,
-           on_step=None):
+def greedy(model: Model, params: nn.Module, prompts, n_gen: int,
+           on_step=None, caches=None):
     """The loop of ``examples/serve_decode.py``: ``prompts`` (B, P)
     teacher-forced through ``decode``, then ``n_gen`` greedy tokens, on
-    a cache of P + n_gen slots. Returns (tokens (B, n_gen) int32, the
+    ``caches`` (default ``model.cache_init(B, P + n_gen)``; whisper's
+    primed caches, for example). Returns (tokens (B, n_gen) int32, the
     last step's logits). ``on_step()``, if given, is called once when
     the cache is ready and once after each step (a timer's marks: step
     i lies between calls i and i + 1)."""
     prompt = prompts.shape[1]
-    caches = model.cache_init(prompts.shape[0], prompt + n_gen)
+    if caches is None:
+        caches = model.cache_init(prompts.shape[0], prompt + n_gen)
     tok, generated = prompts[:, :1], []
     if on_step is not None:
         on_step()

@@ -601,13 +601,15 @@ def test_guarded_mesh_is_neutral_and_trips(cuda_device, node):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-9b",
+                                  "llama4-maverick-400b-a17b", "mamba2-780m",
+                                  "zamba2-7b", "whisper-medium"])
 def test_lm_reduced_on_the_card_equals_the_cpu(cuda_device, arch):
     """The reduced config's parameters drawn on the card and carried to
     the CPU: forward logits, 48 teacher-forced decode steps (gemma2's
     rolling caches wrap) and the final caches within 1e-4, and equal
-    greedy tokens: ``chip_smoke.Smoke.lm_reduced`` (phase 10d), which
-    raises on a miss."""
+    greedy tokens: ``chip_smoke.Smoke.lm_reduced`` (phases 10d and
+    11f), which raises on a miss."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     rows = chip_smoke.Smoke(torch, str(cuda_device)).lm_reduced(

@@ -6,10 +6,10 @@ reference's: the quickstart's static run equals the JAX quickstart's
 shards equal its single shard and the JAX package's 2x2 mesh (one forced
 4-device subprocess for the module, started in the background), and the
 serving example's request-0 tokens equal those that
-``examples/serve_decode.py`` prints, with its parameters carried in (a
-second background subprocess); without ``--device cpu`` they need a card
-and raise. Also ``launch/sim.py --mesh --no-compress``, the reference's
-flag."""
+``examples/serve_decode.py`` prints, with its parameters carried in, for
+granite-3-2b and mamba2-780m (a second background subprocess);
+without ``--device cpu`` they need a card and raise. Also
+``launch/sim.py --mesh --no-compress``, the reference's flag."""
 import importlib.util
 import pathlib
 import re
@@ -77,6 +77,7 @@ def jax_examples(jax_started):
 
 
 SERVE = ["--batch", "2", "--prompt-len", "8", "--gen", "16"]
+SERVE_ARCHS = ("granite-3-2b", "mamba2-780m")
 
 JAX_SERVE = """
 import contextlib, io, runpy, sys
@@ -96,14 +97,15 @@ def flat(tree, prefix=''):
         out.update(flat(v, '%s.%s' % (prefix, k) if prefix else str(k)))
     return out
 
-sys.argv = ['serve_decode.py'] + {argv!r}
-buf = io.StringIO()
-with contextlib.redirect_stdout(buf):
-    runpy.run_path('{root}/examples/serve_decode.py', run_name='__main__')
-params = build_model(C.reduced_config('granite-3-2b')).init(
-    jax.random.PRNGKey(0))
-np.savez('{out}/serve', **flat(params))
-print(buf.getvalue())
+for arch in {archs!r}:
+    sys.argv = ['serve_decode.py', '--arch', arch] + {argv!r}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        runpy.run_path('{root}/examples/serve_decode.py', run_name='__main__')
+    params = build_model(C.reduced_config(arch)).init(jax.random.PRNGKey(0))
+    np.savez('{out}/serve-%s' % arch, **flat(params))
+    print('ARCH', arch)
+    print(buf.getvalue())
 print('OK')
 """
 
@@ -111,7 +113,8 @@ print('OK')
 @pytest.fixture(autouse=True, scope="module")
 def jax_serve_started(tmp_path_factory):
     out = tmp_path_factory.mktemp("jax_serve")
-    job = JaxInBackground(JAX_SERVE.format(argv=SERVE, root=ROOT, out=out),
+    job = JaxInBackground(JAX_SERVE.format(argv=SERVE, archs=SERVE_ARCHS,
+                                           root=ROOT, out=out),
                           n_devices=1, timeout=600)
     yield out, job
     job.stop()
@@ -156,29 +159,49 @@ def test_simulate_cortex_matches_single_shard_and_jax(capsys, jax_examples):
                                    rel=1e-3)   # printed to 4 digits
 
 
-def test_serve_decode_prints_the_reference_s_tokens(capsys,
-                                                   jax_serve_started):
-    """``examples/torch_serve_decode.py --device cpu`` with the parameters
-    of ``examples/serve_decode.py`` (``init(PRNGKey(0))`` of the reduced
-    granite-3-2b) carried in: the prompts are the same
-    ``randint(PRNGKey(1))`` draws, and its request-0 line is the
-    reference's."""
+def serve_as_the_reference(jax_serve_started, arch):
+    """``examples/torch_serve_decode.py --arch arch --device cpu`` with
+    the parameters of ``examples/serve_decode.py --arch arch``
+    (``init(PRNGKey(0))`` of the reduced config) carried in: (its tokens,
+    what it printed, what the reference printed)."""
     from repro_torch import configs as C
     from repro_torch import convert
     out, job = jax_serve_started
     printed = job.result()
     assert "OK" in printed
-    tree = convert.lm_unflatten(dict(np.load(out / "serve.npz")))
-    params = convert.lm_params_from_numpy(C.reduced_config("granite-3-2b"),
-                                          tree, "cpu")
-    gen = example("torch_serve_decode").main(SERVE + ["--device", "cpu"],
-                                             params=params)
+    printed = printed.split(f"ARCH {arch}\n")[1].split("ARCH ")[0]
+    tree = convert.lm_unflatten(dict(np.load(out / f"serve-{arch}.npz")))
+    params = convert.lm_params_from_numpy(C.reduced_config(arch), tree, "cpu")
+    gen = example("torch_serve_decode").main(
+        ["--arch", arch] + SERVE + ["--device", "cpu"], params=params)
+    return gen, printed
+
+
+def test_serve_decode_prints_the_reference_s_tokens(capsys,
+                                                   jax_serve_started):
+    """The prompts are the same ``randint(PRNGKey(1))`` draws as
+    ``examples/serve_decode.py``'s, and the request-0 line of the reduced
+    granite-3-2b is the reference's."""
+    gen, printed = serve_as_the_reference(jax_serve_started, "granite-3-2b")
     mine = capsys.readouterr().out
     assert gen.shape == (2, 16) and gen.dtype == torch.int32
     want = re.search(r"request 0 tokens: .*", printed)[0]
     assert re.search(r"request 0 tokens: .*", mine)[0] == want
     assert "granite-3-2b (reduced): batch 2, 23 decode steps" in mine
     assert "on this host's CPU" in mine
+
+
+def test_serve_decode_serves_mamba2_as_the_reference(capsys,
+                                                    jax_serve_started):
+    """``--arch mamba2-780m``: the SSM family through the same loop, and
+    its request-0 line is that of ``examples/serve_decode.py --arch
+    mamba2-780m``."""
+    gen, printed = serve_as_the_reference(jax_serve_started, "mamba2-780m")
+    mine = capsys.readouterr().out
+    assert gen.shape == (2, 16)
+    want = re.search(r"request 0 tokens: .*", printed)[0]
+    assert re.search(r"request 0 tokens: .*", mine)[0] == want
+    assert "mamba2-780m (reduced): batch 2, 23 decode steps" in mine
 
 
 @pytest.mark.parametrize("name", ["torch_quickstart",

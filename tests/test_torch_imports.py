@@ -68,6 +68,8 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.models.layers",
                    "repro_torch.models.attention",
                    "repro_torch.models.transformer",
+                   "repro_torch.models.moe",
+                   "repro_torch.models.ssm",
                    "repro_torch.models.frontends",
                    "repro_torch.models.model",
                    "examples/torch_serve_decode.py"):

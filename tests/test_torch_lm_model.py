@@ -15,8 +15,11 @@ check every leaf. In bfloat16, qwen3-0.6b and gemma2-9b: the
 ``forward`` and decode logits against the reference's bfloat16 run of
 the same carried-in parameters, within a relative error that the
 float32 path run in bfloat16's place exceeds (:data:`BF16_REL`). Also
-``build_model``'s refusals and its device."""
+``build_model`` over all ten published configs on the ``meta`` device,
+every leaf's path, shape and dtype those of the reference's
+``jax.eval_shape`` of its ``init`` at full width, and its device."""
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -149,6 +152,26 @@ for i, arch in enumerate({bf16_archs!r}):
     out['decode'] = np.concatenate(steps, axis=1)
     np.savez('{out}/bf16-%s' % arch,
              **{{k: np.asarray(v) for k, v in out.items()}})
+
+def shapes(tree, prefix=''):
+    if tree is None:
+        return {{}}
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {{prefix: [list(tree.shape), str(tree.dtype)]}}
+    out = {{}}
+    for k, v in items:
+        out.update(shapes(v, '%s.%s' % (prefix, k) if prefix else str(k)))
+    return out
+
+import json
+with open('{out}/full_shapes.json', 'w') as f:
+    json.dump({{arch: shapes(jax.eval_shape(
+        build_model(C.get_config(arch)).init, jax.random.PRNGKey(0)))
+        for arch in C.ARCH_IDS}}, f)
 print('OK')
 """
 
@@ -363,15 +386,24 @@ def test_gemma_layers_alternate_local_and_global():
     assert hasattr(params.layers[3], "ln_mlp_post")
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("llama4-scout-17b-a16e", "item 8b"),
-    ("llama4-maverick-400b-a17b", "item 8b"),
-    ("mamba2-780m", "item 8c"),
-    ("zamba2-7b", "item 8c"),
-    ("whisper-medium", "item 8c")])
-def test_build_model_refuses_what_is_not_ported(arch, item):
-    with pytest.raises(ValueError, match=f"ROADMAP queue 1 {item}"):
-        build_model(C.reduced_config(arch), device="cpu")
+@pytest.fixture(scope="module")
+def full_shapes(jax_started):
+    out, job = jax_started
+    assert "OK" in job.result()
+    return json.loads((out / "full_shapes.json").read_text())
+
+
+@pytest.mark.parametrize("arch", C.ARCH_IDS)
+def test_build_model_builds_every_published_config(full_shapes, arch):
+    """Every config at full width, on the ``meta`` device (no memory):
+    the port's leaves, stacked as the reference stacks them, have the
+    paths, shapes and dtypes of the reference's ``jax.eval_shape`` of
+    ``build_model(cfg).init``."""
+    cfg = C.get_config(arch)
+    params = build_model(cfg, device="meta").init()
+    got = {path: [list(dims + shape), dtype] for path, (dims, _, shape, dtype)
+           in convert._stacks(params).items()}
+    assert got == full_shapes[arch]
 
 
 def test_build_model_on_cuda_without_a_card_raises():
