@@ -177,8 +177,8 @@ then, on the card:
    prompt 24, 48 generated, with its decode ms/step (median after the
    first step, CUDA events), tokens/s, the prefill of the prompts, device
    ops a step and busy share (profiled), parameter GB and peak memory;
-   (b) gemma2-9b at full config the same way (the float32 copy freed
-   before the bfloat16 one), and a 2048-token prefill through
+   (b) gemma2-9b at full config the same way (its float32 check at full
+   width and 8 of 42 layers, freed before the bfloat16 model), and a 2048-token prefill through
    ``_blockwise_attn`` (2 x 2 blocks of 1024, one call a layer) against
    the direct path, within 1e-3 in float32 and within 2.0 max abs and
    2e-2 relative in bfloat16; (c) internvl2-1b at full config,
@@ -199,12 +199,27 @@ then, on the card:
    2e-2; no token can drop there); (b) llama4-maverick-400b-a17b cut to
    2 of 48 layers, one (dense, MoE) group (35.0 GB), served only; (c)
    mamba2-780m and (d) zamba2-7b at full depth, each with a float32
-   check on 1 x 256 tokens and ``prefill_logits`` on 8 x 256 (whole SSD
-   chunks of 256); (e) whisper-medium at full depth, its encoder on 8 x
+   check on 1 x 256 tokens (at full width and 8 and 15 layers) and
+   ``prefill_logits`` on 8 x 256 (whole SSD chunks of 256); (e) whisper-medium at full depth, its encoder on 8 x
    2048 frames (timed; 3000 are not whole blocks of 1024, which both
    packages refuse), the cross caches primed from it and served over,
    after a float32 check on 1 x 2048 frames x 48 tokens; (f) the reduced
-   configs of the five archs, card against CPU as in (10d).
+   configs of the five archs, card against CPU as in (10d);
+12. drives the LM zoo's training path (``repro_torch.launch.train``,
+   ``optim``, ``data``; plain torch, no Pallas kernel in the reference
+   either): (a) qwen3-0.6b at its published size (bfloat16, remat
+   "block", parameters from ``init_state`` seeded 0), 20 AdamW steps on
+   ``TokenPipeline(vocab, 8, 1024, seed=1)``, then 2 at microbatch 2,
+   with the step ms (median after the first), tokens/s, the model-FLOP
+   share of the dense bfloat16 peak, peak memory and a profile; the
+   loss must be finite and fall (mean of the last 5 steps below the
+   first 5); in float32 at 2 layers the chunked head equals the direct
+   cross-entropy (loss 1e-5, gradients rtol 2e-4 atol 2e-5) and remat
+   "block" the gradients of "none" (1e-6 of each leaf's largest value);
+   (b) the reduced configs of all ten archs, card against CPU: the loss,
+   every gradient leaf and one AdamW step within 1e-4, and 3 steps each
+   of 8-bit AdamW, adafactor and int8-EF on reduced qwen3, each from the
+   card's state.
 
 Every phase raises on failure and the script exits non-zero. Without a
 card, or without the rest of the repository beside it, it exits
@@ -219,6 +234,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -361,6 +377,35 @@ LM_MOE_LAYERS = {"llama4-scout-17b-a16e": 12, "llama4-maverick-400b-a17b": 2}
 LM_MOE_CHECK_LAYERS, LM_MOE_CHECK = 4, (1, 8)
 LM_SSM_CHECK, LM_SSM_PREFILL = (1, 256), (8, 256)
 LM_WHISPER_FRAMES, LM_WHISPER_CHECK = 2048, (1, 2048, 48)
+# the float32 checks of phases 10b, 11c and 11d at full width cut in
+# depth (to keep the script inside its limit with phase 12): gemma2-9b
+# at 8 of 42 layers, mamba2-780m at 8 of 48, zamba2-7b at 15 of 81 (two
+# groups of 6 and a tail of 3, as its reduced config); bfloat16 serving
+# stays at full depth
+LM_CHECK_LAYERS = {"gemma2-9b": 8, "mamba2-780m": 8, "zamba2-7b": 15}
+# phase 12, LM training: qwen3-0.6b at full size, bfloat16, remat
+# "block", AdamW (lr 1e-3 after 5 warmup steps, as the reference's
+# loss-decrease test) on TokenPipeline(vocab, 8, 1024, seed=1); the steps,
+# then the steps at microbatch 2; the profiled steps; the card's dense
+# bfloat16 peak (H100 SXM, FLOP/s) for the model-FLOP share; the float32
+# checks at 2 layers on (batch, tokens) of two head chunks of 512, at the
+# reference's tests/test_loss.py tolerances and, for remat against none,
+# 1e-6 of each leaf's largest value; 12b's reduced configs (the
+# reference's tests/test_models.py::_batch shapes), its learning rate
+# (small, so that an element whose tiny gradient differs in sign between
+# the card and the CPU, which AdamW moves by +-lr, stays inside
+# LM_CARD_TOL), the optimizers' steps on reduced qwen3, and the share of
+# parameter elements the quantizing ones may put beyond LM_CARD_TOL
+LM_TRAIN = dict(batch=8, seq=1024, seed=1, steps=20, mb_steps=2,
+                lr=1e-3, warmup=5)
+LM_TRAIN_PROFILE_STEPS = 3
+BF16_PEAK_FLOPS = 989e12
+LM_TRAIN_CHECK, LM_TRAIN_CHECK_LAYERS = (2, 1024), 2
+LM_REMAT_TOL = 1e-6
+LM_TRAIN_REDUCED_LR = 1e-5
+LM_TRAIN_OPTIMIZERS = ("adamw8bit", "adafactor", "int8_ef")
+LM_TRAIN_OPT_STEPS = 3
+LM_QUANTIZED_SHARE = 1e-3
 
 
 def log(*args):
@@ -444,6 +489,11 @@ class Smoke:
         self.LC, self.LA, self.LM = lm_configs, lm_attention, lm_model
         self.LT = lm_transformer
         self.convert = convert
+        from repro_torch.data import pipeline as lm_data
+        from repro_torch.launch import train as lm_train
+        from repro_torch.optim import optimizer as lm_optim
+        self.LD, self.TR, self.LO = lm_data, lm_train, lm_optim
+        self.TrainConfig = base.TrainConfig
         self.ExchangeConfig = base.ExchangeConfig
         self.payload_bytes = compression.halo_payload_bytes
         self.comp = compression
@@ -651,6 +701,10 @@ class Smoke:
         # depth, mamba2, zamba2 and whisper at full size, the reduced
         # configs against the CPU
         self.lm_families_path()
+
+        # 12. LM training: qwen3-0.6b at full size, its float32 checks, the
+        # reduced configs and the optimizers against the CPU
+        self.lm_train_path()
 
         tenant = {f"{name}[B={TENANT_B}]": name for name in TENANT_KERNELS}
         tenant[PLASTIC_FUSED] = "fused_step"
@@ -4412,9 +4466,13 @@ class Smoke:
         within LM_CHECK_TOL (and with ``long`` the LM_LONG-token prefill
         through ``_blockwise_attn`` equals the direct path's); the float32
         parameters are freed, then the config's bfloat16 model serves
-        LM_SERVE (:meth:`lm_serve`, and with ``long`` the prefill again)."""
+        LM_SERVE (:meth:`lm_serve`, and with ``long`` the prefill again).
+        The float32 model has LM_CHECK_LAYERS[name] layers where that
+        names it, else all."""
         torch = self.torch
-        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        cfg32 = dataclasses.replace(
+            cfg, dtype="float32",
+            num_layers=LM_CHECK_LAYERS.get(cfg.name, cfg.num_layers))
         model, params, gen = self.lm_model(cfg32)
         gb32 = self.param_gb(params)
         b, s = LM_CHECK
@@ -4429,10 +4487,12 @@ class Smoke:
         if not bool(torch.isfinite(full).all()):
             raise AssertionError(f"phase {tag}: non-finite logits")
         row = dict(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
-                   vocab=cfg.vocab_size, f32_param_gb=gb32,
+                   vocab=cfg.vocab_size, f32_layers=cfg32.num_layers,
+                   f32_param_gb=gb32,
                    f32_decode_vs_forward_max_abs=err)
         log(f"phase {tag} {cfg.name} (full config: {cfg.num_layers} layers, "
-            f"d {cfg.d_model}, vocab {cfg.vocab_size}), float32 "
+            f"d {cfg.d_model}, vocab {cfg.vocab_size}), float32 at "
+            f"{cfg32.num_layers} layers "
             f"{gb32:.3f} GB of parameters: {s} tokens x {b} teacher-forced "
             f"through decode equal forward's logits within {LM_CHECK_TOL} "
             f"(max abs err {err:.3e})")
@@ -4806,14 +4866,15 @@ class Smoke:
         return row
 
     def lm_ssm(self, cfg, tag):
-        """11c/11d: mamba2 or zamba2 at full size: :meth:`lm_check` on
-        LM_SSM_CHECK tokens, then served, with ``prefill_logits`` over
-        LM_SSM_PREFILL (whole SSD chunks; the serving prompts of 24 are
-        not)."""
+        """11c/11d: mamba2 or zamba2 at full width: :meth:`lm_check` on
+        LM_SSM_CHECK tokens at LM_CHECK_LAYERS[name] layers, then served
+        at full depth, with ``prefill_logits`` over LM_SSM_PREFILL (whole
+        SSD chunks; the serving prompts of 24 are not)."""
         torch = self.torch
         b, s = LM_SSM_CHECK
         pb, ps = LM_SSM_PREFILL
-        row = dict(check=self.lm_check(tag, cfg, lambda g: {
+        small = dataclasses.replace(cfg, num_layers=LM_CHECK_LAYERS[cfg.name])
+        row = dict(check=self.lm_check(tag, small, lambda g: {
             "tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
                                     device=self.dev)}))
         row.update(self.lm_served(tag, cfg, cfg.num_layers, lambda m, p, g: {
@@ -4859,6 +4920,384 @@ class Smoke:
             f"{enc_ms[0]:.4f} ms (median of 3 after one); served over the "
             f"cross caches primed from it")
         return row
+
+    # ------------------------------------------- phase 12: LM training
+    def lm_train_path(self):
+        """Phase 12: the LM zoo's training path (``launch/train.py``,
+        ``optim/``, ``data/``, the chunked head and remat; plain torch,
+        no kernel of this repo): 12a qwen3-0.6b at its published size
+        (:meth:`lm_train_full`) and its float32 checks at
+        LM_TRAIN_CHECK_LAYERS layers (:meth:`lm_train_checks`); 12b the
+        reduced configs of all ten archs and the three other optimizer
+        settings on reduced qwen3, card against CPU
+        (:meth:`lm_train_reduced`)."""
+        t0 = time.perf_counter()
+        qwen3 = self.LC.get_config("qwen3-0.6b")
+        self.report["phase12"] = dict(
+            qwen3=self.lm_train_full(qwen3),
+            checks=self.lm_train_checks(qwen3),
+            reduced=self.lm_train_reduced())
+        self.report["phase12"]["seconds"] = time.perf_counter() - t0
+        log(f"phase 12 took {time.perf_counter() - t0:.1f} s")
+
+    def lm_train_steps(self, step_fn, state, batches, tag):
+        """``step_fn`` over ``batches`` (each on the card), CUDA events
+        at every step's start and after the last (the device's timeline,
+        so a host-bound step's gaps count), no host wait in between:
+        (state, losses, ms per step, loop wall s)."""
+        torch = self.torch
+        events, losses = [], []
+
+        def mark():
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        self.sync()
+        w0 = time.perf_counter()
+        for batch in batches:
+            mark()
+            state, m = step_fn(state, batch)
+            losses.append(m["loss"])
+        mark()
+        self.sync()
+        wall = time.perf_counter() - w0
+        losses = [float(x) for x in losses]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"phase {tag}: a loss is not finite: "
+                                 f"{losses}")
+        return (state, losses,
+                [e0.elapsed_time(e1) for e0, e1 in zip(events, events[1:])],
+                wall)
+
+    def lm_train_full(self, cfg):
+        """12a: ``cfg`` (qwen3-0.6b: 28 layers, d 1024, vocab 151936,
+        bfloat16, remat "block") from ``init_state`` with a generator on
+        the card seeded 0: LM_TRAIN["steps"] AdamW steps on the Markov
+        stream, then LM_TRAIN["mb_steps"] at ``microbatch=2``, then
+        LM_TRAIN_PROFILE_STEPS profiled. The batches are drawn and put on
+        the card first (set-up). Median step ms after the first,
+        tokens/s, peak memory, and the model-FLOP share: 6 x parameters
+        x tokens (every product's forward and two backward products; the
+        tied table once, for the head) + 12 x layers x heads x head_dim x
+        seq x tokens (the score and value products over the full S x S,
+        as the port computes them), over the step time, over the card's
+        dense bfloat16 peak; remat's recompute is not counted. The loss
+        must be finite and the mean of the last 5 steps below that of the
+        first 5."""
+        torch, TR = self.torch, self.TR
+        t, b, s = LM_TRAIN, LM_TRAIN["batch"], LM_TRAIN["seq"]
+        if cfg.dtype != "bfloat16" or cfg.remat != "block":
+            raise AssertionError(f"phase 12a: {cfg.name} is {cfg.dtype}, "
+                                 f"remat {cfg.remat!r}")
+        tcfg = self.TrainConfig(learning_rate=t["lr"],
+                                warmup_steps=t["warmup"])
+        pipe = self.LD.TokenPipeline(cfg.vocab_size, b, s, seed=t["seed"])
+        n_batches = t["steps"] + t["mb_steps"] + LM_TRAIN_PROFILE_STEPS + 2
+        batches = [{k: torch.from_numpy(v).to(self.dev)
+                    for k, v in pipe.make_batch(i).items()}
+                   for i in range(n_batches)]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        self.lm_base = torch.cuda.memory_allocated(self.dev)
+        model = self.LM.build_model(cfg, device=self.dev)
+        state = TR.init_state(model, tcfg,
+                              torch.Generator(device=self.dev).manual_seed(0))
+        n_params = sum(p.numel() for p in state.params.parameters())
+        step_fn = TR.make_train_step(model, tcfg)
+        state, losses, ms, wall = self.lm_train_steps(
+            step_fn, state, batches[:t["steps"]], "12a")
+        step_ms = statistics.median(ms[1:])
+        first5, last5 = (statistics.mean(losses[:5]),
+                         statistics.mean(losses[-5:]))
+        if not last5 < first5:
+            raise AssertionError(f"phase 12a: the loss did not fall: "
+                                 f"{losses}")
+        peak = self.lm_peak_gb()
+        mb_fn = TR.make_train_step(model, dataclasses.replace(
+            tcfg, microbatch=2))
+        state, mb_losses, mb_ms, _ = self.lm_train_steps(
+            mb_fn, state, batches[t["steps"]:t["steps"] + t["mb_steps"]],
+            "12a microbatch")
+        mb_peak = self.lm_peak_gb()
+        tokens = b * s
+        flops = (6 * n_params * tokens + 12 * cfg.num_layers
+                 * cfg.attn.num_heads * cfg.head_dim * s * tokens)
+        share = flops / (step_ms / 1e3) / BF16_PEAK_FLOPS
+        rest = iter(batches[t["steps"] + t["mb_steps"]:])
+        box = [state]
+
+        def run(k):
+            for _ in range(k):
+                box[0], _ = step_fn(box[0], next(rest))
+        prof = self.profile(f"{cfg.name} train step B={b} S={s}", run,
+                            step_ms, steps=LM_TRAIN_PROFILE_STEPS)
+        row = dict(arch=cfg.name, params=n_params, dtype=cfg.dtype,
+                   remat=cfg.remat, batch=b, seq=s, steps=t["steps"],
+                   step_ms=step_ms, first_step_ms=ms[0],
+                   loop_wall_s=wall, tokens_per_s=tokens * 1e3 / step_ms,
+                   model_flops_per_step=flops, model_flop_share=share,
+                   peak_memory_gb=peak, losses=losses,
+                   first5_mean=first5, last5_mean=last5,
+                   microbatch2_ms=mb_ms, microbatch2_losses=mb_losses,
+                   microbatch2_peak_memory_gb=mb_peak,
+                   device_ops_per_step=prof["device_ops_per_step"],
+                   device_ms_per_step=prof["device_ms_per_step"],
+                   busy_share=prof["busy_share_unprofiled"],
+                   top_ops_us_per_step=prof["top_ops_us_per_step"])
+        log(f"phase 12a {cfg.name} training at full size "
+            f"({n_params / 1e6:.1f}M parameters, {cfg.num_layers} layers, d {cfg.d_model}, vocab "
+            f"{cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}), AdamW, "
+            f"batch {b} x {s} tokens: {step_ms:.2f} ms/step (median of "
+            f"{len(ms) - 1} after the first, {ms[0]:.1f} ms; loop "
+            f"{wall:.2f} s wall), {row['tokens_per_s']:.0f} tokens/s, "
+            f"model-FLOP share {share:.4f} of {BF16_PEAK_FLOPS / 1e12:.0f} "
+            f"TFLOP/s ({flops:.3e} FLOPs a step), peak memory {peak:.2f} GB; "
+            f"{prof['device_ops_per_step']:.0f} device ops and "
+            f"{prof['device_ms_per_step']:.1f} device ms a step, busy "
+            f"{row['busy_share']:.3f}")
+        log(f"phase 12a losses: first {losses[0]:.4f}, last "
+            f"{losses[-1]:.4f}; mean of the first 5 {first5:.4f} > mean of "
+            f"the last 5 {last5:.4f}; every step: "
+            + ", ".join(f"{x:.3f}" for x in losses))
+        log(f"phase 12a {t['mb_steps']} steps at microbatch 2: "
+            + ", ".join(f"{x:.2f}" for x in mb_ms) + " ms, losses "
+            + ", ".join(f"{x:.4f}" for x in mb_losses)
+            + f", peak memory {mb_peak:.2f} GB")
+        del state, box, batches, step_fn, mb_fn
+        torch.cuda.empty_cache()
+        return row
+
+    def lm_train_checks(self, cfg):
+        """12a's float32 checks on ``cfg`` cut to LM_TRAIN_CHECK_LAYERS
+        layers at full width: ``chunked_xent_head`` over the model's
+        hidden states (two chunks of 512) against ``cross_entropy`` over
+        the whole logits, loss within 1e-5, table and hidden gradients
+        within rtol 2e-4, atol 2e-5 (the reference's tests/test_loss.py);
+        ``remat="block"`` against ``"none"``, loss and every gradient
+        leaf within LM_REMAT_TOL of its largest value (the embedding's
+        backward adds with atomics on the card, so not to the bit)."""
+        torch, MM = self.torch, self.LM
+        from repro_torch.models import layers as L
+        cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                    num_layers=LM_TRAIN_CHECK_LAYERS)
+        b, s = LM_TRAIN_CHECK
+        model, params, gen = self.lm_model(cfg32)
+        toks, labels = (torch.randint(0, cfg.vocab_size, (b, s),
+                                      generator=gen, device=self.dev)
+                        for _ in range(2))
+        with torch.no_grad():
+            _, _, hidden = model.forward(params, {"tokens": toks},
+                                         with_logits=False)
+        runs = []
+        for chunked in (True, False):
+            tbl = params.embed["table"].detach().clone().requires_grad_(True)
+            hid = hidden.clone().requires_grad_(True)
+            if chunked:
+                loss = MM.chunked_xent_head(
+                    tbl, hid, labels, softcap_val=cfg.final_logit_softcap)
+            else:
+                loss = MM.cross_entropy(L.softcap(
+                    torch.einsum("bsd,vd->bsv", hid, tbl),
+                    cfg.final_logit_softcap), labels)
+            loss.backward()
+            runs.append((loss.detach(), tbl.grad, hid.grad))
+            del tbl, hid, loss
+        (lc, tc, hc), (ld, td, hd) = runs
+        head_err = (self.close("phase 12a chunked head loss", lc, ld,
+                               rtol=1e-5, atol=0.0),
+                    self.close("phase 12a chunked head table gradient", tc,
+                               td, rtol=2e-4, atol=2e-5),
+                    self.close("phase 12a chunked head hidden gradient", hc,
+                               hd, rtol=2e-4, atol=2e-5))
+        del runs, tc, td, hc, hd
+        tree = self.convert.lm_params_to_numpy(params)
+        del params
+        grads = {}
+        for remat in ("none", "block"):
+            c = dataclasses.replace(cfg32, remat=remat)
+            m = self.LM.build_model(c, device=self.dev)
+            p = self.convert.lm_params_from_numpy(
+                c, tree, self.dev).requires_grad_(True)
+            loss, _ = m.train_loss(p, {"tokens": toks, "labels": labels})
+            loss.backward()
+            grads[remat] = (loss.detach(), self.TR.Leaves(p).grads())
+            del p, loss
+        (l0, g0), (l1, g1) = grads["none"], grads["block"]
+        self.close("phase 12a remat loss", l1, l0, rtol=LM_REMAT_TOL,
+                   atol=0.0)
+        remat_err, bitwise = 0.0, []
+        for k, want in g0.items():
+            mag = float(want.abs().max())
+            err = self.close(f"phase 12a remat gradient {k}", g1[k], want,
+                             rtol=0.0, atol=LM_REMAT_TOL * mag)
+            remat_err = max(remat_err, err / max(mag, 1e-30))
+            bitwise.append(bool(torch.equal(g1[k], want)))
+        row = dict(layers=LM_TRAIN_CHECK_LAYERS, tokens=[b, s],
+                   chunked_loss_err=head_err[0], chunked_table_err=head_err[1],
+                   chunked_hidden_err=head_err[2],
+                   remat_max_rel_err=remat_err,
+                   remat_bitwise_leaves=sum(bitwise), leaves=len(bitwise))
+        log(f"phase 12a float32 at {LM_TRAIN_CHECK_LAYERS} layers, {b}x{s} "
+            f"tokens: chunked head (two chunks of 512) equals the direct "
+            f"cross-entropy (loss err {head_err[0]:.3e}, table gradient "
+            f"{head_err[1]:.3e}, hidden {head_err[2]:.3e} max abs); remat "
+            f"\"block\" gives the gradients of \"none\" within "
+            f"{LM_REMAT_TOL} of each leaf's largest value (max "
+            f"{remat_err:.3e}; {sum(bitwise)} of {len(bitwise)} leaves "
+            f"bitwise)")
+        del grads, g0, g1, hidden
+        torch.cuda.empty_cache()
+        return row
+
+    @staticmethod
+    def lm_train_batch(cfg, i):
+        """The reference's tests/test_models.py::_batch shapes, numpy
+        draws: 2 x 64 tokens and labels (whisper: 64 frames, 32 tokens;
+        internvl2: 8 patches, 56 tokens)."""
+        import numpy as np
+        rng = np.random.default_rng(300 + i)
+        b, s = 2, 64
+        batch = {}
+        if cfg.family == "audio":
+            batch["frames"] = rng.standard_normal(
+                (b, s, cfg.d_model)).astype(np.float32)
+            s = 32
+        if cfg.family == "vlm":
+            batch["patches"] = rng.standard_normal(
+                (b, 8, cfg.d_model)).astype(np.float32)
+            s -= 8
+        for k in ("tokens", "labels"):
+            batch[k] = rng.integers(0, cfg.vocab_size, (b, s)).astype(
+                np.int32)
+        return batch
+
+    def lm_train_pair(self, cfg, params, tcfg):
+        """(the card's model and state, the CPU's) from the card's
+        ``params`` and a fresh optimizer state (EF slot under int8_ef),
+        both at step 1 (step 0's learning rate is 0)."""
+        TR = self.TR
+        host = self.convert.lm_params_from_numpy(
+            cfg, self.convert.lm_params_to_numpy(params), "cpu")
+        out = []
+        for p, dev in ((params, self.dev), (host, "cpu")):
+            p.requires_grad_(True)
+            leaves = TR.Leaves(p).params()
+            opt = self.LO.make_optimizer(tcfg)[0](leaves)
+            if tcfg.grad_compression == "int8_ef":
+                opt["ef"] = self.comp.ef_init(leaves)
+            out.append((self.LM.build_model(cfg, device=dev),
+                         TR.TrainState(params=p, opt=opt, step=1)))
+        return out
+
+    def hold_train_step(self, tag, cfg, tcfg, sides, batch, share=0.0):
+        """One train step on the card and on the CPU from the same state:
+        loss, grad_norm and lr within LM_CARD_TOL; the new parameters
+        within LM_CARD_TOL x (1 + the leaf's largest value), but for
+        ``share`` of all their elements. Returns (the card's state after,
+        max error of the elements within, elements beyond)."""
+        torch, TR, cv = self.torch, self.TR, self.convert
+        outs = []
+        for model, state in sides:
+            on = {k: torch.from_numpy(v).to(model.device)
+                  for k, v in batch.items()}
+            outs.append(TR.make_train_step(model, tcfg)(state, on))
+        (sc, mc), (sh, mh) = outs
+        err = max(self.close(f"phase {tag} {cfg.name} {k}", mc[k].cpu(),
+                             mh[k], rtol=LM_CARD_TOL, atol=LM_CARD_TOL)
+                  for k in ("loss", "grad_norm", "lr"))
+        got = cv.lm_flatten(cv.lm_params_to_numpy(sc.params))
+        want = cv.lm_flatten(cv.lm_params_to_numpy(sh.params))
+        beyond = total = 0
+        for k, w in want.items():
+            g = torch.from_numpy(got[k]).float()
+            w = torch.from_numpy(w).float()
+            d = (g - w).abs()
+            over = d > LM_CARD_TOL * (1.0 + float(w.abs().max()))
+            beyond += int(over.sum())
+            total += d.numel()
+            err = max(err, float(d.masked_fill(over, 0.0).max()))
+        if beyond > share * total:
+            raise AssertionError(f"phase {tag} {cfg.name}: {beyond} of "
+                                 f"{total} parameters beyond {LM_CARD_TOL}")
+        return sc, err, beyond
+
+    def lm_train_reduced(self, archs=None, optimizers=LM_TRAIN_OPTIMIZERS):
+        """12b: for the reduced config of each arch (default all ten),
+        parameters drawn on the card and carried to the CPU: the loss and
+        every gradient leaf within LM_CARD_TOL (of the leaf's largest
+        value), then one AdamW step (at lr LM_TRAIN_REDUCED_LR) through
+        :meth:`hold_train_step`; then, on reduced qwen3, LM_TRAIN_OPT_STEPS
+        steps of each of ``optimizers`` (``int8_ef`` with AdamW), each
+        step from the card's state carried to the CPU
+        (``convert.lm_opt_to_numpy`` / ``lm_opt_from_numpy``): the
+        quantizing ones may put LM_QUANTIZED_SHARE of the parameters
+        beyond the tolerance (a gradient a few ulps off moves a value
+        across an int8 rounding boundary, and an 8-bit second moment
+        rounded to 0 makes the update m / sqrt(v) of a tiny gradient)."""
+        torch, TR, cv = self.torch, self.TR, self.convert
+        archs = archs if archs is not None else self.LC.ARCH_IDS
+        rows = {}
+        tcfg = self.TrainConfig(learning_rate=LM_TRAIN_REDUCED_LR,
+                                warmup_steps=0)
+        for arch in archs:
+            cfg = self.LC.reduced_config(arch)
+            _, params, _ = self.lm_model(cfg)
+            sides = self.lm_train_pair(cfg, params, tcfg)
+            batch = self.lm_train_batch(cfg, self.LC.ARCH_IDS.index(arch))
+            grads = []
+            for m, st in sides:
+                on = {k: torch.from_numpy(v).to(m.device)
+                      for k, v in batch.items()}
+                loss, _ = m.train_loss(st.params, on)
+                loss.backward()
+                grads.append((loss.detach().cpu(), {
+                    k: g.cpu()
+                    for k, g in TR.Leaves(st.params).grads().items()}))
+                for p in st.params.parameters():
+                    p.grad = None
+            (lc, gc), (lh, gh) = grads
+            err = self.close(f"phase 12b {arch} loss", lc, lh,
+                             rtol=LM_CARD_TOL, atol=LM_CARD_TOL)
+            for k, w in gh.items():
+                err = max(err, self.close(
+                    f"phase 12b {arch} gradient {k}", gc[k], w,
+                    scale=w.abs().max(), rtol=LM_CARD_TOL, atol=LM_CARD_TOL))
+            _, step_err, _ = self.hold_train_step("12b", cfg, tcfg, sides,
+                                                  batch)
+            rows[arch] = dict(max_abs_err=max(err, step_err))
+            del params, sides, grads
+        opts = {}
+        cfg = self.LC.reduced_config("qwen3-0.6b")
+        for name in optimizers:
+            otcfg = dataclasses.replace(
+                tcfg, **({"grad_compression": "int8_ef"} if name == "int8_ef"
+                         else {"optimizer": name}))
+            share = LM_QUANTIZED_SHARE if name != "adafactor" else 0.0
+            _, params, _ = self.lm_model(cfg)
+            (card, state), (host, _) = self.lm_train_pair(cfg, params, otcfg)
+            pipe = self.LD.TokenPipeline(cfg.vocab_size, 4, 32, seed=5)
+            err, beyond = 0.0, []
+            for step in range(LM_TRAIN_OPT_STEPS):
+                # the CPU starts from the card's state
+                tree = TR.state_to_numpy(state)
+                sides = [(card, state),
+                         (host, TR.state_from_numpy(host, tree))]
+                state, e, n = self.hold_train_step(
+                    "12b", cfg, otcfg, sides, pipe.make_batch(step), share)
+                err, beyond = max(err, e), beyond + [n]
+            opts[name] = dict(max_abs_err=err, beyond=beyond)
+            del params, state, sides
+        worst = max(r["max_abs_err"] for r in (*rows.values(), *opts.values()))
+        log(f"phase 12b reduced configs of {', '.join(archs)}: parameters "
+            f"drawn on the card, carried to the CPU; the loss, every "
+            f"gradient leaf and one AdamW step agree within {LM_CARD_TOL}; "
+            + (f"{LM_TRAIN_OPT_STEPS} steps of {', '.join(optimizers)} on "
+               f"reduced qwen3, each from the card's state, agree too ("
+               + ", ".join(f"{k}: {v['beyond']} parameters beyond"
+                           for k, v in opts.items()) + "); "
+               if optimizers else "")
+            + f"max abs err {worst:.3e}")
+        self.torch.cuda.empty_cache()
+        return dict(archs=rows, optimizers=opts)
 
 
 if __name__ == "__main__":

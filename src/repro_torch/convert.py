@@ -34,7 +34,15 @@ caches come across with :func:`lm_params_from_numpy` /
 :func:`lm_cache_to_numpy`, for every family: the reference's stacked
 layers (its groups, mamba's blocks, zamba's (G, 6) groups and tail,
 whisper's encoder and decoder) are unstacked into the port's one module
-or cache per layer and stacked back. This module imports
+or cache per layer and stacked back. A training state comes across by
+the reference's leaf paths: :func:`lm_leaf_entries` names the port's
+parameters of each reference leaf (the trainer stacks its gradients and
+its optimizer's leaves that way), :func:`lm_grads_from_numpy` /
+:func:`lm_grads_to_numpy` carry a gradient tree, and
+:func:`lm_opt_from_numpy` / :func:`lm_opt_to_numpy` the optimizer state
+(AdamW's ``m`` and ``v``, float32 or ``Q8`` as ``{"q", "scale"}``,
+adafactor's ``v`` slots ``{"vr", "vc"}`` or ``{"v"}``, and the int8-EF
+residual as ``{"ef": {"residual": tree}}``). This module imports
 neither JAX nor the reference: the caller hands it arrays.
 """
 from __future__ import annotations
@@ -50,6 +58,8 @@ from repro_torch.models import attention as A
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models.model import build_model
+from repro_torch.optim.optimizer import Q8, leaf_order
+from repro_torch.runtime.compression import EFState
 from repro_torch.runtime.integrity import GuardState
 
 PARAM_LEAVES = ("w_local", "rem_flat", "rem_w", "local_outdeg")
@@ -451,3 +461,82 @@ def lm_cache_to_numpy(cfg, caches):
         return {key: _stack(caches[key], 1) for key in ("self", "cross")}
     gsize, _, _ = T._group_layout(cfg)
     return [_stack(caches[slot::gsize], 1) for slot in range(gsize)]
+
+
+def lm_leaf_entries(params) -> dict:
+    """{the reference's leaf path: (its stack dims, the leaf shape of one
+    entry, the port's parameters of its entries in index order)}, in the
+    reference's flatten order (``optimizer.leaf_order``); an unstacked
+    leaf has dims () and one parameter."""
+    got = dict(params.named_parameters())
+    out = {}
+    for path, (dims, names, shape, _) in sorted(
+            _stacks(params).items(), key=lambda kv: leaf_order(kv[0])):
+        out[path] = (dims, shape, [got[names[i]] for i in sorted(names)])
+    return out
+
+
+def lm_grads_from_numpy(tree, device="cuda") -> dict:
+    """The reference's gradient tree (params-shaped, numpy) -> the
+    port's gradients, {leaf path: stacked tensor}."""
+    return {path: _lm_tensor(x, device)
+            for path, x in lm_flatten(tree).items()}
+
+
+def lm_grads_to_numpy(grads: dict) -> dict:
+    """The inverse of :func:`lm_grads_from_numpy`."""
+    return lm_unflatten({path: _lm_numpy(x) for path, x in grads.items()})
+
+
+def lm_opt_to_numpy(opt: dict) -> dict:
+    """The port's optimizer state -> the reference's layout of numpy
+    trees (see the module's docstring)."""
+    flat = {}
+    for slot, leaves in opt.items():
+        if isinstance(leaves, EFState):
+            slot, leaves = "ef.residual", leaves.residual
+        for path, x in leaves.items():
+            key = f"{slot}.{path}"
+            if isinstance(x, Q8):
+                flat[f"{key}.q"] = _lm_numpy(x.q)
+                flat[f"{key}.scale"] = _lm_numpy(x.scale)
+            elif isinstance(x, dict):
+                flat.update({f"{key}.{k}": _lm_numpy(t)
+                             for k, t in x.items()})
+            else:
+                flat[key] = _lm_numpy(x)
+    return lm_unflatten(flat)
+
+
+def lm_opt_from_numpy(tree, shapes: dict, device="cuda") -> dict:
+    """The reference's optimizer state (numpy, the layout of
+    :func:`lm_opt_to_numpy`) -> the port's, by leaf path; ``shapes`` is
+    {leaf path: the leaf's shape} (a ``Q8`` keeps its unpadded shape).
+    A key under no known leaf raises, naming it."""
+    paths = sorted(shapes, key=len, reverse=True)
+    parts: dict = {}
+    for key, x in lm_flatten(tree).items():
+        slot, _, rest = key.partition(".")
+        if slot == "ef":
+            field, _, rest = rest.partition(".")
+            if field != "residual":
+                raise KeyError(f"optimizer leaf {key}: not an EF residual")
+        path = next((p for p in paths
+                     if rest == p or rest.startswith(p + ".")), None)
+        if path is None:
+            raise KeyError(f"optimizer leaf {key}: no parameter leaf")
+        suffix = rest[len(path) + 1:]
+        parts.setdefault(slot, {}).setdefault(path, {})[suffix] = (
+            _lm_tensor(x, device))
+    out = {}
+    for slot, leaves in parts.items():
+        got = {}
+        for path, sub in leaves.items():
+            if set(sub) == {""}:
+                got[path] = sub[""]
+            elif set(sub) == {"q", "scale"}:
+                got[path] = Q8(sub["q"], sub["scale"], tuple(shapes[path]))
+            else:
+                got[path] = sub
+        out[slot] = EFState(residual=got) if slot == "ef" else got
+    return out

@@ -250,8 +250,10 @@ def attn_decode(params, cfg: AttnConfig, x, cache: KVCache, pos: int, *,
             f"attn_decode: position {pos} is past the global cache of "
             f"{s_cache} slots (positions 0..{s_cache - 1})")
     slot = pos % s_cache if window else pos
-    cache.k[:, slot:slot + 1].copy_(k_new)
-    cache.v[:, slot:slot + 1].copy_(v_new)
+    # detached: a graph behind k_new (trained parameters, grad on) must
+    # not ride into the cache
+    cache.k[:, slot:slot + 1].copy_(k_new.detach())
+    cache.v[:, slot:slot + 1].copy_(v_new.detach())
 
     idx = torch.arange(s_cache, device=x.device)
     if window:

@@ -11,6 +11,9 @@ counterpart of ``repro/models/model.py`` for serving, every family:
   VLM, ``MambaLM``, ``ZambaLM`` or ``WhisperLM``)
 * ``forward(params, batch) -> (logits, aux, hidden)`` (``batch`` holds
   ``tokens``, and ``patches`` for a VLM, ``frames`` for whisper)
+* ``train_loss(params, batch) -> (loss, metrics)`` (``batch`` also
+  holds ``labels``): :func:`chunked_xent_head` over the last
+  ``labels.shape[1]`` positions, plus the MoE aux losses
 * ``prefill_logits(params, batch)`` (last-position logits, soft-capped)
 * ``cache_init(batch, s_cache) -> caches`` (whisper's cross caches at
   ``WHISPER_ENC_FRAMES`` zeroed slots, as the reference's)
@@ -22,15 +25,17 @@ and the two loops that serving and its checks run over ``decode``:
 ``WhisperLM.primed_caches``, go through it too).
 
 The params are the functions' first argument, as the reference's
-pytrees are. What belongs to training and the dry run waits for ROADMAP
-queue 1 items 8d and 8e: ``cross_entropy``, ``chunked_xent_head``,
-``train_loss``, ``input_specs`` and ``cache_specs``.
+pytrees are. Serving (``prefill_logits``, the loops) runs under
+``torch.no_grad()``, so trained parameters (``requires_grad`` on,
+``launch/train.py``) build no graph there. What belongs to the dry run
+waits for ROADMAP queue 1 item 8e: ``input_specs`` and ``cache_specs``.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -41,6 +46,51 @@ from repro_torch.models import transformer as T
 
 WHISPER_ENC_FRAMES = 3000      # whisper-medium 30 s window (stub frontend)
 VLM_PATCHES = 256              # internvl2 tile -> 256 patch embeddings
+
+
+def cross_entropy(logits, labels, mask=None):
+    """logsumexp-form token cross-entropy (mean over tokens, or over the
+    ``mask``ed ones), reductions in float32."""
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    ll = picked.float() - lse
+    if mask is None:
+        return -ll.mean()
+    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1)
+
+
+def _chunk_len(s: int, target: int = 512) -> int:
+    for c in (target, 256, 128, 64, 32):
+        if s % c == 0:
+            return c
+    return s
+
+
+def _chunk_nll(table, xc, lc, softcap_val: float):
+    """Summed token NLL of one (B, c) chunk under the tied head."""
+    logits = L.softcap(torch.einsum("bsd,vd->bsv", xc, table), softcap_val)
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    picked = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    return (lse - picked.float()).sum()
+
+
+def chunked_xent_head(table, hidden, labels, *, softcap_val: float,
+                      chunk: int = 512):
+    """Cross-entropy over the vocab head without the (B, S, V) logits: a
+    loop over sequence chunks of :func:`_chunk_len`, each under
+    ``torch.utils.checkpoint``, so one (B, c, V) chunk of logits is live
+    at a time, in the forward and in the backward (which recomputes the
+    chunk's logits); the table's gradient accumulates over the chunks.
+    The per-chunk sums are stacked and summed, as the reference's
+    ``lax.map`` then ``sum``, and divided by B * S."""
+    b, s, _ = hidden.shape
+    c = _chunk_len(s, chunk)
+    nll = [torch.utils.checkpoint.checkpoint(
+        _chunk_nll, table, hidden[:, i:i + c], labels[:, i:i + c],
+        softcap_val, use_reentrant=False, preserve_rng_state=False)
+        for i in range(0, s, c)]
+    return torch.stack(nll).sum() / (b * s)
+
 
 STACKS = {"dense": T.DecoderLM, "moe": T.DecoderLM, "vlm": T.DecoderLM,
           "ssm": T.MambaLM, "hybrid": T.ZambaLM, "audio": T.WhisperLM}
@@ -76,6 +126,25 @@ class Model:
                           with_logits=with_logits)
         return params(batch["tokens"], with_logits=with_logits)
 
+    def train_loss(self, params: nn.Module, batch: dict):
+        """Chunked-vocab-head loss (:func:`chunked_xent_head`) over the
+        last ``labels.shape[1]`` positions (a VLM's patch prefix and
+        nothing else is dropped), plus ``aux_loss_coef * load_balance +
+        router_z_coef * router_z`` for an MoE config. Returns (loss,
+        {"xent", "load_balance", "router_z"}); ``xent`` is the loss, as
+        the reference reports it."""
+        cfg = self.cfg
+        _, (lb, rz), hidden = self.forward(params, batch, with_logits=False)
+        labels = batch["labels"]
+        hidden = hidden[:, -labels.shape[1]:]
+        loss = chunked_xent_head(params.embed["table"], hidden, labels,
+                                 softcap_val=cfg.final_logit_softcap)
+        if cfg.moe is not None and cfg.moe.num_experts:
+            loss = loss + (cfg.moe.aux_loss_coef * lb
+                           + cfg.moe.router_z_coef * rz)
+        return loss, {"xent": loss, "load_balance": lb, "router_z": rz}
+
+    @torch.no_grad()
     def prefill_logits(self, params: nn.Module, batch: dict):
         """Last-position logits only (what serving needs): skips the
         full (B, S, V) head."""
@@ -105,6 +174,7 @@ def build_model(cfg: ModelConfig, *, device="cuda") -> Model:
     return Model(cfg, resolve_device(device))
 
 
+@torch.no_grad()
 def decode_all(model: Model, params: nn.Module, toks, caches=None):
     """Every position of ``toks`` (B, S) teacher-forced through
     ``decode`` from ``caches`` (default an empty cache of S slots):
@@ -119,6 +189,7 @@ def decode_all(model: Model, params: nn.Module, toks, caches=None):
     return torch.cat(steps, dim=1), caches
 
 
+@torch.no_grad()
 def greedy(model: Model, params: nn.Module, prompts, n_gen: int,
            on_step=None, caches=None):
     """The loop of ``examples/serve_decode.py``: ``prompts`` (B, P)

@@ -21,15 +21,21 @@ The decode caches are one cache per layer, in layer order: a
 s_cache)`` slots), an ``ssm.SSMCache`` per mamba layer; zamba2 keeps a
 ``KVCache`` per group (the shared block's weights, each site's keys).
 
-Left out: the sequence- and vocab-parallel ``SH.constrain`` calls
-(no-ops off a mesh; the port has no LM mesh yet, ROADMAP queue 1 item
-8e) and remat (training, item 8d).
+Remat (the reference's ``_maybe_remat``): with ``cfg.remat`` other
+than ``"none"`` and grad enabled, each block, mamba block, zamba group
+and whisper encoder or decoder layer runs under
+``torch.utils.checkpoint`` (non-reentrant), so its activations are
+recomputed in the backward; ``"block"`` and ``"full"`` are the same, as
+in the reference. Left out: the sequence- and vocab-parallel
+``SH.constrain`` calls (no-ops off a mesh; the port has no LM mesh yet,
+ROADMAP queue 1 item 8e).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -38,6 +44,18 @@ from repro_torch.models import frontends as F
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+
+
+def remat(cfg: ModelConfig, fn, *args, **kw):
+    """``fn(*args, **kw)``, under ``torch.utils.checkpoint`` when
+    ``cfg.remat`` asks for it and grad is enabled (the reference's
+    ``_maybe_remat``). The forward draws nothing, so no RNG state is
+    kept; outputs may be any structure of tensors (a block's ``MoEAux``
+    or None), which the non-reentrant form allows."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args, **kw)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +236,7 @@ class DecoderLM(nn.Module):
         positions = _positions(b, s, x.device)
         aux = _no_aux(x.device)
         for block in self.layers:
-            x, layer_aux = block(x, positions)
+            x, layer_aux = remat(self.cfg, block, x, positions)
             if layer_aux is not None:
                 aux = (aux[0] + layer_aux.load_balance,
                        aux[1] + layer_aux.router_z)
@@ -311,7 +329,7 @@ class MambaLM(_Stack):
         a multiple of ``cfg.ssm.chunk``."""
         x = L.embed_lookup(self.embed, tokens)
         for block in self.blocks:
-            x = block(x)
+            x = remat(self.cfg, block, x)
         return self._out(x, with_logits)
 
     def decode_step(self, caches: list[S.SSMCache], token, pos: int):
@@ -369,12 +387,17 @@ class ZambaLM(_Stack):
         x = L.embed_lookup(self.embed, tokens)
         positions = _positions(*tokens.shape, x.device)
         for group in self.groups:
-            for block in group:
-                x = block(x)
-            x, _ = self.shared(x, positions)
+            x = remat(self.cfg, self._group, group, x, positions)
         for block in self.tail:
             x = block(x)
         return self._out(x, with_logits)
+
+    def _group(self, group, x, positions):
+        """One remat unit: the group's mamba blocks, then the shared
+        block (the reference's ``group_body``; its tail is not remat'd)."""
+        for block in group:
+            x = block(x)
+        return self.shared(x, positions)[0]
 
     def decode_step(self, caches: dict, token, pos: int):
         x = L.embed_lookup(self.embed, token)
@@ -450,7 +473,7 @@ class WhisperLM(_Stack):
         x = F.audio_frames_apply(self.adapter, frames)
         positions = _positions(x.shape[0], x.shape[1], x.device)
         for block in self.encoder:
-            x, _ = block(x, positions, causal=False)
+            x, _ = remat(self.cfg, block, x, positions, causal=False)
         return L.rmsnorm(self.enc_norm, x)
 
     def forward(self, frames, tokens, *, with_logits: bool = True):
@@ -459,12 +482,7 @@ class WhisperLM(_Stack):
         x = L.embed_lookup(self.embed, tokens)
         positions = _positions(*tokens.shape, x.device)
         for p in self.decoder:
-            x = x + A.attn_apply(p["attn"], cfg.attn,
-                                 L.rmsnorm(p["ln_attn"], x), positions,
-                                 causal=True)
-            x = x + A.cross_attn_apply(p["cross"], cfg.attn,
-                                       L.rmsnorm(p["ln_cross"], x), ctx)
-            x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln_mlp"], x), cfg.act)
+            x = remat(cfg, _whisper_decoder_layer, p, cfg, x, positions, ctx)
         return self._out(x, with_logits)
 
     def prime_cross(self, ctx) -> list[A.KVCache]:
@@ -504,6 +522,14 @@ class WhisperLM(_Stack):
             new_self.append(self_c)
         logits = self.head(L.rmsnorm(self.final_norm, x))
         return logits, {"self": new_self, "cross": caches["cross"]}
+
+
+def _whisper_decoder_layer(p, cfg: ModelConfig, x, positions, ctx):
+    x = x + A.attn_apply(p["attn"], cfg.attn, L.rmsnorm(p["ln_attn"], x),
+                         positions, causal=True)
+    x = x + A.cross_attn_apply(p["cross"], cfg.attn,
+                               L.rmsnorm(p["ln_cross"], x), ctx)
+    return x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln_mlp"], x), cfg.act)
 
 
 def whisper_self_caches(cfg: ModelConfig, batch: int, s_cache: int,

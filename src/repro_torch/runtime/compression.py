@@ -1,7 +1,14 @@
-"""Exact spike-halo payload accounting (the port of the halo part of
-``repro/runtime/compression.py``; its int8 gradient compression belongs
-to the LM zoo).
+"""Gradient compression and exact spike-halo payload accounting (the
+port of ``repro/runtime/compression.py``).
 
+* :func:`compress_grads` / :func:`decompress_grads`: int8 gradient
+  quantization with error feedback (the residual is carried to the next
+  step, so the compression is unbiased over time), one scale per leaf;
+  ``launch/train.py`` runs the round trip when
+  ``TrainConfig.grad_compression == "int8_ef"``, the residual in the
+  optimizer state's ``"ef"`` slot. The leaves are the reference's,
+  stacked (``optim/optimizer.py``), so each scale spans what the
+  reference's does.
 * :func:`halo_payload_bytes` / :func:`aer_crossover_rate_hz`: bytes per
   simulation step that one interior rank sends for its spike halo under
   each wire format (``dense_packed`` bit-packing, ``aer_sparse`` event
@@ -28,11 +35,56 @@ so every number equals the reference's.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
+
+import torch
 
 from repro_torch.core.exchange import aer_capacity, halo_ring_widths
 from repro_torch.runtime.transport import packed_width
 
+
+class EFState(NamedTuple):
+    residual: dict      # float32, keyed like the gradients
+
+
+def ef_init(grads_like: dict) -> EFState:
+    return EFState(residual={k: torch.zeros(x.shape, dtype=torch.float32,
+                                            device=x.device)
+                             for k, x in grads_like.items()})
+
+
+def _q8(x):
+    scale = torch.max(torch.abs(x)) / 127.0
+    q = torch.round(x / torch.clamp_min(scale, 1e-12)).to(torch.int8)
+    return q, scale
+
+
+def _dq8(q, scale):
+    return q.float() * scale
+
+
+@torch.no_grad()
+def compress_grads(grads: dict, ef: EFState):
+    """({leaf: (int8 q, float32 scale)}, the new EF state carrying this
+    step's quantization error)."""
+    qtree, residual = {}, {}
+    for k, g in grads.items():
+        x = g.float() + ef.residual[k]
+        q, s = _q8(x)
+        qtree[k] = (q, s)
+        residual[k] = x - _dq8(q, s)
+    return qtree, EFState(residual=residual)
+
+
+@torch.no_grad()
+def decompress_grads(qtree: dict, grads_like: dict) -> dict:
+    return {k: _dq8(q, s).to(grads_like[k].dtype)
+            for k, (q, s) in qtree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Spike-halo payload accounting (dense_packed vs aer_sparse)
+# ---------------------------------------------------------------------------
 
 def _plastic(cfg, stdp) -> bool:
     return cfg.stdp if stdp is None else stdp

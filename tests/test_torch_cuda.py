@@ -1,10 +1,10 @@
 """The port's CUDA kernels on the card: against their plain PyTorch
 versions (``chip_smoke.py``'s ragged-shape checks), the wrappers' input
 checks, a small run under the three impls, and the reduced LMs against
-the CPU (plain torch, no kernel). Marked ``cuda``: they
-skip with a reason where there is no card or no nvcc. This file imports
-neither JAX nor the reference, so it also runs on a machine that has
-only PyTorch:
+the CPU, serving and a train step (plain torch, no kernel). Marked
+``cuda``: they skip with a reason where there is no card or no nvcc.
+This file imports neither JAX nor the reference, so it also runs on a
+machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -615,3 +615,20 @@ def test_lm_reduced_on_the_card_equals_the_cpu(cuda_device, arch):
     rows = chip_smoke.Smoke(torch, str(cuda_device)).lm_reduced(
         archs=(arch,))
     assert rows[arch]["greedy_equal"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "llama4-scout-17b-a16e",
+                                  "zamba2-7b", "whisper-medium"])
+def test_lm_train_step_on_the_card_equals_the_cpu(cuda_device, arch):
+    """A reduced config's parameters drawn on the card and carried to the
+    CPU: the loss, every gradient leaf and one AdamW step within 1e-4;
+    for qwen3 also 3 steps each of 8-bit AdamW, adafactor and int8-EF
+    from the card's state: ``chip_smoke.Smoke.lm_train_reduced`` (phase
+    12b), which raises on a miss."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    out = chip_smoke.Smoke(torch, str(cuda_device)).lm_train_reduced(
+        archs=(arch,), optimizers=(chip_smoke.LM_TRAIN_OPTIMIZERS
+                                   if arch == "qwen3-0.6b" else ()))
+    assert list(out["archs"]) == [arch]

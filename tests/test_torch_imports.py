@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package: every module of
 ``repro_torch`` (the checkpointer and the fault-tolerance runtime of the
-durability slice, the LM zoo's configs and models among them),
+durability slice, the LM zoo's configs, models, optimizers, data
+pipeline and trainer among them),
 ``chip_smoke.py`` and the port's example
 scripts ``examples/torch_*.py`` (imported, not run) in a fresh
 interpreter leave no ``jax`` or ``repro`` module behind."""
@@ -72,5 +73,9 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.models.ssm",
                    "repro_torch.models.frontends",
                    "repro_torch.models.model",
-                   "examples/torch_serve_decode.py"):
+                   "examples/torch_serve_decode.py",
+                   "repro_torch.optim.optimizer",
+                   "repro_torch.data.pipeline",
+                   "repro_torch.launch.train",
+                   "examples/torch_train_lm.py"):
         assert module in names, module
