@@ -163,10 +163,10 @@ then, on the card:
    apart, bitwise against phase 7's unguarded run with no trip, its ms
    per loop step beside phase 7's, and a bit flipped at step 25 tripping
    every (shard, tenant) there with code 16; (d) the Izhikevich neuron,
-   300 steps of a (576, 1240) state of RS and FS neurons on the card,
+   100 steps of a (576, 1240) state of RS and FS neurons on the card,
    equal to the same function on the CPU (whose run is most of the
-   phase's time: 1000 steps took 64 s on the host of an H100 machine, so
-   the steps were cut, not the state);
+   phase's time: 1000 steps took 64 s on the host of an H100 machine, 300
+   steps 26 s, so the steps were cut, not the state);
 10. drives the LM zoo's serving path (``repro_torch.models``, plain torch:
    the reference computes it in plain ``jnp``, with no Pallas kernel), its
    parameters from the port's own ``init`` on the card from a seeded
@@ -219,7 +219,22 @@ then, on the card:
    (b) the reduced configs of all ten archs, card against CPU: the loss,
    every gradient leaf and one AdamW step within 1e-4, and 3 steps each
    of 8-bit AdamW, adafactor and int8-EF on reduced qwen3, each from the
-   card's state.
+   card's state;
+13. drives the LM zoo on a ``DeviceMesh`` (``runtime/sharding.py``, the
+   reference's rules as DTensor placements; plain torch): (a)
+   ``launch/train.make_sharded_train_step`` on a one-rank NCCL mesh of
+   shape (1, 1) over the card, for the reduced configs of qwen3-0.6b,
+   llama4-scout (MoE) and mamba2-780m, 3 steps each, against the
+   unsharded card step from the same seed: the losses and every
+   parameter equal to the bit (else the largest difference is printed
+   and the phase fails); (b) started with the phase and collected after
+   (a), so that no timed phase shares the host with them, three cells
+   of the dry run
+   (``launch/dryrun.py``: meta DTensors on a fake process group of 256
+   or 512 ranks, on the host's cores, one process a cell): qwen3-0.6b
+   ``train_4k`` on 16x16, llama4-maverick ``decode_32k`` on 2x16x16 and
+   dpsnn ``96x96`` on 16x16, each timed, with its per-device bytes,
+   FLOPs and collective bytes.
 
 Every phase raises on failure and the script exits non-zero. Without a
 card, or without the rest of the repository beside it, it exits
@@ -341,11 +356,12 @@ KILL_RANK, KILL_STEP = 1, 50
 DRILL_STEPS, DRILL_EVERY, DRILL_FLIP = 60, 10, "0:25:3"
 # phase 9: the weak-scaling tile (columns a rank), rank counts and timed
 # repeats; the shards a rank holds in 9b; 9d's Izhikevich state (GRID_24's
-# columns and neurons), steps, inhibitory share and the bank of currents
-# its steps cycle through
+# columns and neurons), steps (100, cut from 300 to keep the script
+# inside its limit: the CPU's run of the same steps took 26 s), inhibitory
+# share and the bank of currents its steps cycle through
 WEAK_TILE, WEAK_RANKS, WEAK_REPS = (12, 12), (1, 2, 4), 3
 SHARDS_PER_RANK = 2
-IZH_SHAPE, IZH_STEPS, IZH_INH, IZH_BANK = (576, 1240), 300, 0.2, 16
+IZH_SHAPE, IZH_STEPS, IZH_INH, IZH_BANK = (576, 1240), 100, 0.2, 16
 # phase 10, the LM serving path: the archs whose reduced configs 10d
 # holds against the CPU, and its tolerance (float32, TF32 off); the
 # float32 decode-against-forward check at full width (batch, tokens) and
@@ -354,7 +370,9 @@ IZH_SHAPE, IZH_STEPS, IZH_INH, IZH_BANK = (576, 1240), 300, 0.2, 16
 # long prefill (batch 1, two blocks of 1024 each way) and its tolerance
 # against the direct path in float32 (bfloat16's difference is reported,
 # not gated); internvl2-1b's batch, patches, text
-# tokens and decode steps; profiled decode steps
+# tokens and decode steps; profiled decode steps (3, cut from 10 to keep
+# the script inside its limit: the profiler's parse of a step's thousands
+# of events took seconds a step)
 LM_ARCHS = ("qwen3-0.6b", "granite-3-2b", "gemma2-9b", "gemma2-27b",
             "internvl2-1b")
 LM_CARD_TOL = 1e-4
@@ -362,7 +380,7 @@ LM_CHECK, LM_CHECK_TOL = (2, 48), 2e-2
 LM_SERVE = (8, 24, 48)
 LM_LONG, LM_LONG_F32_TOL = 2048, 1e-3
 LM_VLM = (4, 256, 64, 32)
-LM_PROFILE_STEPS = 10
+LM_PROFILE_STEPS = 3
 # phase 11, the rest of the LM zoo: the five archs (11f holds their
 # reduced configs against the CPU); the layers served of the two MoE
 # configs (bfloat16 parameters that fit one card: 12 of 48 is 54.9 GB
@@ -406,6 +424,18 @@ LM_TRAIN_REDUCED_LR = 1e-5
 LM_TRAIN_OPTIMIZERS = ("adamw8bit", "adafactor", "int8_ef")
 LM_TRAIN_OPT_STEPS = 3
 LM_QUANTIZED_SHARE = 1e-3
+# phase 13: the reduced configs the sharded step runs (dense, MoE, SSM),
+# its steps, and the dry-run cells, timed while it runs (gemma2-27b
+# prefill_32k, the fourth cell asked for, traces 32 x 32 attention
+# blocks a layer in DTensor's Python dispatch: minutes, past the
+# phase's budget; it runs under ``dryrun --all``)
+LM_MESH_ARCHS = ("qwen3-0.6b", "llama4-scout-17b-a16e", "mamba2-780m")
+LM_MESH_STEPS = 3
+DRYRUN_CELLS = (("--arch", "qwen3-0.6b", "--shape", "train_4k"),
+                ("--arch", "llama4-maverick-400b-a17b", "--shape",
+                 "decode_32k", "--multipod"),
+                ("--dpsnn", "96x96"))
+DRYRUN_TIMEOUT = 600
 
 
 def log(*args):
@@ -450,7 +480,11 @@ def main() -> int:
         print(f"chip_smoke: the repro_torch package is not beside this "
               f"script ({exc})", file=sys.stderr)
         return 2
-    return Smoke(torch).run()
+    smoke = Smoke(torch)
+    try:
+        return smoke.run()
+    finally:
+        smoke.stop_dryrun()
 
 
 class Smoke:
@@ -705,6 +739,10 @@ class Smoke:
         # 12. LM training: qwen3-0.6b at full size, its float32 checks, the
         # reduced configs and the optimizers against the CPU
         self.lm_train_path()
+
+        # 13. the LM zoo on a DeviceMesh: the sharded train step on a
+        # one-rank mesh against the unsharded step, and dry-run cells
+        self.lm_mesh_path()
 
         tenant = {f"{name}[B={TENANT_B}]": name for name in TENANT_KERNELS}
         tenant[PLASTIC_FUSED] = "fused_step"
@@ -5298,6 +5336,163 @@ class Smoke:
             + f"max abs err {worst:.3e}")
         self.torch.cuda.empty_cache()
         return dict(archs=rows, optimizers=opts)
+
+    def lm_mesh_path(self):
+        """Phase 13: the LM zoo on a ``DeviceMesh`` (plain torch, no
+        kernel of this repo): 13b's dry-run cells start in their own
+        processes on the host's cores (:meth:`dryrun_start`), 13a runs
+        meanwhile (:meth:`lm_sharded`; it times nothing), then 13b
+        collects the cells (:meth:`dryrun_finish`). No earlier phase
+        shares the host with them."""
+        t0 = time.perf_counter()
+        self.dryrun_procs = self.dryrun_start()
+        sharded = self.lm_sharded()
+        procs, self.dryrun_procs = self.dryrun_procs, []
+        cells = self.dryrun_finish(procs)
+        self.report["phase13"] = dict(sharded=sharded, dryrun=cells,
+                                      seconds=time.perf_counter() - t0)
+        log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
+
+    def lm_sharded(self):
+        """13a: a one-rank NCCL process group and its (1, 1) ``("data",
+        "model")`` mesh over the card; for each of LM_MESH_ARCHS (reduced,
+        float32) two states from ``init_state`` with a card generator
+        seeded 0, one placed on the mesh (``shard_state``):
+        LM_MESH_STEPS AdamW steps of ``make_sharded_train_step`` and of
+        ``make_train_step`` on the same batches; every loss and every
+        parameter after the last step equal to the bit."""
+        import socket
+
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+        torch, TR = self.torch, self.TR
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        on_card = self.dev.type == "cuda"     # gloo on a CPU rehearsal
+        dist.init_process_group(
+            "nccl" if on_card else "gloo",
+            init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+            **({"device_id": self.dev} if on_card else {}))
+        rows = {}
+        try:
+            mesh = init_device_mesh(self.dev.type, (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            tcfg = self.TrainConfig(learning_rate=1e-3, warmup_steps=1)
+            for arch in LM_MESH_ARCHS:
+                t0 = time.perf_counter()
+                cfg = self.LC.reduced_config(arch)
+                model = self.LM.build_model(cfg, device=self.dev)
+
+                def state():
+                    return TR.init_state(model, tcfg, torch.Generator(
+                        device=self.dev).manual_seed(0))
+                plain = state()
+                sharded = TR.shard_state(state(), model, mesh)
+                f_plain = TR.make_train_step(model, tcfg)
+                f_sharded = TR.make_sharded_train_step(model, tcfg, mesh)
+                pipe = self.LD.TokenPipeline(cfg.vocab_size, 4, 32, seed=2)
+                losses = []
+                for i in range(LM_MESH_STEPS):
+                    batch = {k: torch.from_numpy(v).to(self.dev)
+                             for k, v in pipe.make_batch(i).items()}
+                    plain, m1 = f_plain(plain, batch)
+                    sharded, m2 = f_sharded(sharded, batch)
+                    losses.append((float(m1["loss"]), float(m2["loss"])))
+                pairs = list(zip(plain.params.parameters(),
+                                 sharded.params.parameters()))
+                worst = max(float((p.detach().float()
+                                   - q.to_local().detach().float()).abs().max())
+                            for p, q in pairs)
+                equal = (all(a == b for a, b in losses)
+                         and all(torch.equal(p.detach(), q.to_local().detach())
+                                 for p, q in pairs))
+                log(f"phase 13a {arch} (reduced, float32) on a (1, 1) "
+                    f"{dist.get_backend()} mesh: {LM_MESH_STEPS} sharded steps against the "
+                    f"unsharded card step, losses "
+                    + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in losses)
+                    + f", {len(pairs)} parameters; largest difference "
+                    f"{worst:.3e}; {'equal to the bit' if equal else 'NOT EQUAL'}"
+                    f" ({time.perf_counter() - t0:.1f} s)")
+                if not equal:
+                    raise AssertionError(
+                        f"phase 13a {arch}: the sharded step differs from "
+                        f"the unsharded one (largest difference {worst:.3e}, "
+                        f"losses {losses})")
+                rows[arch] = dict(losses=losses, parameters=len(pairs),
+                                  max_abs_diff=worst,
+                                  seconds=time.perf_counter() - t0)
+                del plain, sharded, pairs
+        finally:
+            dist.destroy_process_group()
+        if on_card:
+            self.torch.cuda.empty_cache()
+        return rows
+
+    def stop_dryrun(self):
+        """Stop any dry-run process not yet collected (a phase failed)."""
+        for _, _, p in getattr(self, "dryrun_procs", None) or []:
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
+        self.dryrun_procs = []
+
+    def dryrun_start(self):
+        """13b's processes, one a cell of DRYRUN_CELLS, on the host's
+        cores (no card: ``CUDA_VISIBLE_DEVICES`` empty), writing under
+        ``build/dryrun``; collected by :meth:`dryrun_finish`."""
+        import os
+        out = ROOT / "build" / "dryrun"
+        out.mkdir(parents=True, exist_ok=True)
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+                   PYTHONPATH=str(ROOT / "src") + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        return [(cell, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *cell,
+             "--out", str(out)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)) for cell in DRYRUN_CELLS]
+
+    def dryrun_finish(self, procs):
+        """13b: each cell's JSON (its process exited 0 within
+        DRYRUN_TIMEOUT, else the phase fails after every process is
+        stopped), its wall time, and a line with its per-device bytes,
+        FLOPs and collective bytes."""
+        rows, failed = {}, []
+        for cell, t0, p in procs:
+            try:
+                out, err = p.communicate(timeout=max(
+                    1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.communicate()
+                failed.append(f"{' '.join(cell)}: timed out")
+                continue
+            wall = time.perf_counter() - t0
+            if p.returncode:
+                failed.append(f"{' '.join(cell)}: exit {p.returncode}: "
+                              f"{err[-1500:]}")
+                continue
+            r = json.loads(out)
+            tag = f"{r['arch']} {r['shape']} on {r['mesh']}"
+            mem = r["memory"]
+            flops = r.get("cost", {}).get("matmul_flops")
+            coll = r["collectives"]
+            log(f"phase 13b dry run {tag} ({r['chips']} ranks of a fake "
+                f"group): {r['cell_s']:.1f} s in its process (started "
+                f"{wall:.1f} s before its collection); per device {mem['argument_bytes']:,} "
+                f"argument bytes ("
+                + ", ".join(f"{k[:-6]} {v:,}" for k, v in mem.items()
+                            if k.endswith("_bytes") and k != "argument_bytes"
+                            and isinstance(v, int))
+                + f"; temporaries {mem['temp_bytes']}), "
+                + (f"{flops:.4e} product FLOPs, " if flops is not None
+                   else f"model FLOPs {r['model_flops']:.4e} (not traced), ")
+                + f"{coll['total_bytes']:,} collective bytes "
+                + json.dumps(coll.get("bytes", {})))
+            rows[tag] = dict(r, wall_s=wall)
+        if failed:
+            raise AssertionError("phase 13b: " + "; ".join(failed))
+        return rows
 
 
 if __name__ == "__main__":

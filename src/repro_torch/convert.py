@@ -258,6 +258,11 @@ def _lm_tensor(x, device) -> torch.Tensor:
 
 
 def _lm_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as numpy (a DTensor's full value: a collective
+    every rank of its mesh takes part in)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes

@@ -1141,14 +1141,12 @@ def _state_structure(cfg: DPSNNConfig, leaf) -> DistState:
                if cfg.guard.enabled else None))
 
 
-def stacked_state_template(cfg: DPSNNConfig, n_ranks: int):
-    """``(template, spec, stencil)`` of a checkpointed run on ``n_ranks``
-    processes (the reference's function of the same name):
-    ``template`` is a :class:`DistState` of host numpy zeros with the
-    shard-stacked global shapes (S, ...) that ``make_distributed_run(...,
-    replicate_state=True)`` takes and gives, the ``tree_like`` a restore
-    checks a checkpoint against and the layout ``checkpointer.reshard``
-    maps between rank counts. No synapse is built."""
+def stacked_state_shapes(cfg: DPSNNConfig, n_ranks: int):
+    """``(shapes, spec, stencil)``: ``shapes`` {leaf name: (the
+    shard-stacked global shape (S, ...), numpy dtype)} of every leaf a
+    run of ``cfg`` on ``n_ranks`` processes may carry (which ones it
+    does carry: :func:`_state_structure`). Allocates nothing: the dry
+    run reads a 96x96 grid's shard bytes from it."""
     spec = make_rank_tile_spec(cfg, n_ranks)
     stencil = build_stencil(cfg)
     s = spec.tiles_y * spec.tiles_x
@@ -1169,5 +1167,18 @@ def stacked_state_template(cfg: DPSNNConfig, n_ranks: int):
         tripped=((s,), np.bool_), trip_code=((s,), i32),
         trip_step=((s,), i32), sat_run=((s,), i32),
         checksum_fails=((s,), i32))
+    return shapes, spec, stencil
+
+
+def stacked_state_template(cfg: DPSNNConfig, n_ranks: int):
+    """``(template, spec, stencil)`` of a checkpointed run on ``n_ranks``
+    processes (the reference's function of the same name):
+    ``template`` is a :class:`DistState` of host numpy zeros with the
+    shard-stacked global shapes (S, ...) that ``make_distributed_run(...,
+    replicate_state=True)`` takes and gives (:func:`stacked_state_shapes`),
+    the ``tree_like`` a restore checks a checkpoint against and the
+    layout ``checkpointer.reshard`` maps between rank counts. No synapse
+    is built."""
+    shapes, spec, stencil = stacked_state_shapes(cfg, n_ranks)
     template = _state_structure(cfg, lambda name: np.zeros(*shapes[name]))
     return template, spec, stencil

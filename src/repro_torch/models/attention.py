@@ -14,10 +14,18 @@ whatever the model's dtype: q and k are upcast before the product, as
 the reference's ``preferred_element_type=jnp.float32`` asks, and the
 probabilities are cast to v's dtype before the second product.
 
-Left out, because the port has no device mesh for LMs yet (ROADMAP
-queue 1 item 8e): the reference's GQA head expansion under a mesh
-(``attention.py:115-121``) and its ``SH.constrain`` calls, which are
-no-ops off a mesh.
+On a mesh (``runtime/sharding.use_mesh``, the tensors DTensors) q, k
+and v are constrained at the reference's sites (:func:`_constrain_heads`:
+batch over the data axes, heads over ``'model'``), and
+:func:`_blockwise_attn` expands the kv heads to the query heads when
+those divide the ``'model'`` axis, so the grouped layout shards
+(``attention.py:108-121`` of the reference). The softmax itself runs
+on each rank's shards (:func:`_on_shards`: batch rows and heads are
+independent), so a decode step gathers a cache whose sequence is
+sharded over 'model' (the reference's comment speaks of a split-K
+decode; XLA chooses). Decode writes the new key and value into the
+local shard of such a cache (:func:`_write_slot`). Off a mesh all of
+this is a no-op.
 
 Decode consumes a cache laid out (B, S_cache, Hkv, hd): global layers
 the full context written at ``pos``, sliding layers a rolling window of
@@ -32,6 +40,7 @@ import torch
 
 from repro_torch.configs.base import AttnConfig
 from repro_torch.models import layers as L
+from repro_torch.runtime import sharding as SH
 
 NEG_INF = -2.0e38
 
@@ -63,9 +72,9 @@ def attn_init(generator, cfg: AttnConfig, d_model: int, dtype, head_dim=None,
 
 
 def _qkv(params, cfg: AttnConfig, x, positions, *, rope: bool = True):
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    q = L.heads_proj(x, params["wq"])
+    k = L.heads_proj(x, params["wk"])
+    v = L.heads_proj(x, params["wv"])
     if cfg.qk_norm:
         q = L.rmsnorm(params["q_norm"], q)
         k = L.rmsnorm(params["k_norm"], k)
@@ -94,9 +103,28 @@ def _mask(q_pos, k_pos, *, causal: bool, window: int):
     return _additive(ok)
 
 
+def _on_shards(fn, q, k, v, *rest, **kwargs):
+    """``fn(q, k, v, *rest, **kwargs)`` on a mesh, run on each rank's
+    shards (``sharding.run_local``): batch rows over the data axes, heads
+    over 'model' when both q's and k's head counts divide it (each rank's
+    query heads then read its own kv heads), else replicated; ``rest``
+    (masks, positions) batch-leading. The result is placed as q."""
+    mesh = SH.current_mesh()
+    dp = SH.fit_spec((SH.dp_axes_spec(),), q.shape, mesh)[0]
+    m = SH.mesh_axes(mesh).get("model", 1)
+    heads = ("model" if "model" in SH.mesh_axes(mesh)
+             and q.shape[2] % m == 0 and k.shape[2] % m == 0 else None)
+    qkv = (dp, None, heads, None)
+    specs = [qkv, qkv, qkv] + [(dp,) + (None,) * (x.ndim - 1) for x in rest]
+    return SH.run_local(fn, (q, k, v, *rest), specs, qkv, **kwargs)
+
+
 def _sdpa(q, k, v, mask, *, softcap_val: float):
     """Direct softmax attention: the decode path (Sq == 1) and sequences
-    up to ``BLOCK_Q``. Materialises (B, H, Sq, Sk) float32 scores."""
+    up to ``BLOCK_Q``. Materialises (B, H, Sq, Sk) float32 scores. On a
+    mesh it runs on each rank's shards (:func:`_on_shards`)."""
+    if SH.current_mesh() is not None:
+        return _on_shards(_sdpa, q, k, v, mask, softcap_val=softcap_val)
     hd = q.shape[-1]
     hq, hkv = q.shape[-2], k.shape[-2]
     group = hq // hkv
@@ -122,6 +150,19 @@ def _blockwise_attn(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
 
     Raises ``ValueError`` unless ``min(BLOCK_Q, Sq)`` divides Sq and
     ``min(BLOCK_K, Sk)`` divides Sk (the reference asserts it)."""
+    mesh = SH.current_mesh()
+    if mesh is not None:
+        # GQA head expansion on a mesh: with fewer kv heads than the
+        # model axis the grouped (hkv, group) layout cannot shard over
+        # 'model'; k and v expanded to hq heads shard whenever hq
+        # divides it. Then the blocks run on each rank's shards.
+        group = q.shape[2] // k.shape[2]
+        if group > 1 and q.shape[2] % SH.mesh_axes(mesh).get("model", 1) == 0:
+            k = _constrain_heads(torch.repeat_interleave(k, group, dim=2))
+            v = _constrain_heads(torch.repeat_interleave(v, group, dim=2))
+        return _on_shards(_blockwise_attn, q, k, v, q_pos, k_pos,
+                          causal=causal, window=window,
+                          softcap_val=softcap_val)
     b, sq, hq, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -172,19 +213,26 @@ def _blockwise_attn(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def _constrain_heads(t):
+    """Batch over the data axes, heads over 'model' (replicate-fallback;
+    a no-op off a mesh)."""
+    return SH.constrain(t, SH.dp_axes_spec(), None, "model", None)
+
+
 def attn_apply(params, cfg: AttnConfig, x, positions, *,
                causal: bool = True, window: int = 0,
                rope: bool = True):
     """Full-sequence attention (prefill): blockwise online-softmax
     beyond ``BLOCK_Q`` positions, direct softmax up to it."""
     q, k, v = _qkv(params, cfg, x, positions, rope=rope)
+    q, k, v = _constrain_heads(q), _constrain_heads(k), _constrain_heads(v)
     if x.shape[1] <= BLOCK_Q:
         mask = _mask(positions, positions, causal=causal, window=window)
         out = _sdpa(q, k, v, mask, softcap_val=cfg.logit_softcap)
     else:
         out = _blockwise_attn(q, k, v, positions, positions, causal=causal,
                               window=window, softcap_val=cfg.logit_softcap)
-    return torch.einsum("bshk,dhk->bsd", out, params["wo"])
+    return L.out_proj(out, params["wo"])
 
 
 def cross_attn_apply(params, cfg: AttnConfig, x, ctx):
@@ -192,9 +240,9 @@ def cross_attn_apply(params, cfg: AttnConfig, x, ctx):
     d), keys and values from ctx (B, Sk, d). No RoPE, no mask: the direct
     softmax up to ``BLOCK_Q`` queries and ``4 * BLOCK_K`` keys, else the
     blockwise form with every key at position 0."""
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", ctx, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", ctx, params["wv"])
+    q = _constrain_heads(L.heads_proj(x, params["wq"]))
+    k = _constrain_heads(L.heads_proj(ctx, params["wk"]))
+    v = _constrain_heads(L.heads_proj(ctx, params["wv"]))
     b, sq, sk = x.shape[0], x.shape[1], ctx.shape[1]
     if sq <= BLOCK_Q and sk <= 4 * BLOCK_K:
         zeros = torch.zeros((b, sq, sk), dtype=x.dtype, device=x.device)
@@ -204,7 +252,7 @@ def cross_attn_apply(params, cfg: AttnConfig, x, ctx):
         kp = torch.zeros((b, sk), dtype=torch.int32, device=x.device)
         out = _blockwise_attn(q, k, v, qp, kp, causal=False, window=0,
                               softcap_val=cfg.logit_softcap)
-    return torch.einsum("bshk,dhk->bsd", out, params["wo"])
+    return L.out_proj(out, params["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -222,6 +270,30 @@ def cache_init(batch: int, s_cache: int, cfg: AttnConfig, hd: int, dtype,
     dt = L.torch_dtype(dtype)
     return KVCache(torch.zeros(shape, dtype=dt, device=device),
                    torch.zeros(shape, dtype=dt, device=device))
+
+
+def _write_slot(cache_t, slot: int, new) -> None:
+    """``cache_t[:, slot] = new[:, 0]`` in place. On a mesh the cache is a
+    DTensor whose sequence dim may be sharded: ``new`` is brought to the
+    cache's placements with the sequence replicated, and the rank whose
+    shard holds ``slot`` writes it there (a slice of a sharded dim would
+    write into a gathered copy)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(cache_t, DTensor):
+        cache_t[:, slot:slot + 1].copy_(new)
+        return
+    mesh, places = cache_t.device_mesh, cache_t.placements
+    local = cache_t.to_local()
+    start, size = 0, cache_t.shape[1]
+    for dim, p in enumerate(places):
+        if p == Shard(1):
+            n = mesh.size(dim)
+            size //= n
+            start += mesh.get_local_rank(dim) * size
+    row = new.redistribute(
+        mesh, [Replicate() if p == Shard(1) else p for p in places])
+    if start <= slot < start + size:
+        local[:, slot - start:slot - start + 1].copy_(row.to_local())
 
 
 def attn_decode(params, cfg: AttnConfig, x, cache: KVCache, pos: int, *,
@@ -252,8 +324,8 @@ def attn_decode(params, cfg: AttnConfig, x, cache: KVCache, pos: int, *,
     slot = pos % s_cache if window else pos
     # detached: a graph behind k_new (trained parameters, grad on) must
     # not ride into the cache
-    cache.k[:, slot:slot + 1].copy_(k_new.detach())
-    cache.v[:, slot:slot + 1].copy_(v_new.detach())
+    _write_slot(cache.k, slot, k_new.detach())
+    _write_slot(cache.v, slot, v_new.detach())
 
     idx = torch.arange(s_cache, device=x.device)
     if window:
@@ -266,5 +338,5 @@ def attn_decode(params, cfg: AttnConfig, x, cache: KVCache, pos: int, *,
         valid = idx <= pos
     mask = _additive(valid)[None, None, :].expand(b, 1, s_cache)
     out = _sdpa(q, cache.k, cache.v, mask, softcap_val=cfg.logit_softcap)
-    out = torch.einsum("bshk,dhk->bsd", out, params["wo"])
+    out = L.out_proj(out, params["wo"])
     return out, cache

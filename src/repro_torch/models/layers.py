@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.runtime import sharding as SH
+
 
 def torch_dtype(name) -> torch.dtype:
     """``"bfloat16"`` -> ``torch.bfloat16``; a torch.dtype as it is."""
@@ -34,7 +36,9 @@ class Params(nn.Module):
     frozen ``nn.Parameter`` (serving needs no gradients), each dict a
     sub-group, all reachable by name with ``[]`` as in the reference's
     pytrees (``p["attn"]["q_norm"]["scale"]``); ``named_parameters``
-    gives the reference's leaf paths with dots."""
+    gives the reference's leaf paths with dots. On a mesh
+    (``runtime/sharding.use_mesh``) a leaf handed out by name is pinned
+    (``sharding.pin``)."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -46,7 +50,11 @@ class Params(nn.Module):
                     name, nn.Parameter(leaf, requires_grad=False))
 
     def __getitem__(self, name):
-        return getattr(self, name)
+        # on a mesh each use of a parameter is pinned, so that its
+        # gradient comes back in the parameter's own placements (a tied
+        # table's or a shared block's uses then add alike)
+        x = getattr(self, name)
+        return x if SH.current_mesh() is None else SH.pin(x)
 
 
 def _empty(shape, generator, device, dtype=torch.float32):
@@ -195,20 +203,56 @@ def mlp_apply(params, x, act: str):
     """silu and GeGLU are gated; GELU is the tanh form, as the
     reference's ``jax.nn.gelu(approximate=True)``. The activations round
     each step to x's dtype, as the reference's ops do (:func:`silu`,
-    :func:`gelu_tanh`)."""
+    :func:`gelu_tanh`). On a mesh the rows are gathered to batch-only
+    sharding first (``sharding.rows``) and the output is pinned
+    (``sharding.pin``): its gradient comes back batch-only, as the
+    product's backward needs to fold (batch, sequence)."""
+    x = SH.rows(x)
     if act == "silu":
         h = silu(x @ params["wi_gate"]) * (x @ params["wi_up"])
-        return h @ params["wo"]
-    if act == "geglu":
+    elif act == "geglu":
         h = gelu_tanh(x @ params["wi_gate"]) * (x @ params["wi_up"])
-        return h @ params["wo"]
-    h = gelu_tanh(x @ params["wi"])
-    return h @ params["wo"]
+    else:
+        h = gelu_tanh(x @ params["wi"])
+    return SH.pin(h @ params["wo"])
 
 
 # ---------------------------------------------------------------------------
 # Embedding
 # ---------------------------------------------------------------------------
+
+def heads_proj(x, w):
+    """``einsum("bsd,dhk->bshk", x, w)``, written out as einsum's own
+    batched product of (1, B*S, d) by (1, d, H*k) (the same ``bmm`` on
+    the same strides, so the same bits), so that on a mesh DTensor can
+    split the heads: there the rows are gathered to batch-only sharding
+    (``sharding.rows``), the H*k dim is brought to whole heads before the
+    split (``sharding.whole_chunks``), the dims each fold merges are
+    sharded only on the leading one (``sharding.foldable``), the merged
+    operands are pinned (``sharding.pin``) so that the backward splits
+    gradients laid out as the forward's operands, and the split's
+    gradient is made contiguous (``sharding.contiguous_grad``). Off a
+    mesh every one of those returns its input."""
+    x = SH.rows(x)
+    b, s, d = x.shape
+    _, h, k = w.shape
+    y = torch.bmm(SH.pin(x.reshape(1, b * s, d)),
+                  SH.pin(SH.foldable(w, 1, 2).reshape(1, d, h * k)))
+    return SH.contiguous_grad(SH.whole_chunks(y, 2, h).reshape(b, s, h, k))
+
+
+def out_proj(o, w):
+    """``einsum("bshk,dhk->bsd", o, w)`` (the attention output projection;
+    w stored (d, H, k)), written out as einsum's batched product of
+    (1, B*S, H*k) by (1, H*k, d), as :func:`heads_proj`."""
+    b, s, h, k = o.shape
+    d = w.shape[0]
+    o = SH.foldable(SH.foldable(SH.whole_chunks(o, 2, h), 0, 1), 2, 3)
+    w = SH.foldable(w.permute(1, 2, 0), 0, 1)
+    y = torch.bmm(SH.pin(o.reshape(1, b * s, h * k)),
+                  SH.pin(w.reshape(1, h * k, d)))
+    return SH.pin(y.reshape(b, s, d))
+
 
 def embed_init(generator, vocab: int, d: int, dtype, device=None):
     table = _empty((vocab, d), generator, device)
@@ -218,12 +262,23 @@ def embed_init(generator, vocab: int, d: int, dtype, device=None):
 
 
 def embed_lookup(params, tokens):
-    return F.embedding(tokens, params["table"])
+    """The rows of the table. On a mesh the lookup is placed explicitly:
+    the tokens replicated (a vocab-sharded table gives a pending masked
+    sum, whose mask DTensor keeps only for the tokens it saw and for one
+    reduction), the sum settled, and the rows placed over the data
+    axes."""
+    if SH.current_mesh() is None:
+        return F.embedding(tokens, params["table"])
+    mesh = SH.current_mesh()
+    tokens = SH.as_replicated(SH.replicated(tokens), mesh)
+    x = SH.settle(F.embedding(tokens, params["table"]))
+    return SH.constrain(x, SH.dp_axes_spec(), None, None)
 
 
 def embed_logits(params, x):
-    """Tied read-out: (B, S, d) @ (v, d)^T."""
-    return torch.einsum("bsd,vd->bsv", x, params["table"])
+    """Tied read-out: (B, S, d) @ (v, d)^T (on a mesh, the rows gathered
+    to batch-only sharding first, ``sharding.rows``)."""
+    return torch.einsum("bsd,vd->bsv", SH.rows(x), params["table"])
 
 
 def sinusoidal_positions(seq: int, d: int, dtype=torch.float32,

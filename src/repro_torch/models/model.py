@@ -27,8 +27,13 @@ and the two loops that serving and its checks run over ``decode``:
 The params are the functions' first argument, as the reference's
 pytrees are. Serving (``prefill_logits``, the loops) runs under
 ``torch.no_grad()``, so trained parameters (``requires_grad`` on,
-``launch/train.py``) build no graph there. What belongs to the dry run
-waits for ROADMAP queue 1 item 8e: ``input_specs`` and ``cache_specs``.
+``launch/train.py``) build no graph there.
+
+For the dry run (``launch/dryrun.py``), ``input_specs(shape)`` and
+``cache_specs(shape)`` give meta-device tensors of the reference's
+shapes and dtypes (its ``ShapeDtypeStruct`` objects; the caches in its
+stacked layout). On a mesh the chunked head's logits are constrained
+vocab-parallel, as the reference's.
 """
 from __future__ import annotations
 
@@ -38,11 +43,14 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.network import resolve_device
+from repro_torch.models import attention as A
 from repro_torch.models import frontends as F
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
+from repro_torch.runtime import sharding as SH
 
 WHISPER_ENC_FRAMES = 3000      # whisper-medium 30 s window (stub frontend)
 VLM_PATCHES = 256              # internvl2 tile -> 256 patch embeddings
@@ -68,9 +76,11 @@ def _chunk_len(s: int, target: int = 512) -> int:
 
 def _chunk_nll(table, xc, lc, softcap_val: float):
     """Summed token NLL of one (B, c) chunk under the tied head."""
-    logits = L.softcap(torch.einsum("bsd,vd->bsv", xc, table), softcap_val)
-    lse = torch.logsumexp(logits.float(), dim=-1)
-    picked = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    logits = torch.einsum("bsd,vd->bsv", xc, table)
+    logits = L.softcap(SH.constrain(logits, SH.dp_axes_spec(), None, "model"),
+                       softcap_val)
+    lse = SH.logsumexp(logits.float(), dim=-1)
+    picked = SH.settle(torch.gather(logits, -1, lc[..., None].long()))[..., 0]
     return (lse - picked.float()).sum()
 
 
@@ -136,7 +146,7 @@ class Model:
         cfg = self.cfg
         _, (lb, rz), hidden = self.forward(params, batch, with_logits=False)
         labels = batch["labels"]
-        hidden = hidden[:, -labels.shape[1]:]
+        hidden = SH.rows(hidden)[:, -labels.shape[1]:]
         loss = chunked_xent_head(params.embed["table"], hidden, labels,
                                  softcap_val=cfg.final_logit_softcap)
         if cfg.moe is not None and cfg.moe.num_experts:
@@ -149,7 +159,7 @@ class Model:
         """Last-position logits only (what serving needs): skips the
         full (B, S, V) head."""
         _, _, hidden = self.forward(params, batch, with_logits=False)
-        return params.head(hidden[:, -1:])
+        return params.head(SH.rows(hidden)[:, -1:])
 
     def cache_init(self, batch: int, s_cache: int):
         cfg, dev, fam = self.cfg, self.device, self.cfg.family
@@ -164,6 +174,70 @@ class Model:
 
     def decode(self, params: nn.Module, caches, token, pos: int):
         return params.decode_step(caches, token, pos)
+
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """Meta tensors of every input of a ``shape`` cell, the
+        reference's shapes and dtypes: train and prefill ``tokens`` and
+        ``labels`` (B, S) int32 (whisper ``frames`` (B, S, d) and
+        max(S // 4, 128) tokens; a VLM ``patches`` (B, VLM_PATCHES, d)
+        and S - VLM_PATCHES tokens); decode ``token`` (B, 1) and a
+        scalar ``pos``."""
+        b, s = shape.global_batch, shape.seq_len
+        meta = dict(device="meta")
+        i32, f = torch.int32, L.torch_dtype(self.cfg.dtype)
+        d, fam = self.cfg.d_model, self.cfg.family
+
+        def ints(*sh):
+            return torch.empty(sh, dtype=i32, **meta)
+        if shape.kind in ("train", "prefill"):
+            if fam == "audio":
+                s_txt = max(s // 4, 128)
+                return {"frames": torch.empty((b, s, d), dtype=f, **meta),
+                        "tokens": ints(b, s_txt), "labels": ints(b, s_txt)}
+            if fam == "vlm":
+                s_txt = s - VLM_PATCHES
+                return {"patches": torch.empty((b, VLM_PATCHES, d), dtype=f,
+                                               **meta),
+                        "tokens": ints(b, s_txt), "labels": ints(b, s_txt)}
+            return {"tokens": ints(b, s), "labels": ints(b, s)}
+        return {"token": ints(b, 1), "pos": ints()}
+
+    def cache_specs(self, shape: ShapeConfig):
+        """Meta tensors of the decode caches of a ``shape`` cell in the
+        reference's stacked layout: dense, moe and vlm a list of one
+        ``KVCache`` per group slot, each (n_groups, B, S, Hkv, hd) (a
+        local slot min(window, S)); ssm one ``SSMCache`` (L, B, ...);
+        hybrid ``{"groups_ssm": (G, 6, B, ...), "groups_kv": (G, B, S,
+        ...), "tail_ssm": (tail, B, ...) or None}``; audio ``{"self",
+        "cross"}`` (L_dec, B, ...), the cross caches over
+        ``WHISPER_ENC_FRAMES``."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def kv(lead, size):
+            sh = lead + (b, size, cfg.attn.num_kv_heads, cfg.head_dim)
+            return A.KVCache(*(torch.empty(sh, dtype=L.torch_dtype(cfg.dtype),
+                                           device="meta") for _ in "kv"))
+
+        def ssm(lead):
+            one = S.ssm_cache_init(b, cfg.ssm, cfg.d_model, cfg.dtype,
+                                   device="meta")
+            return S.SSMCache(*(torch.empty(lead + tuple(x.shape),
+                                            dtype=x.dtype, device="meta")
+                                for x in one))
+        fam = cfg.family
+        if fam == "ssm":
+            return ssm((cfg.num_layers,))
+        if fam == "hybrid":
+            ngroups, tail = T.zamba_layout(cfg)
+            return {"groups_ssm": ssm((ngroups, T.ZAMBA_GROUP)),
+                    "groups_kv": kv((ngroups,), s),
+                    "tail_ssm": ssm((tail,)) if tail else None}
+        if fam == "audio":
+            nd = (cfg.num_decoder_layers,)
+            return {"self": kv(nd, s), "cross": kv(nd, WHISPER_ENC_FRAMES)}
+        _, ngroups, slots = T._group_layout(cfg)
+        return [kv((ngroups,), min(w, s) if w else s) for w, _ in slots]
 
 
 def build_model(cfg: ModelConfig, *, device="cuda") -> Model:

@@ -12,6 +12,15 @@ masked by ``keep`` and scaled by the gate. The router runs in float32.
 
 Aux losses: load-balance (Switch) + router z-loss, summed over the
 layers by ``transformer.DecoderLM.forward``.
+
+On a mesh (``runtime/sharding.use_mesh``) the routing's index
+arithmetic has no DTensor sharding rule (``searchsorted``, the stable
+sort, the scatter into the buffers), so it is placed explicitly: the
+tokens and the router's logits are replicated, the routing and the
+dispatch run on every rank's full local copy, the (E, cap, d) buffers
+enter the experts' products as replicated DTensors (the expert weights
+keep their expert-parallel placement) and the outputs are replicated
+back before the gather.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models import layers as L
+from repro_torch.runtime import sharding as SH
 
 
 def _experts_init(generator, e: int, d_in: int, d_out: int, dtype,
@@ -102,13 +112,16 @@ def _dispatch_one(params, xf, expert_k, gate_k, e: int, cap: int, act: str):
     buf = torch.zeros((e, cap, d), dtype=xf.dtype, device=xf.device)
     buf.index_put_((expert_k, safe_pos),
                    torch.where(keep[:, None], xf, 0), accumulate=True)
+    mesh = SH.current_mesh()
+    if mesh is not None:
+        buf = SH.as_replicated(buf, mesh)
     if act in ("silu", "geglu"):
         hg = torch.bmm(buf, params["wi_gate"])
         hu = torch.bmm(buf, params["wi_up"])
         h = (L.silu(hg) if act == "silu" else L.gelu_tanh(hg)) * hu
     else:
         h = L.gelu_tanh(torch.bmm(buf, params["wi_gate"]))
-    out_buf = torch.bmm(h, params["wo"])
+    out_buf = SH.replicated(torch.bmm(h, params["wo"]))
     y = out_buf[expert_k, safe_pos]                          # (T, d)
     return torch.where(keep[:, None], y, 0) * gate_k[:, None].to(xf.dtype)
 
@@ -119,9 +132,16 @@ def moe_apply(params, cfg: MoEConfig, x, act: str):
     b, s, d = x.shape
     t = b * s
     e = cfg.num_experts
+    # on a mesh: rows over the data axes only, so the (B*S) rows split
+    # back into (B, S)
+    x = SH.constrain(x, SH.dp_axes_spec(), None, None)
     xf = x.reshape(t, d)
+    mesh = SH.current_mesh()
 
-    logits = xf.float() @ params["router"]                   # (T, E)
+    # on a mesh the tokens and logits are replicated and routed locally
+    x_in = xf
+    logits = SH.replicated(xf.float() @ params["router"])    # (T, E)
+    xf = SH.replicated(xf)
     probs = torch.softmax(logits, dim=-1)
     gate, expert = top_k(probs, cfg.top_k)                   # (T, k)
     cap = capacity(cfg, t)
@@ -130,8 +150,10 @@ def moe_apply(params, cfg: MoEConfig, x, act: str):
     for kk in range(cfg.top_k):
         y = y + _dispatch_one(params, xf, expert[:, kk], gate[:, kk], e, cap,
                               act)
+    if mesh is not None:
+        y = SH.as_replicated(y, mesh)
     if cfg.num_shared:
-        y = y + L.mlp_apply(params["shared"], xf, act)
+        y = y + L.mlp_apply(params["shared"], x_in, act)
 
     me = torch.nn.functional.one_hot(expert[:, 0], e).float().mean(dim=0)
     pe = probs.mean(dim=0)
@@ -139,4 +161,6 @@ def moe_apply(params, cfg: MoEConfig, x, act: str):
         load_balance=e * torch.sum(me * pe),
         router_z=torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
     )
-    return y.reshape(b, s, d), aux
+    if mesh is not None:
+        aux = MoEAux(*(SH.as_replicated(a, mesh) for a in aux))
+    return SH.pin(y.reshape(b, s, d)), aux

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.models import layers as L
+from repro_torch.runtime import sharding as SH
 
 
 def ssd_init(generator, cfg: SSMConfig, d_model: int, dtype, device=None):
@@ -88,26 +89,56 @@ def ssd_apply(params, cfg: SSMConfig, d_model: int, x_in, *,
     multiple of ``cfg.chunk`` (``ValueError`` otherwise, where the
     reference asserts). With ``return_state``, also (the final state
     (B, H, N, P) float32, the last d_conv - 1 pre-activation conv
-    inputs)."""
+    inputs). On a mesh the two projections are DTensor products and the
+    rest (:func:`_ssd_core`: conv, scan, gate) runs on each rank's batch
+    rows (``sharding.run_local``), its parameters replicated; there
+    ``return_state`` is not offered."""
     bsz, t, _ = x_in.shape
-    q = cfg.chunk
-    if t % q:
+    if t % cfg.chunk:
         raise ValueError(f"ssd_apply: sequence of {t} is not a multiple of "
-                         f"the chunk {q}")
+                         f"the chunk {cfg.chunk}")
+    x_in = SH.rows(x_in)             # on a mesh: batch-only sharding
+    zxbcdt = x_in @ params["in_proj"]
+    leaves = (params["conv_w"], params["conv_b"], params["a_log"],
+              params["dt_bias"], params["d_skip"],
+              params["gate_norm"]["scale"])
+    mesh = SH.current_mesh()
+    if mesh is None:
+        y, state = _ssd_core(cfg, d_model, x_in.dtype, zxbcdt, *leaves)
+    else:
+        if return_state:
+            raise NotImplementedError("ssd_apply(return_state=True) on a "
+                                      "mesh")
+        dp = SH.fit_spec((SH.dp_axes_spec(),), zxbcdt.shape, mesh)[0]
+        y = SH.run_local(
+            lambda *a: _ssd_core(cfg, d_model, x_in.dtype, *a)[0],
+            (zxbcdt, *leaves),
+            [(dp, None, None)] + [(None,) * x.ndim for x in leaves],
+            (dp, None, None))
+    out = SH.pin(y @ params["out_proj"])      # on a mesh: grad batch-only
+    if return_state:
+        return out, state
+    return out
+
+
+def _ssd_core(cfg: SSMConfig, d_model: int, dtype, zxbcdt, conv_w, conv_b,
+              a_log, dt_bias, d_skip, gate_scale):
+    """:func:`ssd_apply` between its projections: (the gated y (B, T,
+    inner) in ``dtype``, (the final state, the conv tail))."""
+    bsz, t, _ = zxbcdt.shape
+    q = cfg.chunk
     nc = t // q
     p = cfg.head_dim
     inner, n, heads = _dims(cfg, d_model)
-
-    zxbcdt = x_in @ params["in_proj"]
     z, xc, bmat, cmat, dt = _split_proj(cfg, d_model, zxbcdt)
 
     conv_in = torch.cat([xc, bmat, cmat], dim=-1)
-    conv = L.silu(_causal_conv(conv_in, params["conv_w"], params["conv_b"]))
+    conv = L.silu(_causal_conv(conv_in, conv_w, conv_b))
     xc, bmat, cmat = torch.split(conv, [inner, n, n], dim=-1)
 
     x = xc.reshape(bsz, t, heads, p)
-    dt = softplus(dt.float() + params["dt_bias"])            # (B, T, H)
-    a = -torch.exp(params["a_log"])                          # (H,)
+    dt = softplus(dt.float() + dt_bias)            # (B, T, H)
+    a = -torch.exp(a_log)                          # (H,)
     dta = dt * a                                             # log-decay/step
 
     # --- chunked SSD --- (g = 1 state group, dropped from the layouts)
@@ -121,7 +152,7 @@ def ssd_apply(params, cfg: SSMConfig, d_model: int, x_in, *,
     cb = cm_c @ bm_c.transpose(-1, -2)                       # (B,nc,Q,Q)
     ldiff = lcum[:, :, :, None, :] - lcum[:, :, None, :, :]  # (B,nc,Q,Q,H)
     causal = torch.ones((q, q), dtype=torch.bool,
-                        device=x_in.device).tril()[None, None, :, :, None]
+                        device=zxbcdt.device).tril()[None, None, :, :, None]
     # mask BEFORE exp: for s > t ldiff is positive and exp overflows
     decay = torch.exp(torch.where(causal, ldiff, -torch.inf))
     scores = (cb[..., None] * decay).permute(0, 1, 4, 2, 3)  # (B,nc,H,Q,S)
@@ -147,17 +178,14 @@ def ssd_apply(params, cfg: SSMConfig, d_model: int, x_in, *,
     y_inter = torch.exp(lcum)[..., None] * y_inter
 
     y = (y_intra + y_inter).reshape(bsz, t, heads, p)
-    y = y + params["d_skip"][None, None, :, None] * x.float()
-    y = y.reshape(bsz, t, inner).to(x_in.dtype)
+    y = y + d_skip[None, None, :, None] * x.float()
+    y = y.reshape(bsz, t, inner).to(dtype)
 
     # gated RMSNorm + out projection (mamba2 block epilogue)
-    y = L.rmsnorm(params["gate_norm"], y * L.silu(z))
-    out = y @ params["out_proj"]
-    if return_state:
-        final_state = s_acc[:, -1]                           # (B, H, N, P)
-        conv_tail = conv_in[:, -(cfg.d_conv - 1):, :]        # pre-activation
-        return out, (final_state, conv_tail)
-    return out
+    y = L.rmsnorm({"scale": gate_scale}, y * L.silu(z))
+    final_state = s_acc[:, -1]                               # (B, H, N, P)
+    conv_tail = conv_in[:, -(cfg.d_conv - 1):, :]            # pre-activation
+    return y, (final_state, conv_tail)
 
 
 class SSMCache(NamedTuple):

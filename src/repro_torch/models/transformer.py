@@ -26,9 +26,15 @@ than ``"none"`` and grad enabled, each block, mamba block, zamba group
 and whisper encoder or decoder layer runs under
 ``torch.utils.checkpoint`` (non-reentrant), so its activations are
 recomputed in the backward; ``"block"`` and ``"full"`` are the same, as
-in the reference. Left out: the sequence- and vocab-parallel
-``SH.constrain`` calls (no-ops off a mesh; the port has no LM mesh yet,
-ROADMAP queue 1 item 8e).
+in the reference.
+
+On a mesh (``runtime/sharding.use_mesh``) the residual stream is
+constrained at the reference's sites, sequence-parallel (:func:`_sp`:
+batch over the data axes, sequence over ``'model'``, by
+``sharding.activation_constraint``) after each layer
+group of the decoder-only stack, each mamba block and each zamba group,
+and the full-sequence logits vocab-parallel (:func:`_logit_sp`); off a
+mesh both are no-ops.
 """
 from __future__ import annotations
 
@@ -44,6 +50,25 @@ from repro_torch.models import frontends as F
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.runtime import sharding as SH
+
+
+def _sp(x):
+    """Sequence-parallel residual-stream constraint: a stream of more
+    than one position placed by ``sharding.activation_constraint``
+    (no-op off a mesh)."""
+    mesh = SH.current_mesh()
+    if mesh is None or x.ndim != 3 or x.shape[1] == 1:
+        return x
+    return SH.activation_constraint(x, mesh)
+
+
+def _logit_sp(x):
+    """Logits shard over the vocab dim ('model'), matching the
+    vocab-sharded embedding table (no-op off a mesh)."""
+    if x.ndim != 3:
+        return x
+    return SH.constrain(x, SH.dp_axes_spec(), None, "model")
 
 
 def remat(cfg: ModelConfig, fn, *args, **kw):
@@ -235,15 +260,18 @@ class DecoderLM(nn.Module):
         b, s, _ = x.shape
         positions = _positions(b, s, x.device)
         aux = _no_aux(x.device)
-        for block in self.layers:
+        gsize = _group_layout(self.cfg)[0]
+        for i, block in enumerate(self.layers):
             x, layer_aux = remat(self.cfg, block, x, positions)
             if layer_aux is not None:
                 aux = (aux[0] + layer_aux.load_balance,
                        aux[1] + layer_aux.router_z)
+            if (i + 1) % gsize == 0:
+                x = _sp(x)
         x = L.rmsnorm(self.final_norm, x)
         if not with_logits:
             return None, aux, x
-        return self.head(x), aux, x
+        return _logit_sp(self.head(x)), aux, x
 
     def decode_step(self, caches: list[A.KVCache], token, pos: int):
         """token: (B, 1) integer; pos: host int. Returns (logits, caches),
@@ -308,7 +336,7 @@ class _Stack(nn.Module):
     def _out(self, x, with_logits: bool):
         x = L.rmsnorm(self.final_norm, x)
         aux = _no_aux(x.device)
-        return (self.head(x) if with_logits else None), aux, x
+        return (_logit_sp(self.head(x)) if with_logits else None), aux, x
 
 
 class MambaLM(_Stack):
@@ -329,7 +357,7 @@ class MambaLM(_Stack):
         a multiple of ``cfg.ssm.chunk``."""
         x = L.embed_lookup(self.embed, tokens)
         for block in self.blocks:
-            x = remat(self.cfg, block, x)
+            x = _sp(remat(self.cfg, block, x))
         return self._out(x, with_logits)
 
     def decode_step(self, caches: list[S.SSMCache], token, pos: int):
@@ -397,7 +425,7 @@ class ZambaLM(_Stack):
         block (the reference's ``group_body``; its tail is not remat'd)."""
         for block in group:
             x = block(x)
-        return self.shared(x, positions)[0]
+        return _sp(self.shared(x, positions)[0])
 
     def decode_step(self, caches: dict, token, pos: int):
         x = L.embed_lookup(self.embed, token)
@@ -487,8 +515,8 @@ class WhisperLM(_Stack):
 
     def prime_cross(self, ctx) -> list[A.KVCache]:
         """Each decoder layer's cross K/V over the encoder's output."""
-        return [A.KVCache(torch.einsum("bsd,dhk->bshk", ctx, p["cross"]["wk"]),
-                          torch.einsum("bsd,dhk->bshk", ctx, p["cross"]["wv"]))
+        return [A.KVCache(L.heads_proj(ctx, p["cross"]["wk"]),
+                          L.heads_proj(ctx, p["cross"]["wv"]))
                 for p in self.decoder]
 
     def primed_caches(self, frames, s_cache: int) -> dict:
@@ -511,13 +539,12 @@ class WhisperLM(_Stack):
                                       L.rmsnorm(p["ln_attn"], x), self_c, pos)
             x = x + h
             # cross attention against the primed encoder K/V
-            q = torch.einsum("bsd,dhk->bshk", L.rmsnorm(p["ln_cross"], x),
-                             p["cross"]["wq"])
+            q = L.heads_proj(L.rmsnorm(p["ln_cross"], x), p["cross"]["wq"])
             zeros = torch.zeros((b, 1, cross_c.k.shape[1]), dtype=x.dtype,
                                 device=x.device)
             o = A._sdpa(q, cross_c.k, cross_c.v, zeros,
                         softcap_val=cfg.attn.logit_softcap)
-            x = x + torch.einsum("bshk,dhk->bsd", o, p["cross"]["wo"])
+            x = x + L.out_proj(o, p["cross"]["wo"])
             x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln_mlp"], x), cfg.act)
             new_self.append(self_c)
         logits = self.head(L.rmsnorm(self.final_norm, x))

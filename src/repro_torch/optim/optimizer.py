@@ -182,11 +182,22 @@ def _sq_stats(g):
     return g2.sum(dim=-1) / g.shape[-1], g2.sum(dim=-2) / g.shape[-2]
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def _adafactor_leaf(cfg: TrainConfig, g, v, p, b2, lr, eps: float):
     lowmem = g.numel() > LOWMEM_ELEMENTS and p.dtype == torch.bfloat16
+    # a DTensor leaf (on a mesh) is not walked slice by slice: DTensor
+    # cannot split a sharded dim; its statistics take the whole leaf,
+    # in the low-memory branch's dtypes
+    sliced = lowmem and not _is_dtensor(g)
     gf = g if lowmem else g.float()
     if g.ndim >= 2:
-        if lowmem and g.ndim >= 3:
+        if lowmem and not sliced:
+            g2r, g2c = _sq_stats(g)
+        elif lowmem and g.ndim >= 3:
             # one leading slice's float32 copy at a time
             stats = [_sq_stats(gs) for gs in g]
             g2r = torch.stack([r for r, _ in stats])
@@ -214,7 +225,7 @@ def _adafactor_leaf(cfg: TrainConfig, g, v, p, b2, lr, eps: float):
         u = gf * torch.rsqrt(nvv + eps).to(gf.dtype)
         nv = {"v": nvv}
     # update clipping (Shazeer-Stern d = 1.0)
-    if lowmem and u.ndim >= 3:
+    if sliced and u.ndim >= 3:
         u2 = torch.stack([torch.square(us.float()).sum() for us in u])
         rms_u = torch.sqrt(u2.sum() / float(u.numel()) + eps)
     else:

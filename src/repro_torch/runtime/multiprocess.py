@@ -739,7 +739,8 @@ def add_workload_args(ap: argparse.ArgumentParser) -> None:
 SUPERVISED_SHARDS = (
     "--shards-per-rank applies to the unsupervised runs: a supervised "
     "run's checkpoints, restores and reshards hold one shard per rank "
-    "(ROADMAP queue 1 item 7g)")
+    "(ROADMAP item 7g: the reference's supervised runs hold one shard "
+    "per rank too)")
 
 
 def check_shards(args) -> None:

@@ -1,10 +1,11 @@
 """The port imports neither JAX nor the JAX package: every module of
 ``repro_torch`` (the checkpointer and the fault-tolerance runtime of the
 durability slice, the LM zoo's configs, models, optimizers, data
-pipeline and trainer among them),
-``chip_smoke.py`` and the port's example
+pipeline and trainer, the mesh rules, the cost count and the dry run
+among them), ``chip_smoke.py`` and the port's example
 scripts ``examples/torch_*.py`` (imported, not run) in a fresh
-interpreter leave no ``jax`` or ``repro`` module behind."""
+interpreter leave no ``jax`` or ``repro`` module behind, and start no
+process group."""
 import os
 import pathlib
 import subprocess
@@ -40,6 +41,8 @@ for script in sorted(pathlib.Path('examples').glob('torch_*.py')):
 bad = sorted(m for m in sys.modules
              if m in ('jax', 'repro', 'jaxlib')
              or m.startswith(('jax.', 'repro.', 'jaxlib.')))
+import torch.distributed as dist
+print('GROUP', dist.is_initialized())
 print('IMPORTED', len(names))
 print('NAMES', ' '.join(names))
 print('BAD', bad)
@@ -55,6 +58,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    assert "GROUP False" in out.stdout, out.stdout
     n = int(out.stdout.split("IMPORTED ")[1].split()[0])
     assert n >= 15, out.stdout
     names = out.stdout.split("NAMES ")[1].split("\n")[0].split()
@@ -77,5 +81,9 @@ def test_port_imports_no_jax_and_no_reference():
                    "repro_torch.optim.optimizer",
                    "repro_torch.data.pipeline",
                    "repro_torch.launch.train",
-                   "examples/torch_train_lm.py"):
+                   "examples/torch_train_lm.py",
+                   "repro_torch.runtime.sharding",
+                   "repro_torch.launch.mesh",
+                   "repro_torch.launch.cost",
+                   "repro_torch.launch.dryrun"):
         assert module in names, module
