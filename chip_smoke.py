@@ -92,7 +92,9 @@ then, on the card:
 6. drives the batched multi-tenant service (``core/batched.py``,
    ``launch/serve.py``) on the same grid under ``cuda_fused``, after
    holding every tenant-axis kernel (one launch for B tenants) to one
-   launch per tenant and to its plain version on random inputs: (a) a
+   launch per tenant and to its plain version on random inputs
+   (``synapse_matmul`` also over each of ``SYNAPSE_TENANT_CASES``, to
+   the FMA chain): (a) a
    one-slot server's job of seed 42 equals phase 3's run to the bit;
    (b) four static tenants (seeds 42-45, ``nu_scale`` 1.0, 0.8, 1.0,
    1.5) each equal their dedicated ``simulation.run(seed=, nu_scale=)``,
@@ -111,7 +113,8 @@ then, on the card:
    bounds (``fused_step`` also as one launch per tenant); the
    tenant-axis kernels at B = 4 join the ``{"kernels": ...}`` line with
    their library calls (``torch.bmm`` for ``synapse_matmul``, cuSPARSE
-   ``A @ X`` of B columns for ``ell_gather``);
+   ``A @ X`` of B columns for ``ell_gather``) and their plans
+   (``synapse_matmul``'s CTAs, one tenant a CTA);
 7. drives the batched service over shard meshes and ranks
    (``exchange.make_batched_distributed_run``) on the same grid: 6b's
    four tenants for 20 + 100 steps from their seeds on in-process meshes
@@ -224,9 +227,10 @@ then, on the card:
    reference's rules as DTensor placements; plain torch): (a)
    ``launch/train.make_sharded_train_step`` on a one-rank NCCL mesh of
    shape (1, 1) over the card, for the reduced configs of qwen3-0.6b,
-   llama4-scout (MoE) and mamba2-780m, 3 steps each, against the
-   unsharded card step from the same seed: the losses and every
-   parameter equal to the bit (else the largest difference is printed
+   llama4-scout (MoE) and mamba2-780m, 3 steps each, and qwen3 again
+   under 8-bit AdamW, against the unsharded card step from the same
+   seed: the losses and every parameter (and the 8-bit moments' codes
+   and scales) equal to the bit (else the largest difference is printed
    and the phase fails); (b) started with the phase and collected after
    (a), so that no timed phase shares the host with them, three cells
    of the dry run
@@ -335,6 +339,14 @@ TENANT_B = 4
 # per tenant: the cluster path's clusters of 2, 3, 4 and 8 CTAs, and two
 # groups of 6
 TENANT_CHECK_WIDTHS = (2, 3, 4, 8, 12)
+# synapse_matmul over B tenants in one launch, each case held to one
+# launch per tenant and to the FMA chain, to the bit: (tenants, columns,
+# neurons, the tenants that spike nowhere). 1, 2, 3, 4, 8 and 12
+# tenants; 257 neurons (4-byte copies); one tenant silent, and all;
+# 8 tenants of 4096 neurons
+SYNAPSE_TENANT_CASES = tuple((b, 5, 300, ()) for b in (1, 2, 3, 4, 8, 12)) + (
+    (3, 5, 257, ()), (4, 5, 300, (2,)), (4, 5, 257, (0, 1, 2, 3)),
+    (8, 2, 4096, ()))
 # the {"kernels": ...} entry of fused_step's STDP-trace and guard-flag
 # instance over 6d's plastic tenants
 PLASTIC_FUSED = f"fused_step+stdp+guard[B={TENANT_B}]"
@@ -2921,6 +2933,9 @@ class Smoke:
                    ref.synapse_matmul_chain_ref(s_loc, w))
         self.per_launch("synapse_matmul", ops.synapse_matmul, (s_loc, w),
                         got, b, c)
+        for case in SYNAPSE_TENANT_CASES:
+            plans["synapse_matmul B={} C={} N={} silent {}".format(
+                *case)] = self.check_synapse_matmul_tenants(*case)
 
         ids = torch.arange(7, 7 + c, dtype=torch.int32, device=dev)
         seeds = torch.tensor([42, -5, 2**31 - 1], dtype=torch.int32,
@@ -2966,6 +2981,34 @@ class Smoke:
                        torch.cat((off[:c], off[2 * c:])),
                        torch.cat((got[:c], got[2 * c:])))
         return errs, plans
+
+    def check_synapse_matmul_tenants(self, b, c, n, silent=(), seed=31):
+        """``synapse_matmul`` over ``b`` tenants of ``c`` random columns of
+        ``n`` neurons in one launch (one column of a tenant spiking in
+        every source, spike values other than 1, the tenants in
+        ``silent`` spiking nowhere): to the bit against one launch per
+        tenant and against the FMA chain, its silent-block count the
+        plain count. Returns the plan."""
+        torch, ops, ref, dev = self.torch, self.ops, self.ref, self.dev
+        g = torch.Generator(device=dev).manual_seed(seed + 97 * b + n)
+        rows = b * c
+        s = (torch.rand(rows, n, generator=g, device=dev) < 0.05).float()
+        s[min(c + 1, rows - 1)] = 1.0
+        s[:, ::3] *= torch.rand(rows, 1, generator=g, device=dev) + 0.5
+        for i in silent:
+            s[i * c:(i + 1) * c] = 0.0
+        w = torch.randn(c, n, n, generator=g, device=dev) * 0.4
+        counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        name = f"synapse_matmul B={b} C={c} N={n} silent {silent}"
+        got = ops.synapse_matmul(s, w, silent_blocks=counter)
+        self.equal(f"{name} chain", got, ref.synapse_matmul_chain_ref(s, w))
+        if int(counter) != int(ref.silent_block_count(s)):
+            raise AssertionError(f"{name}: {int(counter)} silent blocks, "
+                                 f"plain {int(ref.silent_block_count(s))}")
+        self.per_launch(name, ops.synapse_matmul, (s, w), got, b, c)
+        if silent and len(silent) == b and bool(got.any()):
+            raise AssertionError(f"{name}: all-silent tenants are not 0")
+        return self.tenant_plan("synapse_matmul", rows, n, 0, b)
 
     def hold_slot(self, name, state, b, want):
         """Slot ``b`` of a batch's state against a single-tenant state: v,
@@ -3036,7 +3079,8 @@ class Smoke:
                       f"{key}: {p['path']}, clusters of {p['cluster']} x "
                       f"{p['groups']} groups, {p['ctas']} CTAs, "
                       f"{p['smem_bytes']} B" for key, p in plans.items())
-                  + "; synapse_matmul equal to the FMA chain, keyed_drive "
+                  + "; synapse_matmul equal to the FMA chain (also over "
+                  "SYNAPSE_TENANT_CASES), keyed_drive "
                   "and both STDP kernels (one tenant inactive: its weights "
                   "passed through) equal to their plain versions to the "
                   "bit; max abs err " + ", ".join(
@@ -3395,6 +3439,8 @@ class Smoke:
             self.equal(f"synapse_matmul[B={b}] tenant {i}",
                        got[i * c:(i + 1) * c],
                        ops.synapse_matmul(s[i * c:(i + 1) * c], w))
+        self.equal(f"synapse_matmul[B={b}] chain", got,
+                   ref.synapse_matmul_chain_ref(s, w))
         spiking = s.reshape(b, c, n) != 0
         nnz, union = float(spiking.sum()), float(spiking.any(0).sum())
         sb = s.reshape(b, c, n).transpose(0, 1).contiguous()
@@ -3407,6 +3453,7 @@ class Smoke:
             plain_ms=self.time_ms(lambda: ref.synapse_matmul_ref(s, w)),
             library_ms=self.time_ms(lambda: torch.bmm(sb, w)),
             library="torch.bmm of (C, B, N) x (C, N, N)",
+            plan=self.tenant_plan("synapse_matmul", rows, n, 0, b),
             library_max_abs_err=self.close(
                 f"synapse_matmul[B={b}] bmm",
                 bmm.transpose(0, 1).reshape(rows, n), got,
@@ -3448,8 +3495,12 @@ class Smoke:
                 f"max abs err {e['max_abs_err']:.2e}, launches "
                 f"{e['launches']} ({e['launches_from']})"
                 + ("" if plan is None else
-                   f"; {plan['path']} path, clusters of {plan['cluster']} x "
-                   f"{plan['groups']} groups, {plan['ctas']} CTAs, "
+                   f"; {plan['path']} path, "
+                   + ("one tenant a CTA"
+                      if name == "synapse_matmul" else
+                      f"clusters of {plan['cluster']} x {plan['groups']} "
+                      "groups")
+                   + f", {plan['ctas']} CTAs, "
                    f"{plan['smem_bytes']} B shared")
                 + ")")
 
@@ -5359,8 +5410,9 @@ class Smoke:
         float32) two states from ``init_state`` with a card generator
         seeded 0, one placed on the mesh (``shard_state``):
         LM_MESH_STEPS AdamW steps of ``make_sharded_train_step`` and of
-        ``make_train_step`` on the same batches; every loss and every
-        parameter after the last step equal to the bit."""
+        ``make_train_step`` on the same batches, and as many 8-bit AdamW
+        steps of the first; every loss, every parameter and (8-bit) every
+        moment's codes and scales after the last step equal to the bit."""
         import socket
 
         import torch.distributed as dist
@@ -5378,8 +5430,12 @@ class Smoke:
         try:
             mesh = init_device_mesh(self.dev.type, (1, 1),
                                     mesh_dim_names=("data", "model"))
-            tcfg = self.TrainConfig(learning_rate=1e-3, warmup_steps=1)
-            for arch in LM_MESH_ARCHS:
+            cases = [(arch, "adamw") for arch in LM_MESH_ARCHS] + [
+                (LM_MESH_ARCHS[0], "adamw8bit")]
+            for arch, optimizer in cases:
+                tcfg = self.TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                                        optimizer=optimizer)
+                label = arch if optimizer == "adamw" else f"{arch} {optimizer}"
                 t0 = time.perf_counter()
                 cfg = self.LC.reduced_config(arch)
                 model = self.LM.build_model(cfg, device=self.dev)
@@ -5407,7 +5463,14 @@ class Smoke:
                 equal = (all(a == b for a, b in losses)
                          and all(torch.equal(p.detach(), q.to_local().detach())
                                  for p, q in pairs))
-                log(f"phase 13a {arch} (reduced, float32) on a (1, 1) "
+                if optimizer == "adamw8bit":
+                    equal &= all(
+                        torch.equal(z.q, sharded.opt[slot][k].q.to_local())
+                        and torch.equal(
+                            z.scale, sharded.opt[slot][k].scale.to_local())
+                        for slot in ("m", "v")
+                        for k, z in plain.opt[slot].items())
+                log(f"phase 13a {label} (reduced, float32) on a (1, 1) "
                     f"{dist.get_backend()} mesh: {LM_MESH_STEPS} sharded steps against the "
                     f"unsharded card step, losses "
                     + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in losses)
@@ -5416,12 +5479,12 @@ class Smoke:
                     f" ({time.perf_counter() - t0:.1f} s)")
                 if not equal:
                     raise AssertionError(
-                        f"phase 13a {arch}: the sharded step differs from "
+                        f"phase 13a {label}: the sharded step differs from "
                         f"the unsharded one (largest difference {worst:.3e}, "
                         f"losses {losses})")
-                rows[arch] = dict(losses=losses, parameters=len(pairs),
-                                  max_abs_diff=worst,
-                                  seconds=time.perf_counter() - t0)
+                rows[label] = dict(losses=losses, parameters=len(pairs),
+                                   max_abs_diff=worst,
+                                   seconds=time.perf_counter() - t0)
                 del plain, sharded, pairs
         finally:
             dist.destroy_process_group()

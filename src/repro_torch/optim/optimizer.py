@@ -109,6 +109,15 @@ class Q8:
 
 
 def q8_encode(x: torch.Tensor) -> Q8:
+    """The blocks run over the leaf's flat order. A DTensor leaf (on a
+    mesh) is encoded whole, as the reference's global array is, since a
+    shard does not hold whole blocks in that order: ``q`` and ``scale``
+    come back replicated on its mesh, for the caller to place
+    (``launch/train.py::place_opt``)."""
+    if _is_dtensor(x):
+        z = q8_encode(x.full_tensor())
+        return Q8(_replicated(z.q, x.device_mesh),
+                  _replicated(z.scale, x.device_mesh), z.shape)
     flat = x.float().reshape(-1)
     pad = (-flat.shape[0]) % _QBLOCK
     flat = torch.nn.functional.pad(flat, (0, pad)).reshape(-1, _QBLOCK)
@@ -118,9 +127,27 @@ def q8_encode(x: torch.Tensor) -> Q8:
     return Q8(q, scale, tuple(x.shape))
 
 
-def q8_decode(z: Q8) -> torch.Tensor:
+def q8_decode(z: Q8, like=None) -> torch.Tensor:
+    """The float32 tensor of ``z``. A ``Q8`` of DTensors is decoded whole
+    (:func:`q8_encode`) and comes back as a DTensor placed like ``like``
+    (a DTensor on the same mesh), or replicated."""
+    if _is_dtensor(z.q):
+        mesh = z.q.device_mesh
+        full = q8_decode(Q8(z.q.full_tensor(), z.scale.full_tensor(),
+                            z.shape))
+        full = _replicated(full, mesh)
+        return (full.redistribute(mesh, like.placements)
+                if _is_dtensor(like) else full)
     flat = (z.q.float() * z.scale[:, None]).reshape(-1)
     return flat[:math.prod(z.shape)].reshape(z.shape)
+
+
+def _replicated(x: torch.Tensor, mesh):
+    """``x`` (the same full tensor on every rank) as a replicated DTensor
+    on ``mesh``; nothing moves."""
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +156,11 @@ def q8_decode(z: Q8) -> torch.Tensor:
 
 def adamw_init(params: dict, *, bits8: bool = False) -> dict:
     def zeros(x):
-        z = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        # a DTensor leaf's zeros are placed like it (a Q8's replicated,
+        # as q8_encode leaves them)
+        z = (torch.zeros_like(x, dtype=torch.float32) if _is_dtensor(x)
+             else torch.zeros(x.shape, dtype=torch.float32,
+                              device=x.device))
         return q8_encode(z) if bits8 else z
     return {"m": {k: zeros(x) for k, x in params.items()},
             "v": {k: zeros(x) for k, x in params.items()}}
@@ -146,8 +177,8 @@ def adamw_update(cfg: TrainConfig, grads: dict, state: dict, params: dict,
     new_p, new_m, new_v = {}, {}, {}
     for k, p in params.items():
         g = grads[k].float()
-        m_f = q8_decode(state["m"][k]) if bits8 else state["m"][k]
-        v_f = q8_decode(state["v"][k]) if bits8 else state["v"][k]
+        m_f = q8_decode(state["m"][k], g) if bits8 else state["m"][k]
+        v_f = q8_decode(state["v"][k], g) if bits8 else state["v"][k]
         m_f = b1 * m_f + (1 - b1) * g
         v_f = b2 * v_f + (1 - b2) * g * g
         mhat = m_f / c1

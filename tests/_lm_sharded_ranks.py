@@ -1,6 +1,6 @@
 """One gloo rank of ``tests/test_torch_lm_sharded.py``:
 
-    python _lm_sharded_ranks.py REF_NPZ OUT_JSON ARCH[,ARCH...]
+    python _lm_sharded_ranks.py REF_NPZ OUT_JSON ARCH[,ARCH...] TOL
 
 with ``WORLD_SIZE`` = 4, ``RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``
 set. Every rank builds the (2, 2) ``("data", "model")`` mesh and, for
@@ -9,7 +9,12 @@ each reduced arch from the reference's parameters (``REF_NPZ``, keys
 sharded paths on the same inputs: 2 train steps
 (``make_train_step`` / ``make_sharded_train_step``), ``prefill_logits``,
 and 4 decode steps from empty caches (placed by ``cache_shardings`` on
-the mesh). Rank 0 writes the readings to ``OUT_JSON``."""
+the mesh); for the first arch also the train steps under each of
+:data:`CASES` (8-bit AdamW, whose ``Q8`` moments are also read against
+the unsharded ones and their specs, and the parameters counted that
+lie more than TOL of their leaf's scale away; adafactor; 2
+microbatches). Rank 0 writes the readings to ``OUT_JSON``."""
+import dataclasses
 import json
 import sys
 
@@ -18,6 +23,10 @@ import torch
 
 TRAIN = dict(batch=4, seq=32, steps=2)
 DECODE = dict(batch=4, s_cache=8, steps=4)
+# the first arch's train steps again under other TrainConfig fields
+CASES = {"adamw8bit": dict(optimizer="adamw8bit"),
+         "adafactor": dict(optimizer="adafactor"),
+         "microbatch2": dict(microbatch=2)}
 
 
 def batch_of(cfg, i: int, b: int, s: int) -> dict:
@@ -43,7 +52,18 @@ def leaf_diff(plain, sharded) -> float:
                  / max(1.0, float(plain.abs().max())))
 
 
-def run_arch(arch: str, tree: dict, mesh) -> dict:
+def beyond(plain, sharded, tol: float) -> int:
+    """The elements of ``sharded`` more than ``tol * max(1, max
+    |plain|)`` from ``plain``."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(sharded, DTensor):
+        sharded = sharded.full_tensor()
+    plain, sharded = plain.detach().double(), sharded.detach().double()
+    limit = tol * max(1.0, float(plain.abs().max()))
+    return int(((plain - sharded).abs() > limit).sum())
+
+
+def run_arch(arch: str, tree: dict, mesh, tol: float, cases=None) -> dict:
     import repro_torch.configs as C
     from repro_torch import convert
     from repro_torch.configs.base import TrainConfig
@@ -59,25 +79,72 @@ def run_arch(arch: str, tree: dict, mesh) -> dict:
     def carried():
         return convert.lm_params_from_numpy(cfg, tree, "cpu")
 
-    def fresh_state():
-        params = carried().requires_grad_(True)
+    def train(tcfg) -> dict:
         opt_init, _ = make_optimizer(tcfg)
-        return TR.TrainState(params, opt_init(TR.Leaves(params).params()), 0)
 
-    out = {"loss": [], "loss_sharded": []}
-    plain, sharded = fresh_state(), TR.shard_state(fresh_state(), model, mesh)
-    step_plain = TR.make_train_step(model, tcfg)
-    step_sharded = TR.make_sharded_train_step(model, tcfg, mesh)
-    for i in range(TRAIN["steps"]):
-        batch = batch_of(cfg, i, TRAIN["batch"], TRAIN["seq"])
-        plain, m1 = step_plain(plain, batch)
-        sharded, m2 = step_sharded(sharded, batch)
-        out["loss"].append(float(m1["loss"]))
-        out["loss_sharded"].append(float(m2["loss"]))
-    out["params"] = max(leaf_diff(a, b) for a, b in zip(
-        plain.params.parameters(), sharded.params.parameters()))
-    out["placed"] = sorted({str(tuple(p.placements))
-                            for p in sharded.params.parameters()})
+        def fresh_state():
+            params = carried().requires_grad_(True)
+            return TR.TrainState(params, opt_init(TR.Leaves(params).params()),
+                                 0)
+
+        out = {"loss": [], "loss_sharded": []}
+        plain = fresh_state()
+        sharded = TR.shard_state(fresh_state(), model, mesh)
+        step_plain = TR.make_train_step(model, tcfg)
+        step_sharded = TR.make_sharded_train_step(model, tcfg, mesh)
+        for i in range(TRAIN["steps"]):
+            batch = batch_of(cfg, i, TRAIN["batch"], TRAIN["seq"])
+            plain, m1 = step_plain(plain, batch)
+            sharded, m2 = step_sharded(sharded, batch)
+            out["loss"].append(float(m1["loss"]))
+            out["loss_sharded"].append(float(m2["loss"]))
+        out["params"] = max(leaf_diff(a, b) for a, b in zip(
+            plain.params.parameters(), sharded.params.parameters()))
+        out["placed"] = sorted({str(tuple(p.placements))
+                                for p in sharded.params.parameters()})
+        if tcfg.optimizer == "adamw8bit":
+            pairs = list(zip(plain.params.parameters(),
+                             sharded.params.parameters()))
+            out["params_beyond"] = (
+                sum(beyond(a, b, tol) for a, b in pairs)
+                / sum(a.numel() for a, _ in pairs))
+            out.update(q8_readings(plain.opt, sharded, tcfg))
+        return out
+
+    def q8_readings(plain, state, tcfg) -> dict:
+        """The sharded Q8 moments: each q and scale against the
+        unsharded one (the share of q's int8 entries that differ, the
+        largest scale difference) and whether every one is placed by
+        ``state_shardings``'s spec, as are the zeros ``init`` makes of
+        the sharded parameters once ``place_opt`` has placed them."""
+        _, specs = TR.state_shardings(model, tcfg, mesh)
+
+        def placed(opt) -> bool:
+            return all(
+                list(z.q.placements)
+                == SH.placements(specs.opt[slot][path].q, mesh)
+                and list(z.scale.placements)
+                == SH.placements(specs.opt[slot][path].scale, mesh)
+                for slot in ("m", "v") for path, z in opt[slot].items())
+        sharded = state.opt
+        q_off, q_all, scale = 0, 0, 0.0
+        for slot in ("m", "v"):
+            for path, z in sharded[slot].items():
+                want = plain[slot][path]
+                q = z.q.full_tensor()
+                q_off += int((q != want.q).sum())
+                q_all += q.numel()
+                scale = max(scale, leaf_diff(want.scale, z.scale))
+        opt_init, _ = make_optimizer(tcfg)
+        zeros = TR.place_opt(opt_init(TR.Leaves(state.params).params()),
+                             mesh, cfg)
+        return {"q8_flipped": q_off / q_all, "q8_scale": scale,
+                "q8_placed": placed(sharded),
+                "q8_init_placed": placed(zeros) and not any(
+                    bool(z.q.full_tensor().any())
+                    for slot in ("m", "v") for z in zeros[slot].values())}
+
+    out = train(tcfg)
 
     # serving from the reference's parameters
     p_plain, p_sharded = carried(), carried()
@@ -102,10 +169,13 @@ def run_arch(arch: str, tree: dict, mesh) -> dict:
                 p_sharded, c_sharded, SH.place_batch({"t": tok}, mesh)["t"],
                 pos)
         out["decode"].append(leaf_diff(want, got))
+    # the other optimizers and microbatches, on the first arch only
+    out["cases"] = {name: train(dataclasses.replace(tcfg, **kw))
+                    for name, kw in (cases or {}).items()}
     return out
 
 
-def main(ref_npz: str, out_json: str, archs: list) -> None:
+def main(ref_npz: str, out_json: str, archs: list, tol: float) -> None:
     import torch.distributed as dist
 
     from repro_torch import convert
@@ -121,7 +191,8 @@ def main(ref_npz: str, out_json: str, archs: list) -> None:
         tree = convert.lm_unflatten({k[len(arch) + 1:]: v
                                      for k, v in ref.items()
                                      if k.startswith(arch + ".")})
-        results[arch] = run_arch(arch, tree, mesh)
+        results[arch] = run_arch(arch, tree, mesh, tol,
+                                 CASES if arch == archs[0] else None)
     if dist.get_rank() == 0:
         with open(out_json, "w") as f:
             json.dump(results, f)
@@ -129,4 +200,5 @@ def main(ref_npz: str, out_json: str, archs: list) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2], sys.argv[3].split(","))
+    main(sys.argv[1], sys.argv[2], sys.argv[3].split(","),
+         float(sys.argv[4]))

@@ -407,6 +407,32 @@ def test_tenant_axis_kernels_match_plain(cuda_device):
     chip_smoke.Smoke(torch, str(cuda_device)).check_tenant_kernels()
 
 
+# (tenants, columns, neurons, the tenants that spike nowhere): 1, 2, 3,
+# 4 and 8 tenants in one launch, 257 neurons (4-byte copies), one tenant
+# silent, all silent (chip_smoke.SYNAPSE_TENANT_CASES holds these too)
+SYNAPSE_TENANTS = [(1, 5, 300, ()), (2, 5, 300, ()), (3, 5, 300, ()),
+                   (4, 5, 300, ()), (8, 5, 300, ()), (3, 5, 257, ()),
+                   (8, 5, 257, ()), (4, 5, 300, (2,)),
+                   (4, 5, 257, (0, 1, 2, 3))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,n,silent", SYNAPSE_TENANTS)
+def test_synapse_matmul_tenants_in_one_launch(cuda_device, b, c, n, silent):
+    """synapse_matmul over b tenants in one launch, one CTA per (tenant,
+    column, target block): to the bit against one launch per tenant and
+    against the FMA chain, with the plain silent-block count: the checks
+    of ``chip_smoke.Smoke.check_synapse_matmul_tenants``, which raises on
+    a miss."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    _build.reset_launches()
+    p = chip_smoke.Smoke(torch, str(cuda_device)).check_synapse_matmul_tenants(
+        b, c, n, silent)
+    assert p["ctas"] == b * c * -(-n // 256)
+    assert _build.LAUNCHES["synapse_matmul"] == 1 + b
+
+
 @pytest.mark.cuda
 def test_refused_cluster_launch_raises(cuda_device, monkeypatch):
     """A cluster launch that the C entry point or the card refuses (more

@@ -158,6 +158,30 @@ def test_synapse_matmul_ring_that_does_not_fit_is_refused():
     assert N < lo < 40_000
 
 
+@pytest.mark.parametrize("b", (1, 2, 4, 8))
+def test_grid24_synapse_matmul_takes_one_tenant_a_cta(b):
+    """At GRID_24 the B tenants' rows plan as B times the columns: one
+    CTA per (tenant, column, target block) item, each CTA the
+    single-tenant one (75,488 B, three to an SM), whatever B."""
+    p = P.plan("synapse_matmul", b * 576, N, T24, H100_SMS, tenants=b)
+    assert (p.path, p.schedule, p.cluster, p.groups) == (
+        "staged", "static", 1, 1)
+    assert p.ctas == p.items == b * 576 * 5
+    assert [len(r) for r in _shares(p)] == [1] * p.items
+    one = P.plan("synapse_matmul", 576, N, T24, H100_SMS)
+    assert (one.ctas, one.smem_bytes) == (2880, 75_488)
+    assert p.smem_bytes == one.smem_bytes
+    assert P.SMEM_PER_SM // (p.smem_bytes + P.SMEM_RESERVED_PER_CTA) == 3
+
+
+@pytest.mark.parametrize("b", (1, 4))
+def test_synapse_matmul_refuses_a_column_at_every_width(b):
+    """A column whose spiking-source list does not fit beside the ring is
+    refused on the tenant axis as it is for one tenant."""
+    with pytest.raises(ValueError, match="neurons per column"):
+        P.plan("synapse_matmul", b * 2, 20_000, 0, H100_SMS, tenants=b)
+
+
 def test_plan_refuses_what_no_path_runs():
     with pytest.raises(ValueError, match="unknown kernel"):
         P.plan("lif_step", 4, N, T24, H100_SMS)

@@ -7,12 +7,14 @@ module; ``convert.lm_params_from_numpy``):
 
 - 2 steps of ``launch/train.make_sharded_train_step`` against
   ``make_train_step``: each step's loss within :data:`LOSS_RTOL`
-  relative, every gathered parameter within :data:`PARAM_TOL`;
+  relative, every gathered parameter within :data:`PARAM_TOL`; for
+  qwen3 also under 8-bit AdamW (its ``Q8`` moments placed by
+  ``state_shardings``), adafactor and 2 microbatches;
 - ``prefill_logits`` and 4 decode steps (caches placed by
   ``cache_shardings``) within :data:`SERVE_TOL`;
 - the launcher's several-rank path: 2 steps of reduced qwen3 on 4 ranks
   print the losses its one-rank run prints (4 decimals, within one unit
-  of the last).
+  of the last), with AdamW and with 8-bit AdamW.
 
 The unsharded port is held to JAX by ``tests/test_torch_lm_*.py``."""
 import json
@@ -37,6 +39,14 @@ ARCHS = ("qwen3-0.6b", "gemma2-9b", "llama4-scout-17b-a16e", "mamba2-780m",
 LOSS_RTOL = 1e-6
 PARAM_TOL = 1e-5
 SERVE_TOL = 1e-5
+# 8-bit AdamW: a last-bit gradient difference rounds an int8 code of
+# the moments the other way now and then, and an element whose 8-bit
+# second moment rounded to 0 then takes an update m / sqrt(v) far from
+# the other's (tests/test_torch_lm_train.py, whose limits these are):
+# the share of the codes that differ, and of the parameter elements
+# beyond PARAM_TOL (readings: 1.4e-5 and 1.7e-4)
+Q8_CODE_SHARE = 1e-4
+Q8_PARAM_SHARE = 1e-3
 RANKS = 4
 
 
@@ -126,7 +136,7 @@ def readings(tmp_path_factory):
         job.stop()
     out = tmp / "readings.json"
     run_ranks([str(HERE / "_lm_sharded_ranks.py"), str(ref), str(out),
-               ",".join(ARCHS)])
+               ",".join(ARCHS), str(PARAM_TOL)])
     return json.loads(out.read_text())
 
 
@@ -142,6 +152,27 @@ def test_sharded_train_step_matches_unsharded(readings, arch):
     assert any("Shard" in p.split(",")[1] for p in r["placed"]), r
 
 
+@pytest.mark.parametrize("case", ("adamw8bit", "adafactor", "microbatch2"))
+def test_sharded_train_cases_match_unsharded(readings, case):
+    """Reduced qwen3's sharded steps under 8-bit AdamW, adafactor and 2
+    microbatches. 8-bit AdamW: the moments' q and scale placed by
+    ``state_shardings`` (also ``init``'s zeros of the sharded parameters,
+    once placed), the scales within PARAM_TOL, the codes and the
+    parameters within PARAM_TOL but for :data:`Q8_CODE_SHARE` and
+    :data:`Q8_PARAM_SHARE` of their elements."""
+    r = readings[ARCHS[0]]["cases"][case]
+    assert len(r["loss"]) == 2
+    for plain, sharded in zip(r["loss"], r["loss_sharded"]):
+        assert abs(sharded - plain) <= LOSS_RTOL * abs(plain), r
+    if case != "adamw8bit":
+        assert r["params"] <= PARAM_TOL, r
+        return
+    assert r["q8_placed"] and r["q8_init_placed"], r
+    assert r["q8_scale"] <= PARAM_TOL, r
+    assert r["q8_flipped"] <= Q8_CODE_SHARE, r
+    assert r["params_beyond"] <= Q8_PARAM_SHARE, r
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_serving_matches_unsharded(readings, arch):
     r = readings[arch]
@@ -154,8 +185,16 @@ def _losses(text: str) -> list:
 
 
 def test_launcher_trains_on_four_ranks():
+    launcher_on_four_ranks()
+
+
+def test_launcher_trains_adamw8bit_on_four_ranks():
+    launcher_on_four_ranks("--optimizer", "adamw8bit")
+
+
+def launcher_on_four_ranks(*extra):
     args = ["-m", "repro_torch.launch.train", "--device", "cpu",
-            "--steps", "2", "--batch", "4", "--seq", "32"]
+            "--steps", "2", "--batch", "4", "--seq", "32", *extra]
     outs = run_ranks(args)
     sharded = _losses(outs[0])
     assert len(sharded) == 2 and not any(_losses(o) for o in outs[1:])
