@@ -436,6 +436,9 @@ LM_TRAIN_REDUCED_LR = 1e-5
 LM_TRAIN_OPTIMIZERS = ("adamw8bit", "adafactor", "int8_ef")
 LM_TRAIN_OPT_STEPS = 3
 LM_QUANTIZED_SHARE = 1e-3
+# 12a's memory check: launch/cost.py's predicted peak of one step, and
+# its temporaries, within this share of max_memory_allocated's
+LM_PEAK_TOL = 0.10
 # phase 13: the reduced configs the sharded step runs (dense, MoE, SSM),
 # its steps, and the dry-run cells, timed while it runs (gemma2-27b
 # prefill_32k, the fourth cell asked for, traces 32 x 32 attention
@@ -536,9 +539,11 @@ class Smoke:
         self.LT = lm_transformer
         self.convert = convert
         from repro_torch.data import pipeline as lm_data
+        from repro_torch.launch import cost as lm_cost
         from repro_torch.launch import train as lm_train
         from repro_torch.optim import optimizer as lm_optim
         self.LD, self.TR, self.LO = lm_data, lm_train, lm_optim
+        self.cost = lm_cost
         self.TrainConfig = base.TrainConfig
         self.ExchangeConfig = base.ExchangeConfig
         self.payload_bytes = compression.halo_payload_bytes
@@ -5071,7 +5076,8 @@ class Smoke:
         as the port computes them), over the step time, over the card's
         dense bfloat16 peak; remat's recompute is not counted. The loss
         must be finite and the mean of the last 5 steps below that of the
-        first 5."""
+        first 5. Last, one more step's memory against its prediction
+        (:meth:`lm_train_peak`)."""
         torch, TR = self.torch, self.TR
         t, b, s = LM_TRAIN, LM_TRAIN["batch"], LM_TRAIN["seq"]
         if cfg.dtype != "bfloat16" or cfg.remat != "block":
@@ -5080,7 +5086,7 @@ class Smoke:
         tcfg = self.TrainConfig(learning_rate=t["lr"],
                                 warmup_steps=t["warmup"])
         pipe = self.LD.TokenPipeline(cfg.vocab_size, b, s, seed=t["seed"])
-        n_batches = t["steps"] + t["mb_steps"] + LM_TRAIN_PROFILE_STEPS + 2
+        n_batches = t["steps"] + t["mb_steps"] + LM_TRAIN_PROFILE_STEPS + 3
         batches = [{k: torch.from_numpy(v).to(self.dev)
                     for k, v in pipe.make_batch(i).items()}
                    for i in range(n_batches)]
@@ -5119,6 +5125,7 @@ class Smoke:
                 box[0], _ = step_fn(box[0], next(rest))
         prof = self.profile(f"{cfg.name} train step B={b} S={s}", run,
                             step_ms, steps=LM_TRAIN_PROFILE_STEPS)
+        memory = self.lm_train_peak(cfg, tcfg, step_fn, box, batches[-1])
         row = dict(arch=cfg.name, params=n_params, dtype=cfg.dtype,
                    remat=cfg.remat, batch=b, seq=s, steps=t["steps"],
                    step_ms=step_ms, first_step_ms=ms[0],
@@ -5131,7 +5138,8 @@ class Smoke:
                    device_ops_per_step=prof["device_ops_per_step"],
                    device_ms_per_step=prof["device_ms_per_step"],
                    busy_share=prof["busy_share_unprofiled"],
-                   top_ops_us_per_step=prof["top_ops_us_per_step"])
+                   top_ops_us_per_step=prof["top_ops_us_per_step"],
+                   step_memory=memory)
         log(f"phase 12a {cfg.name} training at full size "
             f"({n_params / 1e6:.1f}M parameters, {cfg.num_layers} layers, d {cfg.d_model}, vocab "
             f"{cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}), AdamW, "
@@ -5153,6 +5161,70 @@ class Smoke:
             + f", peak memory {mb_peak:.2f} GB")
         del state, box, batches, step_fn, mb_fn
         torch.cuda.empty_cache()
+        return row
+
+    def lm_train_peak(self, cfg, tcfg, step_fn, box, batch):
+        """12a's memory check: one step of ``step_fn`` on ``box[0]`` and
+        ``batch``. Predicted first from the shapes alone: ``cfg``'s model,
+        ``init_state`` and the batch as fake tensors on the card's device
+        type (``FakeTensorMode``: nothing allocated), one step of a fresh
+        ``make_train_step`` under ``launch/cost.count``: the arguments'
+        bytes and the temporaries (the peak of live storages beyond them,
+        in the allocator's 512-byte blocks). Then measured:
+        ``max_memory_allocated`` after ``reset_peak_memory_stats`` around
+        the real step, less what was allocated at its start, and the real
+        state's and batch's bytes. Fails unless the predicted peak
+        (arguments and temporaries) and the predicted temporaries are
+        each within LM_PEAK_TOL of the measured."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        torch, TR = self.torch, self.TR
+        t0 = time.perf_counter()
+        fake = FakeTensorMode()
+        with fake:
+            model = self.LM.build_model(cfg, device=self.dev)
+            state = TR.init_state(model, tcfg)
+            fbatch = {k: fake.from_tensor(v) for k, v in batch.items()}
+            _, c = self.cost.count(TR.make_train_step(model, tcfg), state,
+                                   fbatch, fake_mode=fake)
+        predict_s = time.perf_counter() - t0
+        args_pred = self.cost.storage_bytes((state, fbatch))
+        temp_pred = c["temp_bytes_by_device"].get(self.dev.type, 0)
+        del model, state, fbatch
+        args = self.cost.storage_bytes((box[0], batch))
+        self.sync()
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        before = torch.cuda.memory_allocated(self.dev)
+        box[0], _ = step_fn(box[0], batch)
+        self.sync()
+        peak_raw = torch.cuda.max_memory_allocated(self.dev)
+        temp = peak_raw - before
+        err_peak = (args_pred + temp_pred) / (args + temp) - 1
+        err_temp = temp_pred / temp - 1
+        row = dict(predicted_argument_bytes=args_pred,
+                   predicted_temp_bytes=temp_pred,
+                   predicted_peak_bytes=args_pred + temp_pred,
+                   argument_bytes=args, temp_bytes=temp,
+                   peak_bytes=args + temp, allocated_before=before,
+                   max_memory_allocated=peak_raw, peak_error=err_peak,
+                   temp_error=err_temp, predict_s=predict_s,
+                   predicted_flops=c["flops"], predicted_bytes=c["bytes"])
+        log(f"phase 12a memory of one {cfg.name} step: predicted peak "
+            f"{(args_pred + temp_pred) / 1e9:.3f} GB (arguments "
+            f"{args_pred / 1e9:.3f} + temporaries {temp_pred / 1e9:.3f}; "
+            f"launch/cost.py on fake {self.dev.type} tensors, "
+            f"{predict_s:.1f} s), measured {(args + temp) / 1e9:.3f} GB "
+            f"(arguments {args / 1e9:.3f} + temporaries {temp / 1e9:.3f}: "
+            f"max_memory_allocated {peak_raw / 1e9:.3f} GB less "
+            f"{before / 1e9:.3f} GB allocated before the step); error "
+            f"{100 * err_peak:+.2f} % of the peak, {100 * err_temp:+.2f} % "
+            f"of the temporaries (limit {100 * LM_PEAK_TOL:.0f} %); the "
+            f"step traced {c['flops']:.4e} FLOPs and {c['bytes'] / 1e9:.1f}"
+            f" GB of eager HBM traffic")
+        if abs(err_peak) > LM_PEAK_TOL or abs(err_temp) > LM_PEAK_TOL:
+            raise AssertionError(
+                f"phase 12a: predicted step memory off by "
+                f"{100 * err_peak:+.2f} % (peak), {100 * err_temp:+.2f} % "
+                f"(temporaries): {row}")
         return row
 
     def lm_train_checks(self, cfg):
@@ -5518,8 +5590,11 @@ class Smoke:
     def dryrun_finish(self, procs):
         """13b: each cell's JSON (its process exited 0 within
         DRYRUN_TIMEOUT, else the phase fails after every process is
-        stopped), its wall time, and a line with its per-device bytes,
-        FLOPs and collective bytes."""
+        stopped), its wall time, and a line with its per-device argument
+        bytes, temporaries, whether the step fits the card, FLOPs, HBM
+        bytes and collective bytes; a DPSNN cell's traced halo, state and
+        network bytes beside the port's reckoning (the phase fails where
+        they differ)."""
         rows, failed = {}, []
         for cell, t0, p in procs:
             try:
@@ -5537,21 +5612,43 @@ class Smoke:
                 continue
             r = json.loads(out)
             tag = f"{r['arch']} {r['shape']} on {r['mesh']}"
-            mem = r["memory"]
-            flops = r.get("cost", {}).get("matmul_flops")
+            mem, c = r["memory"], r["cost"]
             coll = r["collectives"]
             log(f"phase 13b dry run {tag} ({r['chips']} ranks of a fake "
                 f"group): {r['cell_s']:.1f} s in its process (started "
                 f"{wall:.1f} s before its collection); per device {mem['argument_bytes']:,} "
                 f"argument bytes ("
                 + ", ".join(f"{k[:-6]} {v:,}" for k, v in mem.items()
-                            if k.endswith("_bytes") and k != "argument_bytes"
-                            and isinstance(v, int))
-                + f"; temporaries {mem['temp_bytes']}), "
-                + (f"{flops:.4e} product FLOPs, " if flops is not None
-                   else f"model FLOPs {r['model_flops']:.4e} (not traced), ")
-                + f"{coll['total_bytes']:,} collective bytes "
+                            if k.endswith("_bytes") and k not in (
+                                "argument_bytes", "temp_bytes",
+                                "output_bytes")) + "), "
+                f"{mem['temp_bytes'] / 1e9:.3f} GB of temporaries, "
+                f"{mem['output_bytes']:,} output bytes, step fits "
+                f"{r['hw']['hbm_bytes'] / 1e9:.0f} GB: {r['step_fits_hbm']}; "
+                f"{c['flops']:.4e} FLOPs ({c['matmul_flops']:.4e} in "
+                f"products), {c['bytes'] / 1e9:.2f} GB of eager HBM traffic "
+                f"({c['hbm_ms_at_rate']:.2f} ms at "
+                f"{r['hw']['hbm_bytes_per_s'] / 1e12:.2f} TB/s), "
+                f"{coll['total_bytes']:,} collective bytes "
                 + json.dumps(coll.get("bytes", {})))
+            if r["kind"] == "simulate":
+                rec = r["reckoned"]
+                traced = (coll["halo_bytes_per_step"], mem["state_bytes"],
+                          mem["params_bytes"])
+                reckoned = (rec["halo_bytes_per_step"], rec["state_bytes"],
+                            rec["params_bytes"])
+                log(f"phase 13b dry run {tag}: rank {r['rank']} of the "
+                    f"{r['process_grid'][0]}x{r['process_grid'][1]} process "
+                    f"grid, tile {r['tile'][0]}x{r['tile'][1]}, "
+                    f"{r['traced_steps']} steps traced; halo "
+                    f"{traced[0]:,.0f} bytes a step traced, "
+                    f"{reckoned[0]:,} by halo_payload_bytes; state "
+                    f"{traced[1]:,} / {reckoned[1]:,}, network "
+                    f"{traced[2]:,} / {reckoned[2]:,} bytes traced / reckoned")
+                if traced != reckoned:
+                    failed.append(f"{tag}: traced (halo, state, network) "
+                                  f"bytes {traced} differ from the "
+                                  f"reckoning {reckoned}")
             rows[tag] = dict(r, wall_s=wall)
         if failed:
             raise AssertionError("phase 13b: " + "; ".join(failed))

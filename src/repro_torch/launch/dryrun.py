@@ -26,18 +26,38 @@ cell's step once on meta DTensors under ``launch/cost.count``:
 A cell's JSON holds the reference's ``params_total``, ``params_active``
 and ``model_flops`` (its formula, ``dryrun.py:234-249``), per-device
 argument bytes by role from the local shard shapes (``memory``), the
-largest local shards (``top_buffers``), ``cost`` (``matmul_flops``:
-products only, see ``launch/cost.py``) and ``collectives``. Peak
-temporary memory is not measured (the reference's XLA
-``temp_size_in_bytes`` has no counterpart here), so ``arguments_fit_hbm``
-says only whether the arguments fit a card, not the step. The hardware
-constants are the H100's (:data:`HW`); the reference's are a TPU's.
+largest local shards (``top_buffers``), ``cost`` and ``collectives``,
+all of one device, from :func:`launch.cost.count`: ``cost.flops`` (the
+reference's ``hlo_cost`` rule: products 2 per multiply-add, 1 per
+result element of every elementwise op and reduction), ``cost.bytes``
+(the eager program's HBM traffic, at least XLA's fused count) and
+``cost.matmul_flops``, with the times they take at the card's peak
+rates; ``memory.temp_bytes`` (the peak of live storages beyond the
+arguments, the counterpart of XLA's ``temp_size_in_bytes``, outputs
+included) and ``memory.output_bytes``. ``arguments_fit_hbm`` says
+whether the arguments fit a card, ``step_fits_hbm`` whether arguments
+and temporaries do. The hardware constants are the H100's (:data:`HW`);
+the reference's are a TPU's.
 
-A DPSNN cell (``--dpsnn``) is not traced: per-shard state bytes come
-from ``core/exchange.stacked_state_shapes`` (nothing allocated),
-per-shard parameter bytes from one column built by
-``core/network.build_params`` times the columns of a shard, and the halo
-bytes from ``runtime/compression.halo_payload_bytes``.
+A DPSNN cell (``--dpsnn``) traces the real per-rank step: this process
+is the rank at the middle of ``partition.process_grid(world)`` (an
+interior tile, whose sends are the reference's SPMD count; rank 0 is a
+corner), its ``ProcessGroupMesh`` packs the halo, the shard's network
+and state are built under a ``FakeTensorMode`` (nothing allocated) and
+``exchange.make_distributed_run(impl="ref")``'s ``run(state)`` is counted
+over every one of its 50 steps. The Poisson drive is drawn for real: its
+loop runs until every neuron's draw is done, so its length, and each
+step's FLOPs and bytes, depend on the draws (the reference's XLA count
+takes that while loop once). The record holds the traced argument,
+temporary and output bytes, FLOPs, bytes and collectives beside the
+reckoning they must equal: ``state_bytes`` from
+``core/exchange.stacked_state_shapes``, ``params_bytes`` from one column
+built by ``core/network.build_params`` times the columns of a shard, and
+the halo from ``runtime/compression.halo_payload_bytes``. The port tiles
+rows by the process grid's rows (``process_grid(512)`` is (16, 32)), so
+its 96x96 cell on 2x16x16 has 6 x 3 tiles where the reference's (rows
+over data x pod, columns over model) has 3 x 6; the record gives
+``tile`` and ``process_grid``.
 
 Importing this module starts no process group; :func:`main` starts the
 fake one before any mesh is built.
@@ -56,21 +76,24 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.launch import cost
+
 # The card the port runs on, from its specification (H100 SXM5 80GB
-# HBM3): memory per device and dense bfloat16 tensor-core peak.
+# HBM3): memory per device, its data-sheet rate (chip_smoke.py's
+# PEAK_BYTES_PER_S) and dense bfloat16 tensor-core peak.
 HW = {"device": "NVIDIA H100 80GB HBM3",
       "hbm_bytes": 80e9,
+      "hbm_bytes_per_s": 3.35e12,
       "peak_flops_bf16_dense": 989e12}
 
 
-def start_fake_group(world: int) -> None:
-    """A fake process group of ``world`` ranks in this process (this
-    process is rank 0). The ``fake`` backend's store lives in PyTorch's
-    internal testing package, ``torch.testing._internal.distributed.
-    fake_pg``."""
+def start_fake_group(world: int, rank: int = 0) -> None:
+    """A fake process group of ``world`` ranks in this process, which is
+    ``rank``. The ``fake`` backend's store lives in PyTorch's internal
+    testing package, ``torch.testing._internal.distributed.fake_pg``."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world)
 
 
@@ -81,22 +104,6 @@ def _mesh_name(multi_pod: bool) -> str:
 def _local(x):
     from torch.distributed.tensor import DTensor
     return x.to_local() if isinstance(x, DTensor) else x
-
-
-def _leaves(tree):
-    """Every tensor of nested dicts, lists, tuples, NamedTuples and the
-    optimizer's ``Q8`` records."""
-    if tree is None:
-        return []
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    if hasattr(tree, "__dataclass_fields__"):
-        return [x for v in vars(tree).values() for x in _leaves(v)]
-    return []
 
 
 def _bytes(tensors) -> int:
@@ -175,7 +182,6 @@ def run_lm_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
     """One LM cell on the production mesh over the current (fake)
     process group."""
     from repro_torch.configs import SHAPES, get_config
-    from repro_torch.launch import cost
     from repro_torch.launch import train as TR
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models.model import build_model
@@ -197,8 +203,8 @@ def run_lm_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
         state = TR.shard_state(TR.init_state(model, tcfg), model, mesh)
         batch = model.input_specs(shape)
         roles["params"] = list(state.params.parameters())
-        roles["optimizer"] = _leaves(state.opt)
-        roles["batch"] = _leaves(SH.place_batch(batch, mesh))
+        roles["optimizer"] = cost.leaves(state.opt)
+        roles["batch"] = cost.leaves(SH.place_batch(batch, mesh))
         if tcfg.microbatch > 1:
             # the accumulator: the stacked leaves in accum_dtype, placed
             # by the reference's rule (constrain_like_params)
@@ -222,7 +228,7 @@ def run_lm_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
             batch = SH.place_batch(
                 {k: v for k, v in model.input_specs(shape).items()
                  if k != "labels"}, mesh)
-            roles["batch"] = _leaves(batch)
+            roles["batch"] = cost.leaves(batch)
 
             def prefill():
                 with SH.use_mesh(mesh):
@@ -237,7 +243,7 @@ def run_lm_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
             tok_spec = (dpa,) if b % SH._dp_size(mesh) == 0 else (None,)
             token = SH.distribute(model.input_specs(shape)["token"], mesh,
                                   tok_spec + (None,))
-            roles["caches"] = _leaves(caches)
+            roles["caches"] = cost.leaves(caches)
             roles["batch"] = [token]
 
             def decode():
@@ -249,28 +255,82 @@ def run_lm_cell(arch: str, shape_name: str, multi_pod: bool) -> dict:
     trace_s = time.time() - t0
     memory = {f"{role}_bytes": _bytes(ts) for role, ts in roles.items()}
     memory["argument_bytes"] = sum(memory.values())
-    memory["temp_bytes"] = "not measured"
+    memory["temp_bytes"] = c["temp_bytes"]
+    memory["output_bytes"] = c["output_bytes"]
     return {
         **head, "chips": 512 if multi_pod else 256, "kind": shape.kind,
         **lm_counts(model, shape), **extra,
         "memory": memory,
-        "arguments_fit_hbm": memory["argument_bytes"] <= HW["hbm_bytes"],
-        "cost": {"matmul_flops": c["matmul_flops"],
-                 "matmul_ms_at_peak": 1e3 * c["matmul_flops"]
-                 / HW["peak_flops_bf16_dense"]},
+        **fits(memory),
+        "cost": cost_record(c),
         "collectives": c["collectives"],
         "top_buffers": top_buffers(roles),
         "trace_s": round(trace_s, 1), "hw": HW,
     }
 
 
+def fits(memory: dict) -> dict:
+    """Whether a device's arguments, and its arguments and temporaries,
+    fit the card's memory."""
+    args = memory["argument_bytes"]
+    return {"arguments_fit_hbm": args <= HW["hbm_bytes"],
+            "step_fits_hbm": args + memory["temp_bytes"] <= HW["hbm_bytes"]}
+
+
+def cost_record(c: dict) -> dict:
+    """A cell's ``cost``: :func:`launch.cost.count`'s FLOPs and bytes,
+    and the milliseconds they take at the card's peak rates."""
+    return {"flops": c["flops"], "bytes": c["bytes"],
+            "matmul_flops": c["matmul_flops"],
+            "matmul_ms_at_peak": 1e3 * c["matmul_flops"]
+            / HW["peak_flops_bf16_dense"],
+            "hbm_ms_at_rate": 1e3 * c["bytes"] / HW["hbm_bytes_per_s"]}
+
+
+def interior_rank(world: int) -> int:
+    """The rank at the middle of ``partition.process_grid(world)``: a
+    tile with a neighbour on every side."""
+    from repro_torch.core.partition import process_grid
+    rows, cols = process_grid(world)
+    return (rows // 2) * cols + cols // 2
+
+
+def dpsnn_shard(cfg):
+    """``(mesh, params, state, fake)``: this rank's packing
+    ``ProcessGroupMesh`` on the CPU over the initialised group, and its
+    shard's network and initial state built under ``fake``, a
+    ``FakeTensorMode`` (``allow_non_fake_inputs``: the drive is drawn on
+    real tensors), with the state's host step counter real (the step
+    reads it)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core import exchange
+    from repro_torch.core.connectivity import build_stencil
+    from repro_torch.core.partition import make_tile_spec
+    from repro_torch.runtime.transport import ProcessGroupMesh
+
+    mesh = ProcessGroupMesh(device="cpu", compress=True)
+    spec = make_tile_spec(cfg, *mesh.shape)
+    fake = FakeTensorMode(allow_non_fake_inputs=True)
+    with fake:
+        params = exchange.build_shard(cfg, spec, mesh)
+        state = exchange.init_shard(cfg, spec, build_stencil(cfg), mesh,
+                                    params)
+    state = state._replace(t=torch.zeros(state.t.shape, dtype=state.t.dtype))
+    return mesh, params, state, fake
+
+
 def run_dpsnn_cell(grid: str, multi_pod: bool, n_steps: int = 50) -> dict:
     """One DPSNN cell: the reference's skip rule, ``synapses_equiv`` and
-    ``model_flops``; per-shard state, parameter and halo bytes from the
-    port's shapes and accounting."""
+    ``model_flops``; the traced ``run(state)`` of an interior rank over
+    a fake group of the cell's ranks (starts it), beside the port's
+    reckoning of its state, network and halo bytes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
     from repro_torch.configs.dpsnn import GRIDS
     from repro_torch.core import exchange
     from repro_torch.core import network as net
+    from repro_torch.core.partition import process_grid
     from repro_torch.runtime.compression import halo_payload_bytes
 
     cfg = GRIDS[grid]
@@ -286,30 +346,50 @@ def run_dpsnn_cell(grid: str, multi_pod: bool, n_steps: int = 50) -> dict:
                           f"grids only to small core counts)"}
     t0 = time.time()
     n_ranks = math.prod(axes.values())
+    rank = interior_rank(n_ranks)
+    start_fake_group(n_ranks, rank)
+    # the reckoning: state from the shapes, network from one column's build
     shapes, spec, _ = exchange.stacked_state_shapes(cfg, n_ranks)
     present = exchange._state_structure(cfg, lambda name: name)
-    names = [x for x in _names(present)]
-    state_bytes = sum(math.prod(shapes[k][0][1:]) * np.dtype(shapes[k][1]).itemsize
-                      for k in names)
-    one = net.build_params(cfg, torch.zeros(1, dtype=torch.int32))
+    state_bytes = sum(math.prod(shapes[k][0][1:])
+                      * np.dtype(shapes[k][1]).itemsize
+                      for k in _names(present))
+    with FakeTensorMode():
+        one = net.build_params(cfg, torch.zeros(1, dtype=torch.int32))
     param_bytes = spec.columns_per_tile * sum(
         x.numel() * x.element_size() for x in one)
     halo = halo_payload_bytes(cfg, spec)["bytes_per_step"]
+    # the trace
+    mesh, params, state, fake = dpsnn_shard(cfg)
+    run, _ = exchange.make_distributed_run(cfg, mesh, n_steps=n_steps,
+                                           impl="ref", params=params)
+    t1 = time.time()
+    _, c = cost.count(run, state, fake_mode=fake)
+    trace_s = time.time() - t1
+    traced_state = cost.storage_bytes(state)
+    traced_params = cost.storage_bytes(params)
+    memory = {"state_bytes": traced_state, "params_bytes": traced_params,
+              "argument_bytes": traced_state + traced_params,
+              "temp_bytes": c["temp_bytes"],
+              "output_bytes": c["output_bytes"]}
+    permute = c["collectives"]["bytes"].get("collective-permute", 0)
     n = cfg.neurons_per_column
     per_step = 2 * cfg.n_columns * n * (n + cfg.remote_fanin)
     return {
         **head, "chips": n_ranks, "kind": "simulate",
         "synapses_equiv": cfg.total_equivalent_synapses,
         "model_flops": per_step * n_steps, "n_steps": n_steps,
+        "traced_steps": n_steps, "rank": rank,
+        "process_grid": list(process_grid(n_ranks)),
         "tile": [spec.tile_h, spec.tile_w],
-        "memory": {"state_bytes": state_bytes, "params_bytes": param_bytes,
-                   "argument_bytes": state_bytes + param_bytes,
-                   "temp_bytes": "not measured"},
-        "arguments_fit_hbm": state_bytes + param_bytes <= HW["hbm_bytes"],
-        "collectives": {"bytes": {"collective-permute": halo * n_steps},
-                        "bytes_per_step": halo,
-                        "total_bytes": halo * n_steps},
-        "trace_s": round(time.time() - t0, 1), "hw": HW,
+        "memory": memory, **fits(memory),
+        "cost": cost_record(c),
+        "collectives": {**c["collectives"],
+                        "halo_bytes_per_step": permute / n_steps},
+        "reckoned": {"state_bytes": state_bytes, "params_bytes": param_bytes,
+                     "halo_bytes_per_step": halo},
+        "trace_s": round(trace_s, 1), "cell_build_s": round(t1 - t0, 1),
+        "hw": HW,
     }
 
 

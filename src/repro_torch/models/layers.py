@@ -65,7 +65,11 @@ def _empty(shape, generator, device, dtype=torch.float32):
 
 
 def _drawn(t: torch.Tensor) -> bool:
-    return t.device.type != "meta"
+    """Whether an initialiser draws ``t``: not on the ``meta`` device, nor
+    a fake tensor (``FakeTensorMode``, as ``launch/cost.py`` traces a
+    step from shapes alone), which holds no values to draw."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return t.device.type != "meta" and not isinstance(t, FakeTensor)
 
 
 def dense_init(generator, d_in: int, d_out, dtype, scale: float | None = None,

@@ -1,13 +1,22 @@
 """The port's dry run (``repro_torch/launch/dryrun.py``) and its cost
 count (``launch/cost.py``), against the reference's
-``repro/launch/dryrun.py`` and ``tests/test_hlo_cost.py``:
+``repro/launch/dryrun.py``, ``launch/hlo_cost.py`` and
+``tests/test_hlo_cost.py``:
 
 - ``cost.count`` gives exact product FLOPs for the programs of
   ``tests/test_hlo_cost.py`` written as torch loops (7 products in a
-  loop of 7, one plain product, a loop of 5 around a loop of 3) and the
-  reference's byte rule (result bytes per device, all-reduce doubled)
-  for one all-gather, one reduce-scatter and one all-reduce of known
-  size on a fake 2 x 2 mesh;
+  loop of 7, one plain product, a loop of 5 around a loop of 3), the
+  counterparts of its ``test_elementwise_counted`` and
+  ``test_bytes_positive_and_bounded`` by the eager rule (exact, and
+  inside the reference's bounds), the byte rules of a view and an
+  in-place add, and the reference's byte rule (result bytes per device,
+  all-reduce doubled) for one all-gather, one reduce-scatter and one
+  all-reduce of known size on a fake 2 x 2 mesh; on the same fake group
+  of 4 a ``send`` / ``recv`` pair counts as ``collective-permute`` and a
+  ``c10d`` operation with no reference kind raises;
+- the tracker gives the exact peak temporaries of a hand-reckoned
+  program (on real tensors and on fake ones, the same number) and of a
+  short backward with its saved tensors;
 - ``params_total``, ``params_active`` and ``model_flops`` equal the
   reference's formula (``dryrun.py:234-249``, evaluated on its
   ``jax.eval_shape`` trees in the module's JAX subprocess) as integers,
@@ -19,13 +28,17 @@ count (``launch/cost.py``), against the reference's
   the reference's specs (``NamedSharding.shard_shape``) on both
   production meshes;
 - an LM cell at full size on the fake 16 x 16 mesh and the dpsnn 48x48
-  cell run through the CLI (one process each, as ``--all`` runs them).
+  cell run through the CLI (one process each, as ``--all`` runs them);
+  the 48x48 cell traces the interior rank's real step, whose argument
+  and halo bytes equal the port's reckoning, and whose steps add up.
 """
 import json
+import math
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 from _jax_background import JaxInBackground
@@ -173,6 +186,118 @@ def test_count_includes_the_backward():
     assert c["matmul_flops"] == 5 * 2 * 16 * 32 * 32
 
 
+def test_elementwise_counted():
+    """tests/test_hlo_cost.py::test_elementwise_counted: tanh, multiply
+    and add of 1000 elements, one FLOP per result element each."""
+    _, c = cost.count(lambda x: torch.tanh(x) + x * 2.0, torch.ones(1000))
+    assert c["flops"] == 3 * 1000
+    assert 1000 <= c["flops"] <= 10000
+    assert c["matmul_flops"] == 0
+
+
+def test_bytes_positive_and_bounded():
+    """tests/test_hlo_cost.py::test_bytes_positive_and_bounded: a product
+    reads both operands and writes its result once."""
+    _, c = cost.count(torch.matmul, torch.ones(256, 512),
+                      torch.ones(512, 128))
+    expect = (256 * 512 + 512 * 128 + 256 * 128) * 4
+    assert c["bytes"] == expect
+    assert expect * 0.5 <= c["bytes"] <= expect * 4
+
+
+@pytest.mark.parametrize("rule", ("view", "inplace_add"))
+def test_byte_rules(rule):
+    a = torch.ones(64, 32)
+    if rule == "view":
+        _, c = cost.count(lambda: a.view(32, 64).t()[:8])
+        assert c["bytes"] == 0 and c["flops"] == 0
+        assert c["temp_bytes"] == 0
+    else:
+        _, c = cost.count(lambda: a.add_(1.0))
+        assert c["bytes"] == 2 * 64 * 32 * 4      # read, then written
+        assert c["flops"] == 64 * 32
+        assert c["temp_bytes"] == 0               # no new storage
+
+
+def _program(a, b):
+    p = a @ b          # (64, 16) float32: 4096 bytes live
+    v = p.view(-1)     # a view: the same storage, nothing more
+    q = p * 2.0        # 4096 more: 8192, the peak
+    del p, v           # p's storage freed: 4096
+    return q.sum()     # 4 bytes; q freed on return: 4 bytes out
+
+
+@pytest.mark.parametrize("tensors", ("real", "fake", "fake_active"))
+def test_peak_of_a_hand_reckoned_program(tensors):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    fake = FakeTensorMode() if tensors != "real" else None
+    if fake is None:
+        a, b = torch.ones(64, 32), torch.ones(32, 16)
+        _, c = cost.count(_program, a, b)
+    else:
+        with fake:
+            a, b = torch.ones(64, 32), torch.ones(32, 16)
+        if tensors == "fake":
+            _, c = cost.count(_program, a, b, fake_mode=fake)
+        else:
+            with fake:
+                _, c = cost.count(_program, a, b, fake_mode=fake)
+    assert c["temp_bytes"] == 2 * 64 * 16 * 4
+    assert c["output_bytes"] == 4
+    assert c["temp_bytes_by_device"] == {"cpu": 2 * 64 * 16 * 4}
+    assert c["flops"] == 2 * 64 * 32 * 16 + 64 * 16 + 1
+    assert c["bytes"] == ((64 * 32 + 32 * 16 + 64 * 16) * 4
+                          + 2 * 64 * 16 * 4 + 64 * 16 * 4 + 4)
+
+
+def test_peak_of_a_backward():
+    w = torch.ones(32, 16, requires_grad=True)
+
+    def step(x):
+        h = torch.tanh(x @ w)     # saved for the backward: h (4096 B)
+        h.sum().backward()
+    _, c = cost.count(step, torch.ones(64, 32))
+    # at the product for w's gradient: h, the loss (4), its gradient
+    # (4), h's gradient (4096) and w's (2048); w's gradient outlives
+    # the step in w.grad
+    assert c["temp_bytes"] == 4096 + 4 + 4 + 4096 + 2048
+    assert c["output_bytes"] == 2048
+    assert w.grad is not None
+
+
+def test_fake_train_step_counts_as_the_real_one():
+    """One reduced qwen3-0.6b training step (bfloat16, remat "block",
+    AdamW) counts the same FLOPs, bytes and temporaries on fake tensors,
+    built from the shapes alone, as on real ones: chip_smoke.py's phase
+    12a predicts the card's peak so."""
+    import dataclasses
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train as TR
+    cfg = dataclasses.replace(C.reduced_config("qwen3-0.6b"),
+                              dtype="bfloat16", remat="block")
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1)
+    batch = {k: torch.from_numpy(v) for k, v in
+             TokenPipeline(cfg.vocab_size, 4, 64, seed=1).make_batch(0)
+             .items()}
+    model = build_model(cfg, device="cpu")
+    state = TR.init_state(model, tcfg, torch.Generator().manual_seed(0))
+    _, real = cost.count(TR.make_train_step(model, tcfg), state, batch)
+    fake = FakeTensorMode()
+    with fake:
+        model = build_model(cfg, device="cpu")
+        state = TR.init_state(model, tcfg)
+        fbatch = {k: fake.from_tensor(v) for k, v in batch.items()}
+        _, got = cost.count(TR.make_train_step(model, tcfg), state, fbatch,
+                            fake_mode=fake)
+    keys = ("flops", "matmul_flops", "bytes", "temp_bytes", "output_bytes")
+    assert {k: got[k] for k in keys} == {k: real[k] for k in keys}
+    assert real["temp_bytes"] > real["output_bytes"] > 0
+
+
 FAKE_MESH = """
 import json, sys
 import torch
@@ -199,6 +324,23 @@ if which == 'collectives':
         lambda: p.redistribute(mesh, [Shard(0), Replicate()]))
     _, out['all-reduce'] = cost.count(
         lambda: p.redistribute(mesh, [Replicate(), Replicate()]))
+    import torch.distributed as dist
+
+    def eager():
+        x = torch.ones(5, 7)
+        recv = torch.zeros(5, 7)
+        for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1),
+                                            dist.P2POp(dist.irecv, recv, 3)]):
+            work.wait()
+        dist.all_reduce(x)
+        parts = [torch.empty(5, 7) for _ in range(4)]
+        dist.all_gather(parts, x)
+    _, out['c10d'] = cost.count(eager)
+    try:
+        cost.count(lambda: dist.broadcast(torch.ones(3), src=0))
+        out['broadcast'] = 'counted'
+    except ValueError as e:
+        out['broadcast'] = str(e)
     print(json.dumps(out))
 else:
     multi = which == '2x16x16'
@@ -215,8 +357,15 @@ else:
 """
 
 
-def test_count_gives_the_reference_byte_rule():
-    got = json.loads(_run(["-c", FAKE_MESH, "collectives"]).splitlines()[-1])
+@pytest.fixture(scope="module")
+def fake4():
+    """The collectives of FAKE_MESH on a fake group of 4 (one process)."""
+    return json.loads(_run(["-c", FAKE_MESH, "collectives"])
+                      .splitlines()[-1])
+
+
+def test_count_gives_the_reference_byte_rule(fake4):
+    got = fake4
     # a (64, 32) float32 tensor over 'data' of 2: the gather's result is
     # the whole tensor; a pending sum scattered over 2 is half of it; an
     # all-reduce of the whole counts twice its result
@@ -228,6 +377,22 @@ def test_count_gives_the_reference_byte_rule():
         assert c["bytes"] == {kind: nbytes}, got
         assert c["counts"] == {kind: 1}, got
         assert got[kind]["matmul_flops"] == 0
+
+
+def test_c10d_send_recv_is_a_collective_permute(fake4):
+    c = fake4["c10d"]["collectives"]
+    whole = 5 * 7 * 4
+    # the received strip; the all-reduce doubled; the gathered 4 parts
+    assert c["bytes"] == {"collective-permute": whole,
+                          "all-reduce": 2 * whole, "all-gather": 4 * whole}
+    assert c["counts"] == {"collective-permute": 1, "all-reduce": 1,
+                           "all-gather": 1}
+    assert fake4["c10d"]["bytes"] >= whole + whole + 4 * whole
+
+
+def test_unmapped_c10d_op_raises(fake4):
+    assert "broadcast" in fake4["broadcast"]
+    assert "no reference kind" in fake4["broadcast"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -279,25 +444,133 @@ def test_lm_cell_runs_at_full_size(ref, tmp_path):
     assert r["memory"]["params_bytes"] == ref["param_bytes"][
         "qwen3-0.6b@16x16"]
     assert r["memory"]["caches_bytes"] > 0
-    assert r["memory"]["temp_bytes"] == "not measured"
-    assert r["cost"]["matmul_flops"] > 0
+    mem, c = r["memory"], r["cost"]
+    assert isinstance(mem["temp_bytes"], int) and mem["temp_bytes"] > 0
+    assert isinstance(mem["output_bytes"], int) and mem["output_bytes"] > 0
+    assert c["flops"] > c["matmul_flops"] > 0
+    assert c["bytes"] > 0 and c["hbm_ms_at_rate"] > 0
     assert r["collectives"]["total_bytes"] > 0
     assert r["top_buffers"] and r["arguments_fit_hbm"]
+    assert r["step_fits_hbm"] is (mem["argument_bytes"] + mem["temp_bytes"]
+                                  <= D.HW["hbm_bytes"])
 
 
-def test_dpsnn_cell_runs(tmp_path):
-    out = _run(["-m", "repro_torch.launch.dryrun", "--dpsnn", "48x48",
-                "--out", str(tmp_path)])
-    r = json.loads((tmp_path / "dpsnn-48x48_50steps_16x16.json").read_text())
-    assert json.loads(out) == r
+DPSNN_48 = """
+import json, sys
+import torch
+from repro_torch.configs.dpsnn import GRIDS
+from repro_torch.core import exchange
+from repro_torch.core.connectivity import build_stencil
+from repro_torch.core.partition import make_tile_spec
+from repro_torch.launch import cost
+from repro_torch.launch import dryrun as D
+
+torch.set_num_threads(1)
+D.main(['--dpsnn', '48x48', '--out', sys.argv[1]])   # starts the group
+cfg = GRIDS['48x48']
+mesh, params, state, fake = D.dpsnn_shard(cfg)
+spec = make_tile_spec(cfg, *mesh.shape)
+stencil = build_stencil(cfg)
+col_ids = exchange.shard_col_ids(cfg, spec, mesh)
+ex = exchange.make_exchange(cfg, spec, mesh)
+
+
+def steps(s, k):
+    for _ in range(k):
+        s = exchange.dist_step(cfg, params, s, spec=spec, stencil=stencil,
+                               mesh=mesh, col_ids=col_ids, impl='ref',
+                               exchange=ex)
+    return s
+
+
+def counted(s, k, t=None):
+    s = s._replace(hist_ext=s.hist_ext.clone())   # a step writes the ring
+    if t is not None:
+        s = s._replace(t=torch.full_like(s.t, t))
+    out, c = cost.count(steps, s, k, fake_mode=fake)
+    return out, {k: c[k] for k in ('flops', 'matmul_flops', 'bytes',
+                                   'collectives')}
+
+
+after_one, one = counted(state, 1)
+_, second = counted(after_one, 1)
+_, two = counted(state, 2)
+_, sixth = counted(state, 1, t=6)
+print('STEPS ' + json.dumps({'one': one, 'second': second, 'two': two,
+                             'sixth': sixth}))
+"""
+
+
+@pytest.fixture(scope="module")
+def dpsnn48(tmp_path_factory):
+    """The dpsnn 48x48 cell through ``dryrun.main`` and its steps counted
+    alone, in one process on one fake group of 256: (stdout's record,
+    the written record, the step counts)."""
+    out = tmp_path_factory.mktemp("dry")
+    text = _run(["-c", DPSNN_48, str(out)])
+    head, steps = text.split("STEPS ")
+    r = json.loads((out / "dpsnn-48x48_50steps_16x16.json").read_text())
+    return json.loads(head), r, json.loads(steps)
+
+
+def test_dpsnn_cell_runs(dpsnn48):
+    printed, r, _ = dpsnn48
+    assert printed == r
     cfg = __import__("repro_torch.configs.dpsnn", fromlist=["GRIDS"]).GRIDS[
         "48x48"]
     n = cfg.neurons_per_column
     assert r["model_flops"] == 50 * 2 * cfg.n_columns * n * (
         n + cfg.remote_fanin)
     assert r["synapses_equiv"] == cfg.total_equivalent_synapses
-    assert r["tile"] == [3, 3]
+    assert r["tile"] == [3, 3] and r["process_grid"] == [16, 16]
+    assert r["rank"] == 8 * 16 + 8 and r["traced_steps"] == 50
     # nine columns of 1240 x 1240 float32 local weights and more
-    assert r["memory"]["params_bytes"] > 9 * n * n * 4
+    mem, c = r["memory"], r["cost"]
+    assert mem["params_bytes"] > 9 * n * n * 4
+    assert isinstance(mem["temp_bytes"], int) and mem["temp_bytes"] > 0
+    assert isinstance(mem["output_bytes"], int) and mem["output_bytes"] > 0
+    # the dense local products: 50 steps of nine (N x N) @ N
+    assert c["matmul_flops"] == 50 * 9 * 2 * n * n
+    assert c["flops"] > c["matmul_flops"] and c["bytes"] > 0
+    assert r["arguments_fit_hbm"] and r["step_fits_hbm"]
     assert r["collectives"]["bytes"]["collective-permute"] == \
-        50 * r["collectives"]["bytes_per_step"] > 0
+        50 * r["collectives"]["halo_bytes_per_step"] > 0
+    assert r["collectives"]["counts"]["collective-permute"] == 50 * 4
+
+
+def test_dpsnn_trace_equals_the_reckoning(dpsnn48):
+    from repro_torch.configs.dpsnn import GRIDS
+    from repro_torch.core import exchange
+    from repro_torch.runtime.compression import halo_payload_bytes
+    _, r, _ = dpsnn48
+    cfg = GRIDS["48x48"]
+    shapes, spec, _ = exchange.stacked_state_shapes(cfg, 256)
+    names = D._names(exchange._state_structure(cfg, lambda name: name))
+    state = sum(math.prod(shapes[k][0][1:]) * np.dtype(shapes[k][1]).itemsize
+                for k in names)
+    mem, rec = r["memory"], r["reckoned"]
+    assert mem["state_bytes"] == rec["state_bytes"] == state
+    assert mem["params_bytes"] == rec["params_bytes"]
+    assert mem["argument_bytes"] == state + rec["params_bytes"]
+    halo = halo_payload_bytes(cfg, spec)["bytes_per_step"]
+    assert r["collectives"]["halo_bytes_per_step"] == \
+        rec["halo_bytes_per_step"] == halo
+
+
+def test_dpsnn_two_steps_count_twice_one(dpsnn48):
+    """Two steps count what the two steps count alone, and here exactly
+    twice the first: the products and the halo are the same every step,
+    and the Poisson drive's loop runs as often at t = 0 as at t = 1.
+    At t = 6 it runs once more (its draws decide when it ends), so that
+    step counts more FLOPs and bytes: the dry run traces all 50 steps
+    rather than scaling one."""
+    _, _, st = dpsnn48
+    one, second, two, sixth = st["one"], st["second"], st["two"], st["sixth"]
+    for k in ("flops", "matmul_flops", "bytes"):
+        assert two[k] == one[k] + second[k] == 2 * one[k], k
+    for k in ("bytes", "counts"):
+        assert two["collectives"][k] == {
+            kind: 2 * v for kind, v in one["collectives"][k].items()}
+    assert sixth["matmul_flops"] == one["matmul_flops"]
+    assert sixth["collectives"] == one["collectives"]
+    assert sixth["flops"] > one["flops"] and sixth["bytes"] > one["bytes"]

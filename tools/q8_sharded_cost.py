@@ -13,9 +13,9 @@ mesh (``launch/train.shard_state``), takes gradients of zeros placed
 like the parameters, and runs the optimizer's ``update`` and
 ``place_opt`` once under a dispatch mode that counts, per rank: the
 collective bytes (``launch/cost.py``'s rule, all-reduce doubled) and
-the peak over every op of the summed bytes of the storages made since
-the update began and still alive (its transients, the new parameters and
-the new state).
+its ``temp_bytes``: the peak of the storages made since the update
+began and still alive (its transients, the new parameters and the new
+state).
 Beside them: the optimizer state's bytes on one rank, and the largest
 parameter leaf (whole, float32). One JSON line an optimizer.
 """
@@ -35,19 +35,8 @@ def _local(x):
     return x.to_local() if isinstance(x, DTensor) else x
 
 
-def _tensors(opt: dict, *trees: dict):
-    """The tensors of an optimizer state (a ``Q8``'s codes and scales)
-    and of flat dicts of tensors."""
-    for slot in opt.values():
-        for z in slot.values():
-            yield from (z.q, z.scale) if hasattr(z, "q") else (z,)
-    for tree in trees:
-        yield from tree.values()
-
-
 def measure(arch: str, reduced: bool, mesh_shape, optimizer: str) -> dict:
     import torch
-    from torch.multiprocessing.reductions import StorageWeakRef
 
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.configs.base import TrainConfig
@@ -57,33 +46,6 @@ def measure(arch: str, reduced: bool, mesh_shape, optimizer: str) -> dict:
     from repro_torch.models.model import build_model
     from repro_torch.optim.optimizer import Q8, make_optimizer
     from repro_torch.runtime import sharding as SH
-
-    class Live(cost.Count):
-        """cost.Count, and the peak bytes of the live storages that its
-        ops return, those in ``before`` (the arguments') left out."""
-
-        def __init__(self, before):
-            super().__init__()
-            self.before, self.live, self.peak = before, {}, 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            from torch._subclasses.fake_tensor import FakeTensor
-            out = super().__torch_dispatch__(func, types, args, kwargs)
-            if out is NotImplemented or any(
-                    issubclass(t, FakeTensor) for t in types):
-                return out      # DTensor's desugaring, its shape propagation
-            for t in torch.utils._pytree.tree_leaves(out):
-                if torch.is_tensor(t) and not isinstance(t, FakeTensor):
-                    ref = StorageWeakRef(t.untyped_storage())
-                    if ref.cdata in self.before:
-                        continue
-                    self.live.setdefault(
-                        ref.cdata, (ref, t.untyped_storage().nbytes()))
-            self.live = {k: v for k, v in self.live.items()
-                         if not v[0].expired()}
-            self.peak = max(self.peak,
-                            sum(n for _, n in self.live.values()))
-            return out
 
     cfg = reduced_config(arch) if reduced else get_config(arch)
     model = build_model(cfg, device="meta")
@@ -95,12 +57,13 @@ def measure(arch: str, reduced: bool, mesh_shape, optimizer: str) -> dict:
     grads = {k: torch.zeros_like(x, dtype=torch.float32)
              for k, x in params.items()}
     _, update = make_optimizer(tcfg)
-    before = {StorageWeakRef(_local(x).untyped_storage()).cdata
-              for x in _tensors(state.opt, params, grads)}
-    with SH.use_mesh(mesh), Live(before) as mode:
+
+    def step():
         _, opt, _ = update(grads, state.opt, params, state.step)
-        opt = TR.place_opt(opt, mesh, cfg)
-    res = mode.result()["collectives"]
+        return TR.place_opt(opt, mesh, cfg)
+    with SH.use_mesh(mesh):
+        opt, c = cost.count(step)
+    res = c["collectives"]
     largest = max(math.prod(x.shape) for x in params.values())
     q8 = [z for slot in opt.values() for z in slot.values()
           if isinstance(z, Q8)]
@@ -108,10 +71,10 @@ def measure(arch: str, reduced: bool, mesh_shape, optimizer: str) -> dict:
             "mesh": "x".join(map(str, mesh_shape)), "optimizer": optimizer,
             "collective_bytes_per_rank": res["total_bytes"],
             "collective_bytes_by_kind": res["bytes"],
-            "update_peak_bytes_per_rank": mode.peak,
+            "update_peak_bytes_per_rank": c["temp_bytes"],
             "state_bytes_per_rank": sum(
                 _local(x).numel() * _local(x).element_size()
-                for x in _tensors(opt)),
+                for x in cost.leaves(opt)),
             "state_bytes_whole": sum(
                 math.prod(x.shape) * (1 + 4 / 256) for x in q8)
             if q8 else 8 * sum(math.prod(x.shape) for x in params.values()),
