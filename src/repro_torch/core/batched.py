@@ -62,6 +62,7 @@ from repro_torch.core.neuron import LIFState
 from repro_torch.core.plasticity import STDPState
 from repro_torch.kernels import ops
 from repro_torch.runtime import integrity
+from repro_torch.runtime.spans import span
 
 
 class BatchedChunkResult(NamedTuple):
@@ -377,16 +378,17 @@ def run_chunk(cfg: DPSNNConfig, params: NetworkParams, bstate: NetworkState,
     left = left0.to(dev)
     polls = _Polls(dev, chunk) if guarded else None
     p, s = params, bstate
-    for i in range(n_max):
-        if polls is not None and polls.stopped():
-            break
-        active = left > 0
-        if guarded:
-            active = active & ~s.guard.tripped
-        p, s, raster[i] = step(p, s, seeds, lam, active, chaos)
-        left = left - active.to(torch.int32)
-        if polls is not None:
-            polls.post(i, ((left > 0) & ~s.guard.tripped).any())
+    with span("serve.enqueue"):
+        for i in range(n_max):
+            if polls is not None and polls.stopped():
+                break
+            active = left > 0
+            if guarded:
+                active = active & ~s.guard.tripped
+            p, s, raster[i] = step(p, s, seeds, lam, active, chaos)
+            left = left - active.to(torch.int32)
+            if polls is not None:
+                polls.post(i, ((left > 0) & ~s.guard.tripped).any())
     taken = int((left0 - left.cpu()).max()) if b else 0
     return BatchedChunkResult(params=p, state=s, steps_left=left,
                               raster=raster, steps_taken=taken)

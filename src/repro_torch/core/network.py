@@ -43,6 +43,7 @@ from repro_torch.core.neuron import LIFState, lif_init, lif_sfa_step
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import per_tenant, silent_block_count, tenants_of
 from repro_torch.runtime import integrity
+from repro_torch.runtime.spans import span
 
 IMPLS = ("ref", "cuda", "cuda_fused")
 
@@ -295,71 +296,76 @@ def step_single(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
     dtype = state.hist.dtype
 
     # 1. recurrent delivery from delayed history
-    s_loc = state.hist[(t - cfg.conn.min_delay_steps) % d_slots]
-    s_flat = neighbour_table_single(state.hist, t, stencil, grid_hw)
+    with span("step.table"):
+        s_loc = state.hist[(t - cfg.conn.min_delay_steps) % d_slots]
+        s_flat = neighbour_table_single(state.hist, t, stencil, grid_hw)
 
     # 2. external Poisson drive
-    if ext_counts is None:
-        ext, ext_counts = external_drive(cfg, t, col_ids, seed=seed,
-                                         nu_scale=nu_scale)
-    else:
-        ext = ext_counts.to(dtype) * cfg.conn.j_ext
+    with span("step.drive"):
+        if ext_counts is None:
+            ext, ext_counts = external_drive(cfg, t, col_ids, seed=seed,
+                                             nu_scale=nu_scale)
+        else:
+            ext = ext_counts.to(dtype) * cfg.conn.j_ext
 
     # 3. delivery + neuron update (one fused kernel, or three stages)
     new_stdp = state.stdp
     gflags = None
-    if impl == "cuda_fused":
-        lif, spikes, new_stdp, gflags = fused_stage(
-            cfg, params, state.lif, state.stdp, s_loc, s_flat, ext,
-            silent_blocks=silent_blocks)
-    else:
-        deliver_local, deliver_remote, lif_update = _stage_fns(impl)
-        currents = deliver_local(s_loc, params.w_local,
-                                 silent_blocks=silent_blocks)
-        currents = currents + deliver_remote(s_flat, params.rem_flat,
-                                             params.rem_w)
-        currents = currents + ext
-        lif, spikes = lif_update(cfg.neuron, state.lif, currents)
+    with span("step.kernel"):
+        if impl == "cuda_fused":
+            lif, spikes, new_stdp, gflags = fused_stage(
+                cfg, params, state.lif, state.stdp, s_loc, s_flat, ext,
+                silent_blocks=silent_blocks)
+        else:
+            deliver_local, deliver_remote, lif_update = _stage_fns(impl)
+            currents = deliver_local(s_loc, params.w_local,
+                                     silent_blocks=silent_blocks)
+            currents = currents + deliver_remote(s_flat, params.rem_flat,
+                                                 params.rem_w)
+            currents = currents + ext
+            lif, spikes = lif_update(cfg.neuron, state.lif, currents)
 
-    # 3b. integrity guard: the chaos NaN lands on the fresh membrane state,
-    # so the verdict below sees it within the step; the kernel's flags
-    # pre-date it and are dropped whenever chaos is configured
-    new_guard = state.guard
-    if cfg.guard.enabled:
-        gcfg = cfg.guard
-        if gcfg.chaos_nan_at_step >= 0 or chaos_nan is not None:
-            lif = lif._replace(v=integrity.inject_nan(gcfg, t, lif.v,
-                                                      chaos_step=chaos_nan))
-            gflags = None
-        tr = new_stdp if cfg.stdp else None
-        code = integrity.step_verdict(
-            gcfg, v=lif.v, spikes=spikes,
-            x_pre=None if tr is None else tr.x_pre,
-            x_post=None if tr is None else tr.x_post,
-            kernel_flags=gflags)
-        new_guard = integrity.guard_update(gcfg, state.guard, step_code=code,
-                                           t=t)
+    with span("step.post"):
+        # 3b. integrity guard: the chaos NaN lands on the fresh membrane
+        # state, so the verdict below sees it within the step; the
+        # kernel's flags pre-date it and are dropped whenever chaos is
+        # configured
+        new_guard = state.guard
+        if cfg.guard.enabled:
+            gcfg = cfg.guard
+            if gcfg.chaos_nan_at_step >= 0 or chaos_nan is not None:
+                lif = lif._replace(v=integrity.inject_nan(
+                    gcfg, t, lif.v, chaos_step=chaos_nan))
+                gflags = None
+            tr = new_stdp if cfg.stdp else None
+            code = integrity.step_verdict(
+                gcfg, v=lif.v, spikes=spikes,
+                x_pre=None if tr is None else tr.x_pre,
+                x_post=None if tr is None else tr.x_post,
+                kernel_flags=gflags)
+            new_guard = integrity.guard_update(gcfg, state.guard,
+                                               step_code=code, t=t)
 
-    # 4. write new spikes into (a copy of) the ring buffer
-    hist = state.hist.clone()
-    hist[t % d_slots] = spikes
+        # 4. write new spikes into (a copy of) the ring buffer
+        hist = state.hist.clone()
+        hist[t % d_slots] = spikes
 
-    # 5. synaptic-event accounting (the paper's normalisation unit)
-    k_tot = params.rem_w.shape[-1]
-    events = ((spikes * (params.local_outdeg + k_tot)).sum()
-              + ext_counts.sum().to(torch.float32))
+        # 5. synaptic-event accounting (the paper's normalisation unit)
+        k_tot = params.rem_w.shape[-1]
+        events = ((spikes * (params.local_outdeg + k_tot)).sum()
+                  + ext_counts.sum().to(torch.float32))
 
-    return NetworkState(
-        lif=lif,
-        hist=hist,
-        t=torch.tensor(t + 1, dtype=torch.int32),
-        spike_count=state.spike_count + spikes.sum(),
-        event_count=state.event_count + events,
-        # unfused: the traces advance in the caller (simulation.run);
-        # fused: the kernel advanced them, and the caller takes them
-        stdp=new_stdp,
-        guard=new_guard,
-    )
+        return NetworkState(
+            lif=lif,
+            hist=hist,
+            t=torch.tensor(t + 1, dtype=torch.int32),
+            spike_count=state.spike_count + spikes.sum(),
+            event_count=state.event_count + events,
+            # unfused: the traces advance in the caller (simulation.run);
+            # fused: the kernel advanced them, and the caller takes them
+            stdp=new_stdp,
+            guard=new_guard,
+        )
 
 
 def fused_stage(cfg: DPSNNConfig, params: NetworkParams, lif0: LIFState,

@@ -14,6 +14,7 @@ from repro_torch.core import network as net
 from repro_torch.core import plasticity as plast
 from repro_torch.core.connectivity import build_stencil, neuron_types
 from repro_torch.core.network import NetworkParams, NetworkState
+from repro_torch.runtime.spans import span
 
 
 class SimResult(NamedTuple):
@@ -86,26 +87,23 @@ def run(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
                                     dtype=f32))
     is_inh = neuron_types(cfg, state.hist.device)
     col_ids = net.column_ids(cfg, state.hist.device)
-    d_slots = state.hist.shape[0]
     rates = []
     final = state
-    for i in range(n_steps):
-        s0 = final
-        final = net.step_single(
-            cfg, params, s0, stencil=stencil, grid_hw=grid_hw,
-            col_ids=col_ids, impl=impl,
-            ext_counts=None if ext_counts is None else ext_counts[i],
-            silent_blocks=silent_blocks, seed=seed, nu_scale=nu_scale)
-        if cfg.stdp:
-            spikes = final.hist[int(s0.t) % d_slots]
-            table = plast.pre_trace_table(s0.stdp.x_pre, stencil, grid_hw)
-            # under cuda_fused the kernel already advanced the traces
-            params, traces = plast.stdp_update(
-                cfg, cfg.stdp_cfg, params, s0.stdp, spikes, is_inh,
-                pre_trace_table=table, rem_flat=params.rem_flat, impl=impl,
-                new_traces=final.stdp if impl == "cuda_fused" else None)
-            final = final._replace(stdp=traces)
-        rates.append((final.spike_count - s0.spike_count) * per_step)
+    with span("sim.run", n_steps=n_steps):
+        for i in range(n_steps):
+            with span("sim.step"):
+                s0 = final
+                final = net.step_single(
+                    cfg, params, s0, stencil=stencil, grid_hw=grid_hw,
+                    col_ids=col_ids, impl=impl,
+                    ext_counts=None if ext_counts is None else ext_counts[i],
+                    silent_blocks=silent_blocks, seed=seed,
+                    nu_scale=nu_scale)
+                if cfg.stdp:
+                    params, final = _plasticity(cfg, params, s0, final,
+                                                stencil, grid_hw, is_inh,
+                                                impl)
+                rates.append((final.spike_count - s0.spike_count) * per_step)
     sim_seconds = n_steps * cfg.neuron.dt_ms * 1e-3
     rate_trace = (torch.stack(rates) if rates else
                   torch.zeros((0,), device=state.hist.device))
@@ -117,6 +115,21 @@ def run(cfg: DPSNNConfig, params: NetworkParams, state: NetworkState,
         rate_trace=rate_trace,
         params=params,
     )
+
+
+def _plasticity(cfg: DPSNNConfig, params: NetworkParams, s0: NetworkState,
+                s1: NetworkState, stencil, grid_hw, is_inh, impl: str):
+    """The STDP update of one step, from its state before (``s0``) and
+    after (``s1``): the new params, and ``s1`` with the new traces."""
+    with span("plasticity.update"):
+        spikes = s1.hist[int(s0.t) % s1.hist.shape[0]]
+        table = plast.pre_trace_table(s0.stdp.x_pre, stencil, grid_hw)
+        # under cuda_fused the kernel already advanced the traces
+        params, traces = plast.stdp_update(
+            cfg, cfg.stdp_cfg, params, s0.stdp, spikes, is_inh,
+            pre_trace_table=table, rem_flat=params.rem_flat, impl=impl,
+            new_traces=s1.stdp if impl == "cuda_fused" else None)
+    return params, s1._replace(stdp=traces)
 
 
 def events_per_simulated_second(cfg: DPSNNConfig, rate_hz: float) -> float:

@@ -56,7 +56,7 @@ from repro_torch.core import batched
 from repro_torch.core import network as net
 from repro_torch.core import simulation as sim
 from repro_torch.core.network import NetworkParams
-from repro_torch.runtime import integrity
+from repro_torch.runtime import integrity, spans
 
 
 @dataclasses.dataclass
@@ -158,7 +158,7 @@ class BatchedSimServer:
         self._chaos = np.full((slots,), -1, np.int32)
         self._deadline: list = [None] * slots   # absolute monotonic time
         self._bstate = batched.init_tenants(cfg, [0] * slots, where)
-        self._queue: deque = deque()
+        self._queue: deque = deque()      # (job, perf_counter_ns at submit)
         self._used: list = [False] * slots
         self._closed = False
         self.stats = {"jobs_submitted": 0, "jobs_completed": 0,
@@ -195,7 +195,7 @@ class BatchedSimServer:
             raise QueueFull(
                 f"request queue at capacity ({self.max_queue}) — job "
                 f"{job.job_id!r} rejected; retry after drain progress")
-        self._queue.append(job)
+        self._queue.append((job, time.perf_counter_ns()))
         self.stats["jobs_submitted"] += 1
         return job.job_id
 
@@ -206,25 +206,30 @@ class BatchedSimServer:
 
     def _pack(self) -> None:
         """Move queued jobs into free slots (fresh per-tenant state)."""
-        for b in range(self.slots):
-            if self._left[b] > 0 or not self._queue:
-                continue
-            job = self._queue.popleft()
-            self._bparams, self._bstate = batched.insert_tenant(
-                self.cfg, self._bparams, self._bstate, b, job.seed,
-                fresh_params=self.params if self.cfg.stdp else None)
-            self._seeds[b] = job.seed
-            self._nu[b] = job.nu_scale
-            self._left[b] = job.n_steps
-            self._job[b] = job
-            self._done[b] = 0
-            self._frames[b] = []
-            self._chaos[b] = job.chaos_nan_at_step
-            self._deadline[b] = (time.monotonic() + job.deadline_s
-                                 if job.deadline_s > 0 else None)
-            if self._used[b]:
-                self.stats["recycles"] += 1
-            self._used[b] = True
+        with spans.span("serve.pack") as sp:
+            admitted = 0
+            for b in range(self.slots):
+                if self._left[b] > 0 or not self._queue:
+                    continue
+                job, submitted_ns = self._queue.popleft()
+                spans.emit("serve.queue", submitted_ns, job_id=job.job_id)
+                self._bparams, self._bstate = batched.insert_tenant(
+                    self.cfg, self._bparams, self._bstate, b, job.seed,
+                    fresh_params=self.params if self.cfg.stdp else None)
+                self._seeds[b] = job.seed
+                self._nu[b] = job.nu_scale
+                self._left[b] = job.n_steps
+                self._job[b] = job
+                self._done[b] = 0
+                self._frames[b] = []
+                self._chaos[b] = job.chaos_nan_at_step
+                self._deadline[b] = (time.monotonic() + job.deadline_s
+                                     if job.deadline_s > 0 else None)
+                if self._used[b]:
+                    self.stats["recycles"] += 1
+                self._used[b] = True
+                admitted += 1
+            sp.set(admitted=admitted)
 
     # ---- the batch -----------------------------------------------------
 
@@ -238,21 +243,35 @@ class BatchedSimServer:
         job overstayed ``deadline_s``."""
         guarded = self.cfg.guard.enabled
         left_before = self._left.copy()
-        t0 = time.perf_counter()
-        out = batched.run_chunk(
-            self.cfg, self._bparams, self._bstate, self._seeds, self._left,
-            self.chunk, self.impl, self._nu,
-            self._chaos if guarded else None)
-        # one copy of the chunk's raster from the device
-        raster = out.raster[:out.steps_taken].cpu().numpy()
-        self.stats["wall_s"] += time.perf_counter() - t0
-        self._bparams, self._bstate = out.params, out.state
-        self._left = out.steps_left.cpu().numpy().copy()
-        self.stats["chunks"] += 1
-        self.stats["loop_steps"] += out.steps_taken
-        self.stats["tenant_steps"] += int((left_before - self._left).sum())
-        tripped = (self._bstate.guard.tripped.cpu().numpy()
-                   if guarded else np.zeros((self.slots,), bool))
+        with spans.span("serve.chunk") as chunk:
+            t0 = time.perf_counter()
+            out = batched.run_chunk(
+                self.cfg, self._bparams, self._bstate, self._seeds,
+                self._left, self.chunk, self.impl, self._nu,
+                self._chaos if guarded else None)
+            # one copy of the chunk's raster from the device, and the
+            # slots' steps left (and their guards) read back
+            with spans.span("serve.copy") as copy:
+                raster = out.raster[:out.steps_taken].cpu().numpy()
+                wall = time.perf_counter() - t0
+                self._left = out.steps_left.cpu().numpy().copy()
+                tripped = (out.state.guard.tripped.cpu().numpy()
+                           if guarded else np.zeros((self.slots,), bool))
+                copy.set(bytes=raster.nbytes + self._left.nbytes
+                         + (tripped.nbytes if guarded else 0))
+            self.stats["wall_s"] += wall
+            self._bparams, self._bstate = out.params, out.state
+            tenant_steps = int((left_before - self._left).sum())
+            self.stats["chunks"] += 1
+            self.stats["loop_steps"] += out.steps_taken
+            self.stats["tenant_steps"] += tenant_steps
+            chunk.set(steps_taken=out.steps_taken, tenant_steps=tenant_steps)
+            with spans.span("serve.deliver"):
+                return self._deliver(left_before, raster, tripped)
+
+    def _deliver(self, left_before, raster, tripped) -> list:
+        """Each slot's frames of the chunk to its job's ``on_chunk``, and
+        the JobResults of the jobs that finished or were evicted."""
         now = time.monotonic()
         finished = []
         for b in range(self.slots):

@@ -658,3 +658,42 @@ def test_lm_train_step_on_the_card_equals_the_cpu(cuda_device, arch):
         archs=(arch,), optimizers=(chip_smoke.LM_TRAIN_OPTIMIZERS
                                    if arch == "qwen3-0.6b" else ()))
     assert list(out["archs"]) == [arch]
+
+
+@pytest.mark.cuda
+def test_spans_share_the_device_traces_clock(cuda_device, tmp_path):
+    """The program's spans and the card's operations on one clock, under
+    a CUDA-only profile (as the benchmark traces): a span around the
+    launch of a long kernel starts before the kernel's device start, and
+    a span around the ``synchronize()`` that follows ends after its
+    device end. Prints both offsets."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime import spans
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize(cuda_device)
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with spans.span("launch"):
+            torch.cuda._sleep(50_000_000)
+        with spans.span("sync"):
+            torch.cuda.synchronize(cuda_device)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    data = json.loads(path.read_text())
+    base = data["baseTimeNanoseconds"]
+    kernels = [e for e in data["traceEvents"] if e.get("ph") == "X"
+               and e.get("cat") == "kernel" and "spin" in e["name"]]
+    assert len(kernels) == 1, [e.get("name") for e in data["traceEvents"]]
+    k = kernels[0]
+    by = {s.name: s for s in spans.recorded()}
+    spans.clear()
+    assert set(by) == {"launch", "sync"}, "no spans under a CUDA-only profile"
+    before = k["ts"] - (by["launch"].start_ns - base) * 1e-3
+    after = (by["sync"].end_ns - base) * 1e-3 - (k["ts"] + k["dur"])
+    print(f"SPAN_CLOCK launch span starts {before:.1f} us before the "
+          f"kernel ({k['dur']:.0f} us); sync span ends {after:.1f} us "
+          f"after it")
+    assert before > 0 and after > 0
