@@ -23,8 +23,11 @@ batch-mates are at 50. ``t``, ``steps_left`` and the active mask are
 (B,) device tensors advanced on the device, each tenant's ring slots are
 picked with a gather and written with a scatter, and the drive kernel
 reads each tenant's seed, step and rate from device arrays, so the host
-never waits inside a chunk: it reads ``steps_left``, the guard and the
-raster once per chunk.
+never waits inside a chunk. Unguarded, it does not wait at a chunk's end
+either: it knows each slot's steps without reading them back, and the
+service copies the raster while the card runs the next chunk
+(``launch/serve.py``). Under the guard it reads ``steps_left`` and the
+guard once per chunk.
 
 The B = 1 guarantee: one slot with ``seed == cfg.seed`` and no stimulus
 scaling runs the kernels of ``simulation.run`` on the same rows, so it
@@ -71,6 +74,7 @@ class BatchedChunkResult(NamedTuple):
     steps_left: torch.Tensor   # (B,) int32 on the device
     raster: torch.Tensor       # (chunk, B, C, N) bool on the device
     steps_taken: int           # loop steps the reference's loop runs
+    host_steps_left: torch.Tensor  # (B,) int32: steps_left on the host
 
 
 def map_leaves(fn, *trees):
@@ -357,13 +361,20 @@ def run_chunk(cfg: DPSNNConfig, params: NetworkParams, bstate: NetworkState,
     and under the guard the loop learns it from :class:`_Polls` without
     waiting. ``steps_taken`` is the reference's count, the most steps
     any slot took. ``raster[i, b]`` is slot b's spikes at its ``i``-th
-    step of the chunk (zero once it stopped)."""
+    step of the chunk (zero once it stopped).
+
+    Unguarded, nothing is read back and nothing waits for the card: each
+    active slot runs ``min(steps_left, n_max)`` steps, so the host has
+    ``steps_taken`` and ``host_steps_left`` (equal to the device's
+    ``steps_left``) before the card has run the chunk. Under the guard
+    both come from the device, which waits for the chunk's last step."""
     b, _, c, n = bstate.hist.shape
     dev = bstate.hist.device
     guarded = cfg.guard.enabled
     left0 = torch.as_tensor(steps_left, dtype=torch.int32).cpu()
-    lam = tenant_rates(cfg, nu_scale, b).to(dev)
-    seeds = torch.as_tensor(seeds, dtype=torch.int32).to(dev)
+    lam = tenant_rates(cfg, nu_scale, b).to(dev, non_blocking=True)
+    seeds = torch.as_tensor(seeds, dtype=torch.int32).to(dev,
+                                                         non_blocking=True)
     chaos = None      # no poison this chunk: the kernel's guard flags hold
     if guarded and chaos_nan is not None:
         cn = torch.as_tensor(chaos_nan, dtype=torch.int32).expand(b)
@@ -375,7 +386,7 @@ def run_chunk(cfg: DPSNNConfig, params: NetworkParams, bstate: NetworkState,
     n_max = min(chunk, int(left0[alive].max())) if bool(alive.any()) else 0
     step = _chunk_step(cfg, impl)
     raster = torch.zeros((chunk, b, c, n), dtype=torch.bool, device=dev)
-    left = left0.to(dev)
+    left = left0.to(dev, non_blocking=True)
     polls = _Polls(dev, chunk) if guarded else None
     p, s = params, bstate
     with span("serve.enqueue"):
@@ -389,9 +400,15 @@ def run_chunk(cfg: DPSNNConfig, params: NetworkParams, bstate: NetworkState,
             left = left - active.to(torch.int32)
             if polls is not None:
                 polls.post(i, ((left > 0) & ~s.guard.tripped).any())
-    taken = int((left0 - left.cpu()).max()) if b else 0
+    if guarded:
+        left_host = left.cpu()
+        taken = int((left0 - left_host).max()) if b else 0
+    else:
+        left_host = left0 - left0.clamp(0, n_max)
+        taken = n_max
     return BatchedChunkResult(params=p, state=s, steps_left=left,
-                              raster=raster, steps_taken=taken)
+                              raster=raster, steps_taken=taken,
+                              host_steps_left=left_host)
 
 
 def run_batched(cfg: DPSNNConfig, params: NetworkParams,

@@ -8,8 +8,20 @@ launch of each kernel for all B tenants (``batched.run_chunk``).
 Tenants that finish mid-chunk are frozen, and their slot is recycled for
 the next queued job between chunks (``batched.insert_tenant``); each
 job's spike raster streams back chunk by chunk through its ``on_chunk``
-callback, one copy of the chunk's ``(steps, B, C, N)`` raster from the
-card per chunk.
+callback.
+
+The chunks run as a pipeline one chunk deep. Each chunk's ``(steps, B,
+C, N)`` raster, and the card's ``steps_left``, are copied into pinned
+host memory without blocking, behind a CUDA event. Unguarded, the host
+knows which slots chunk k frees without reading the card, so it packs
+them and enqueues chunk k+1 before it waits for chunk k's copy; the
+clients' ``on_chunk`` callbacks and the harvest of chunk k's finished
+jobs then run while the card computes chunk k+1. JobResults come out in
+the order they would without the pipeline, one chunk's enqueue later.
+Where the next pack needs what only the card or the clock after the
+chunk can tell, under ``cfg.guard.enabled`` (a trip) or while a slot's
+job has a ``deadline_s``, chunk k is delivered before chunk k+1 is
+enqueued.
 
 Quickstart (README, "Serving quickstart" of the port)::
 
@@ -49,13 +61,14 @@ from collections import deque
 from typing import Callable, Iterator, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.configs import dpsnn
 from repro_torch.configs.base import DPSNNConfig, GuardConfig
 from repro_torch.core import batched
 from repro_torch.core import network as net
 from repro_torch.core import simulation as sim
-from repro_torch.core.network import NetworkParams
+from repro_torch.core.network import NetworkParams, NetworkState
 from repro_torch.runtime import integrity, spans
 
 
@@ -106,6 +119,39 @@ class JobResult:
     guard: Optional[dict] = None
 
 
+@dataclasses.dataclass
+class _Tenant:
+    """A job in its slot: the steps it has run, its raster so far (kept
+    under ``keep_raster``, allocated at its first frames), and its
+    deadline (absolute monotonic time, None for none)."""
+    job: SimJob
+    deadline: Optional[float]
+    done: int = 0
+    raster: Optional[np.ndarray] = None
+
+
+@dataclasses.dataclass
+class _Chunk:
+    """A chunk in flight: what its delivery needs once the card has run
+    it. ``raster`` and ``card_left`` are host tensors (pinned on the
+    card's host) whose copies ``event`` follows (None on the CPU)."""
+    tenants: list               # each slot's _Tenant at the enqueue
+    left_before: np.ndarray
+    left: np.ndarray            # steps left after the chunk (the host's)
+    state: NetworkState         # the batch after the chunk
+    raster: torch.Tensor        # (chunk, B, C, N) bool; its first k rows
+    card_left: torch.Tensor     # (B,) int32: the card's steps_left
+    tripped: torch.Tensor       # (B,) bool: the guards' trips
+    event: Optional[torch.cuda.Event]
+    steps_taken: int
+    tenant_steps: int
+    copy_bytes: int
+    copy_start_ns: int          # the copy's enqueue, perf_counter_ns
+    start_s: float              # the chunk's enqueue, perf_counter
+    span_id: Optional[int]      # its serve.chunk span
+    counts: Optional[np.ndarray] = None   # (2, B): spikes, events
+
+
 class QueueFull(RuntimeError):
     """submit() backpressure: the bounded request queue is at capacity.
     Retry after drain progress (or raise ``max_queue``)."""
@@ -152,19 +198,22 @@ class BatchedSimServer:
         self._seeds = np.zeros((slots,), np.int32)
         self._nu = np.ones((slots,), np.float32)
         self._left = np.zeros((slots,), np.int32)       # 0 == free slot
-        self._job: list = [None] * slots
-        self._done: list = [0] * slots    # steps already run per slot
-        self._frames: list = [[] for _ in range(slots)]
+        self._tenant: list = [None] * slots     # each slot's _Tenant
         self._chaos = np.full((slots,), -1, np.int32)
-        self._deadline: list = [None] * slots   # absolute monotonic time
         self._bstate = batched.init_tenants(cfg, [0] * slots, where)
         self._queue: deque = deque()      # (job, perf_counter_ns at submit)
         self._used: list = [False] * slots
         self._closed = False
+        self._pending: Optional[_Chunk] = None  # enqueued, not delivered
+        self._wall_end = 0.0    # perf_counter when a chunk was last waited
+        # harvests read counters beside the next chunk's work
+        self._side = torch.cuda.Stream(where) if where.type == "cuda" \
+            else None
         self.stats = {"jobs_submitted": 0, "jobs_completed": 0,
-                      "chunks": 0, "loop_steps": 0, "tenant_steps": 0,
-                      "recycles": 0, "wall_s": 0.0, "quarantined": 0,
-                      "deadline_evictions": 0, "rejected_submits": 0}
+                      "chunks": 0, "chunks_overlapped": 0, "loop_steps": 0,
+                      "tenant_steps": 0, "recycles": 0, "wall_s": 0.0,
+                      "quarantined": 0, "deadline_evictions": 0,
+                      "rejected_submits": 0}
 
     @property
     def state(self):
@@ -219,12 +268,10 @@ class BatchedSimServer:
                 self._seeds[b] = job.seed
                 self._nu[b] = job.nu_scale
                 self._left[b] = job.n_steps
-                self._job[b] = job
-                self._done[b] = 0
-                self._frames[b] = []
+                self._tenant[b] = _Tenant(
+                    job, deadline=(time.monotonic() + job.deadline_s
+                                   if job.deadline_s > 0 else None))
                 self._chaos[b] = job.chaos_nan_at_step
-                self._deadline[b] = (time.monotonic() + job.deadline_s
-                                     if job.deadline_s > 0 else None)
                 if self._used[b]:
                     self.stats["recycles"] += 1
                 self._used[b] = True
@@ -233,79 +280,156 @@ class BatchedSimServer:
 
     # ---- the batch -----------------------------------------------------
 
-    def _step_chunk(self) -> list:
-        """One chunk; returns the JobResults it completed.
+    def _enqueue(self) -> _Chunk:
+        """Enqueue one chunk and the copy of its raster and ``steps_left``
+        to the host, behind an event; wait for nothing unless the guard
+        must be read (``batched.run_chunk``)."""
+        guarded = self.cfg.guard.enabled
+        left_before = self._left.copy()
+        # the slots' jobs that run in this chunk (a job that finished in
+        # the chunk in flight is that chunk's to deliver)
+        tenants = [ten if left > 0 else None
+                   for ten, left in zip(self._tenant, left_before)]
+        with spans.span("serve.chunk") as chunk:
+            start = time.perf_counter()
+            out = batched.run_chunk(
+                self.cfg, self._bparams, self._bstate, self._seeds,
+                self._left, self.chunk, self.impl, self._nu,
+                self._chaos if guarded else None)
+            self._bparams, self._bstate = out.params, out.state
+            self._left = out.host_steps_left.numpy().copy()
+            copy_start = time.perf_counter_ns()
+            raster, card_left, tripped, event = self._copy(out, guarded)
+            taken = out.steps_taken
+            tenant_steps = int((left_before - self._left).sum())
+            chunk.set(steps_taken=taken, tenant_steps=tenant_steps)
+        return _Chunk(
+            tenants=tenants, left_before=left_before, left=self._left.copy(),
+            state=out.state, raster=raster, card_left=card_left,
+            tripped=tripped, event=event, steps_taken=taken,
+            tenant_steps=tenant_steps,
+            copy_bytes=(taken * raster[0].numel() + card_left.nbytes
+                        + (tripped.nbytes if guarded else 0)),
+            copy_start_ns=copy_start, start_s=start, span_id=chunk.id)
+
+    def _copy(self, out, guarded: bool):
+        """The chunk's raster, the card's ``steps_left`` and the guards'
+        trips on the host: on the card, non-blocking copies into pinned
+        memory (the raster's a whole chunk long, so that the caching host
+        allocator reuses its blocks) and the event they finish at; on the
+        CPU the tensors themselves."""
+        left = out.steps_left
+        tripped = (out.state.guard.tripped if guarded
+                   else torch.zeros(self.slots, dtype=torch.bool))
+        if self._side is None:
+            return out.raster, left, tripped, None
+        taken = out.steps_taken
+        raster = torch.empty(out.raster.shape, dtype=torch.bool,
+                             pin_memory=True)
+        raster[:taken].copy_(out.raster[:taken], non_blocking=True)
+        host_left = torch.empty(left.shape, dtype=left.dtype,
+                                pin_memory=True)
+        host_left.copy_(left, non_blocking=True)
+        if guarded:
+            host_tripped = torch.empty(tripped.shape, dtype=torch.bool,
+                                       pin_memory=True)
+            tripped = host_tripped.copy_(tripped, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return raster, host_left, tripped, event
+
+    def _deliver(self, c: _Chunk, overlapped: bool) -> list:
+        """Wait for chunk ``c``'s copy, then hand each slot's frames of it
+        to its job's ``on_chunk`` and return the JobResults of the jobs
+        that finished or were evicted. ``overlapped``: the next chunk is
+        already enqueued, so all of this runs beside the card's work.
 
         Under ``cfg.guard.enabled`` a tenant whose guard trips is frozen
         in-band the same step, so its NaN never advances and batch-mates
         are untouched; here the host evicts it with
         ``status="quarantined"``. Deadline eviction reclaims slots whose
         job overstayed ``deadline_s``."""
-        guarded = self.cfg.guard.enabled
-        left_before = self._left.copy()
-        with spans.span("serve.chunk") as chunk:
-            t0 = time.perf_counter()
-            out = batched.run_chunk(
-                self.cfg, self._bparams, self._bstate, self._seeds,
-                self._left, self.chunk, self.impl, self._nu,
-                self._chaos if guarded else None)
-            # one copy of the chunk's raster from the device, and the
-            # slots' steps left (and their guards) read back
-            with spans.span("serve.copy") as copy:
-                raster = out.raster[:out.steps_taken].cpu().numpy()
-                wall = time.perf_counter() - t0
-                self._left = out.steps_left.cpu().numpy().copy()
-                tripped = (out.state.guard.tripped.cpu().numpy()
-                           if guarded else np.zeros((self.slots,), bool))
-                copy.set(bytes=raster.nbytes + self._left.nbytes
-                         + (tripped.nbytes if guarded else 0))
-            self.stats["wall_s"] += wall
-            self._bparams, self._bstate = out.params, out.state
-            tenant_steps = int((left_before - self._left).sum())
-            self.stats["chunks"] += 1
-            self.stats["loop_steps"] += out.steps_taken
-            self.stats["tenant_steps"] += tenant_steps
-            chunk.set(steps_taken=out.steps_taken, tenant_steps=tenant_steps)
-            with spans.span("serve.deliver"):
-                return self._deliver(left_before, raster, tripped)
+        if c.event is not None:
+            c.event.synchronize()
+        end = time.perf_counter()
+        spans.emit("serve.copy", c.copy_start_ns, parent=c.span_id,
+                   bytes=c.copy_bytes)
+        self.stats["wall_s"] += end - max(c.start_s, self._wall_end)
+        self._wall_end = end
+        # the chunk's work is counted once the card has done it
+        self.stats["chunks"] += 1
+        self.stats["loop_steps"] += c.steps_taken
+        self.stats["tenant_steps"] += c.tenant_steps
+        if not np.array_equal(c.card_left.numpy(), c.left):
+            raise RuntimeError(
+                f"the card's steps left {c.card_left.tolist()} differ from "
+                f"the host's {c.left.tolist()}")
+        self.stats["chunks_overlapped"] += overlapped
+        with spans.span("serve.deliver", parent=c.span_id,
+                        overlapped=int(overlapped)):
+            now = time.monotonic()
+            raster = c.raster.numpy()
+            tripped = c.tripped.numpy()
+            finished = []
+            for b, ten in enumerate(c.tenants):
+                if ten is None:
+                    continue
+                took = int(c.left_before[b] - c.left[b])
+                if took:
+                    frames = raster[:took, b]
+                    if ten.job.on_chunk is not None:
+                        ten.job.on_chunk(ten.job.job_id, ten.done, frames)
+                    if self.keep_raster:
+                        # a copy, so the pinned block goes back to the
+                        # caching host allocator once the clients let go
+                        if ten.raster is None:
+                            ten.raster = np.empty(
+                                (ten.job.n_steps,) + frames.shape[1:],
+                                frames.dtype)
+                        ten.raster[ten.done:ten.done + took] = frames
+                    ten.done += took
+                if tripped[b]:
+                    finished.append(self._harvest(c, b, status="quarantined"))
+                elif c.left[b] == 0:
+                    finished.append(self._harvest(c, b))
+                elif ten.deadline is not None and now > ten.deadline:
+                    finished.append(self._harvest(c, b, status="deadline"))
+            return finished
 
-    def _deliver(self, left_before, raster, tripped) -> list:
-        """Each slot's frames of the chunk to its job's ``on_chunk``, and
-        the JobResults of the jobs that finished or were evicted."""
-        now = time.monotonic()
-        finished = []
-        for b in range(self.slots):
-            job = self._job[b]
-            if job is None:
-                continue
-            took = int(left_before[b] - self._left[b])
-            if took:
-                frames = raster[:took, b]
-                if job.on_chunk is not None:
-                    job.on_chunk(job.job_id, self._done[b], frames)
-                if self.keep_raster:
-                    self._frames[b].append(frames)
-                self._done[b] += took
-            if tripped[b]:
-                finished.append(self._harvest(b, status="quarantined"))
-            elif self._left[b] == 0:
-                finished.append(self._harvest(b))
-            elif self._deadline[b] is not None and now > self._deadline[b]:
-                finished.append(self._harvest(b, status="deadline"))
-        return finished
+    def _counts(self, c: _Chunk) -> np.ndarray:
+        """Chunk ``c``'s (2, B) spike and event counters on the host. On
+        the card they are read on a stream of their own, so the read
+        waits for chunk ``c`` (already done) and not for the chunk the
+        card runs now; chunk ``c``'s state is its own, which
+        ``insert_tenant`` does not write."""
+        if c.counts is None:
+            st = c.state
+            if self._side is None:
+                c.counts = torch.stack((st.spike_count,
+                                        st.event_count)).numpy()
+            else:
+                counts = torch.empty((2, self.slots), dtype=torch.float32,
+                                     pin_memory=True)
+                with torch.cuda.stream(self._side):
+                    counts[0].copy_(st.spike_count, non_blocking=True)
+                    counts[1].copy_(st.event_count, non_blocking=True)
+                self._side.synchronize()
+                c.counts = counts.numpy()
+        return c.counts
 
-    def _harvest(self, b: int, status: str = "ok") -> JobResult:
-        job = self._job[b]
-        spikes = float(self._bstate.spike_count[b])
-        events = float(self._bstate.event_count[b])
+    def _harvest(self, c: _Chunk, b: int, status: str = "ok") -> JobResult:
+        ten = c.tenants[b]
+        job = ten.job
+        counts = self._counts(c)
+        spikes = float(counts[0, b])
+        events = float(counts[1, b])
         sim_s = job.n_steps * self.cfg.neuron.dt_ms * 1e-3
         rate = spikes / (self.cfg.n_neurons * sim_s)
-        raster = (np.concatenate(self._frames[b], axis=0)
-                  if self.keep_raster and self._frames[b] else None)
+        raster = ten.raster[:ten.done] if ten.raster is not None else None
         guard = None
         if self.cfg.guard.enabled:
             guard = integrity.guard_report(
-                integrity.tenant_guard(self._bstate.guard, b))
+                integrity.tenant_guard(c.state.guard, b))
         if status != "ok":
             # eviction: reclaim the slot (a quarantined tenant's state is
             # frozen poison, which insert_tenant overwrites whole, guard
@@ -315,21 +439,41 @@ class BatchedSimServer:
             key = ("quarantined" if status == "quarantined"
                    else "deadline_evictions")
             self.stats[key] += 1
-        self._deadline[b] = None
-        self._job[b] = None
-        self._frames[b] = []
+        if self._tenant[b] is ten:      # not yet taken by the next job
+            self._tenant[b] = None
         self.stats["jobs_completed"] += 1
         return JobResult(job_id=job.job_id, seed=job.seed,
                          n_steps=job.n_steps, spikes=spikes,
                          events=events, rate_hz=rate, raster=raster,
                          status=status, guard=guard)
 
+    def _may_run_ahead(self) -> bool:
+        """Whether the next pack and chunk need nothing that only the
+        delivery of the chunk in flight tells: no guard (a trip is known
+        on the card alone) and no slot's job with a deadline (judged on
+        the clock after the chunk)."""
+        return not self.cfg.guard.enabled and all(
+            ten is None or ten.deadline is None for ten in self._tenant)
+
     def drain(self) -> Iterator[JobResult]:
         """Run until the queue and every slot are empty, yielding each
-        JobResult as its tenant completes (slots recycle in between)."""
-        while self._queue or (self._left > 0).any():
+        JobResult as its tenant completes (slots recycle in between).
+        Chunk k is delivered once chunk k+1 is enqueued where
+        :meth:`_may_run_ahead`, else before it (module docstring); jobs
+        submitted while results are handed out are run too."""
+        while True:
+            busy = bool(self._queue) or bool((self._left > 0).any())
+            if self._pending is not None and not (busy
+                                                  and self._may_run_ahead()):
+                done, self._pending = self._pending, None
+                yield from self._deliver(done, overlapped=False)
+                continue
+            if not busy:
+                return
             self._pack()
-            yield from self._step_chunk()
+            done, self._pending = self._pending, self._enqueue()
+            if done is not None:
+                yield from self._deliver(done, overlapped=True)
 
     def run(self) -> list:
         """drain() collected into a list."""

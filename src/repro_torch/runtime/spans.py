@@ -1,7 +1,7 @@
 """Spans of the host's work, on the clock of ``torch.profiler``'s trace.
 
 A span is one stretch of host code: its name, its start and end, the
-span it ran inside (its parent), and a few attributes (counts such as
+span it ran inside or that caused it (its parent), and a few attributes (counts such as
 ``bytes``, a request's ``job_id``). The simulation loop
 (``core/simulation.py``, ``core/network.py``) and the service
 (``launch/serve.py``, ``core/batched.py``) open them where their work
@@ -66,6 +66,7 @@ class Span(NamedTuple):
 class _Off:
     """What :func:`span` returns while no profiler runs."""
     __slots__ = ()
+    id = None
 
     def __enter__(self):
         return self
@@ -83,13 +84,14 @@ OFF = _Off()
 class _On:
     __slots__ = ("name", "attrs", "id", "parent", "start")
 
-    def __init__(self, name: str, attrs: dict):
-        self.name, self.attrs = name, attrs
+    def __init__(self, name: str, attrs: dict, parent: int | None):
+        self.name, self.attrs, self.parent = name, attrs, parent
 
     def __enter__(self):
         stack = _open.ids
         self.id = next(_ids)
-        self.parent = stack[-1] if stack else None
+        if self.parent is None and stack:
+            self.parent = stack[-1]
         stack.append(self.id)
         self.start = _clock()
         return self
@@ -106,23 +108,27 @@ class _On:
         self.attrs.update(attrs)
 
 
-def span(name: str, **attrs):
+def span(name: str, *, parent: int | None = None, **attrs):
     """A context manager that records the code it encloses as span
     ``name`` with ``attrs`` while a ``torch.profiler`` session is active,
     and is :data:`OFF` otherwise. ``with span(...) as s: s.set(k=v)``
-    adds attributes on the way."""
+    adds attributes on the way; ``s.id`` is its id (None when off). Its
+    parent is the innermost open span, or ``parent``: the id of a span,
+    closed by now, whose work this one finishes."""
     if not _enabled():
         return OFF
-    return _On(name, attrs)
+    return _On(name, attrs, parent)
 
 
-def emit(name: str, start_ns: int, **attrs) -> None:
+def emit(name: str, start_ns: int, *, parent: int | None = None,
+         **attrs) -> None:
     """Record a span that started at ``start_ns`` (``perf_counter_ns``)
     and ends now, while a profiler session is active: a stretch with no
-    code of its own around it, such as a job's wait in a queue. It has
-    no parent."""
+    code of its own around it, such as a job's wait in a queue, or one
+    that other spans interleave, such as a copy from its enqueue to the
+    end of the wait for it. Its parent is ``parent``, if given."""
     if _enabled():
-        _spans.append((name, start_ns, _clock(), next(_ids), None, attrs))
+        _spans.append((name, start_ns, _clock(), next(_ids), parent, attrs))
 
 
 def recorded() -> list[Span]:

@@ -27,6 +27,7 @@ from repro.core import batched as jbatched
 from repro.core import simulation as jsim
 from repro_torch import convert
 from repro_torch.configs import dpsnn as D
+from repro_torch.configs.base import GuardConfig
 from repro_torch.core import batched
 from repro_torch.core import network as net
 from repro_torch.core import simulation as sim
@@ -279,6 +280,33 @@ def test_run_chunk_freezes_finished_slots_and_exits_early(reference, impl):
         assert_slot_matches(out.state, jout.state, b, b)
         assert_slot_bitwise(out.state, b,
                             dedicated(cfg, params, seed, n_steps, impl).state)
+
+
+@pytest.mark.parametrize("guard", [False, True])
+def test_run_chunk_host_steps_equal_the_states(guard):
+    """Over random ``steps_left`` of four slots, free slots among them,
+    and random chunk lengths, unguarded and guarded: ``steps_taken`` and
+    ``host_steps_left`` (what the host knows without reading the card
+    when unguarded) are the loop's own count and its ``steps_left``."""
+    _, cfg = _pair()
+    if guard:
+        cfg = dataclasses.replace(cfg, guard=GuardConfig(enabled=True))
+    params, _ = sim.build(cfg, device="cpu")
+    seeds = [cfg.seed, 3, 4, 5]
+    bp = batched.batch_params(cfg, params, 4)
+    st = batched.init_tenants(cfg, seeds, "cpu")
+    gen = torch.Generator().manual_seed(7)
+    for _ in range(4):
+        left = torch.randint(0, 12, (4,), generator=gen, dtype=torch.int32)
+        left[int(torch.randint(0, 4, (1,), generator=gen))] = 0
+        chunk = int(torch.randint(1, 10, (1,), generator=gen))
+        t0 = st.t.clone()
+        out = batched.run_chunk(cfg, bp, st, seeds, left, chunk)
+        assert torch.equal(out.host_steps_left, out.steps_left)
+        ran = out.state.t - t0
+        assert torch.equal(left - ran, out.steps_left), (left, chunk)
+        assert out.steps_taken == int(ran.max()), (left, chunk)
+        bp, st = out.params, out.state
 
 
 def test_plastic_freeze_keeps_a_finished_tenants_weights():

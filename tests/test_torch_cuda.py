@@ -11,6 +11,7 @@ machine that has only PyTorch:
 import pathlib
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -492,10 +493,18 @@ def test_batched_service_equals_dedicated_runs(cuda_device, impl):
     jobs = [SimJob(job_id="a", seed=0, n_steps=20),
             SimJob(job_id="b", seed=5, n_steps=13, nu_scale=1.5),
             SimJob(job_id="c", seed=-3, n_steps=9)]
+    kept = {}
     for job in jobs:
+        job.on_chunk = lambda jid, t0, fr: kept.setdefault(jid, []).append(fr)
         srv.submit(job)
     _build.reset_launches()
     results = {r.job_id: r for r in srv.drain()}
+    # each chunk but the last delivered beside the next one's work, and
+    # the frames a client kept (pinned blocks) not reused under it
+    assert srv.stats["chunks_overlapped"] == srv.stats["chunks"] - 1 > 0
+    for job in jobs:
+        assert np.array_equal(np.concatenate(kept[job.job_id]),
+                              results[job.job_id].raster), job.job_id
     loop = srv.stats["loop_steps"]
     kernels = (["fused_step"] if impl == "cuda_fused" else
                ["synapse_matmul", "ell_gather", "lif_step"])
@@ -516,6 +525,55 @@ def test_batched_service_equals_dedicated_runs(cuda_device, impl):
         assert (r.spikes, r.events) == (float(one.spikes), float(one.events))
         counts = torch.from_numpy(r.raster).to(cuda_device).sum((1, 2))
         assert torch.equal(counts.to(f32) * per_step, one.rate_trace)
+
+
+@pytest.mark.cuda
+def test_unguarded_run_chunk_never_waits_for_the_card(cuda_device):
+    """An unguarded chunk of three tenants, one slot free, under sync
+    debug mode "error": ``run_chunk`` enqueues its steps and returns
+    the steps taken and left as the host knows them, reading nothing
+    back from the card."""
+    from repro_torch.core import batched
+    cfg = DPSNNConfig(grid_h=4, grid_w=4, neurons_per_column=48, seed=3)
+    params, _ = sim.build(cfg, device=cuda_device)
+    seeds, nu = [3, 4, 5], [1.0, 0.8, 1.2]
+    out = batched.run_chunk(cfg, batched.batch_params(cfg, params, 3),
+                            batched.init_tenants(cfg, seeds, cuda_device),
+                            seeds, [2, 2, 0], 4, nu_scale=nu)    # builds
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = batched.run_chunk(cfg, out.params, out.state, seeds,
+                                [5, 0, 3], 4, nu_scale=nu)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.steps_taken == 4
+    assert out.host_steps_left.tolist() == [1, 0, 0]
+    assert out.steps_left.tolist() == [1, 0, 0]
+    assert out.state.t.tolist() == [6, 2, 3]
+
+
+@pytest.mark.cuda
+def test_run_chunk_host_steps_equal_the_cards(cuda_device):
+    """Over random ``steps_left`` of four slots, free slots among them,
+    and random chunk lengths: the host's ``steps_taken`` and
+    ``host_steps_left`` are what the card counted."""
+    from repro_torch.core import batched
+    cfg = DPSNNConfig(grid_h=4, grid_w=4, neurons_per_column=48, seed=3)
+    params, _ = sim.build(cfg, device=cuda_device)
+    seeds = [3, 4, 5, 6]
+    bp = batched.batch_params(cfg, params, 4)
+    st = batched.init_tenants(cfg, seeds, cuda_device)
+    gen = torch.Generator().manual_seed(7)
+    for _ in range(5):
+        left = torch.randint(0, 12, (4,), generator=gen, dtype=torch.int32)
+        left[int(torch.randint(0, 4, (1,), generator=gen))] = 0
+        chunk = int(torch.randint(1, 10, (1,), generator=gen))
+        out = batched.run_chunk(cfg, bp, st, seeds, left, chunk)
+        card = out.steps_left.cpu()
+        assert torch.equal(out.host_steps_left, card), (left, chunk)
+        assert out.steps_taken == int((left - card).max()), (left, chunk)
+        bp, st = out.params, out.state
 
 
 @pytest.mark.cuda

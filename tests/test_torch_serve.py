@@ -301,3 +301,127 @@ def test_cli_serves_a_staggered_mix_on_the_cpu(capsys):
     assert row["jobs_completed"] == 3 and row["impl"] == "cuda"
     with pytest.raises(SystemExit):
         serve.main(["--poison-job", "0:3", "--device", "cpu"])
+
+
+def _port_server(cfg, **kw):
+    """A port server on the CPU over the port's own network."""
+    params, _ = sim.build(cfg, device="cpu")
+    return BatchedSimServer(cfg, device="cpu", params=params, **kw), params
+
+
+def assert_dedicated(cfg, params, job, r):
+    """JobResult ``r`` against the port's dedicated run of ``job``: its
+    totals, and its spikes a step through the run's ``rate_trace``."""
+    one = dedicated(cfg, params, job.seed, job.n_steps, "cuda_fused",
+                    nu_scale=job.nu_scale)
+    assert (r.status, r.spikes, r.events) == (
+        "ok", float(one.state.spike_count), float(one.state.event_count))
+    f32 = torch.float32
+    per_step = (torch.tensor(sim._recip(cfg.n_neurons), dtype=f32)
+                * torch.tensor(sim._recip(cfg.neuron.dt_ms * 1e-3),
+                               dtype=f32))
+    counts = torch.from_numpy(r.raster).sum((1, 2)).to(f32)
+    assert torch.equal(counts * per_step, one.rate_trace), job.job_id
+
+
+def test_pipeline_runs_a_chunk_ahead_and_keeps_every_frame():
+    """Unguarded, every job submitted before ``drain``: each chunk but
+    the last is delivered once the next is enqueued. A client that keeps
+    every ``frames`` array it is handed finds them, after the drain,
+    equal to the ``keep_raster`` raster of the same jobs (no buffer was
+    reused under them), and each job is its dedicated run."""
+    _, cfg = _configs()
+    srv, params = _port_server(cfg, slots=2, chunk=8)
+    kept = {}
+    jobs = _jobs(SimJob, RECYCLE_JOBS)
+    for job in jobs:
+        job.on_chunk = lambda jid, t0, fr: kept.setdefault(jid, []).append(
+            (t0, fr))
+        srv.submit(job)
+    results = {r.job_id: r for r in srv.drain()}
+    assert srv.stats["chunks"] > 2
+    assert srv.stats["chunks_overlapped"] == srv.stats["chunks"] - 1
+    assert "chunks_overlapped" not in srv.metrics_row()
+    for job in jobs:
+        r = results[job.job_id]
+        starts = [t0 for t0, _ in kept[job.job_id]]
+        assert starts == list(range(0, job.n_steps, 8))
+        np.testing.assert_array_equal(
+            np.concatenate([fr for _, fr in kept[job.job_id]]), r.raster)
+        assert_dedicated(cfg, params, job, r)
+
+
+@pytest.mark.parametrize("case", ["guard", "deadline"])
+def test_pipeline_waits_where_the_next_pack_needs_the_chunk(case):
+    """Under the guard (a trip is known on the card alone), or with a
+    slot's job under a ``deadline_s`` (judged on the clock after the
+    chunk), each chunk is delivered before the next is enqueued, and the
+    results are those of the unguarded pipeline."""
+    _, cfg = _configs(guard=case == "guard")
+    srv, _ = _port_server(cfg, slots=2, chunk=8)
+    ahead, _ = _port_server(_configs()[1], slots=2, chunk=8)
+    extra = {"deadline_s": 1e6} if case == "deadline" else {}
+    for server, kw in ((srv, extra), (ahead, {})):
+        for job in _jobs(SimJob, [(j, s, n, dict(k, **kw))
+                                  for j, s, n, k in RECYCLE_JOBS]):
+            server.submit(job)
+    got = {r.job_id: r for r in srv.drain()}
+    want = {r.job_id: r for r in ahead.drain()}
+    assert srv.stats["chunks_overlapped"] == 0
+    assert ahead.stats["chunks_overlapped"] == ahead.stats["chunks"] - 1
+    for jid, r in want.items():
+        g = got[jid]
+        assert (g.status, g.spikes, g.events) == (r.status, r.spikes,
+                                                  r.events)
+        np.testing.assert_array_equal(g.raster, r.raster)
+
+
+def test_closed_loop_submits_from_the_drain_loop():
+    """Clients that submit their next job as each result comes back out
+    of ``drain()``, as the benchmark's closed loop does: every job runs,
+    those submitted while the last chunk in flight is handed out too
+    (the first two jobs end in one chunk, leaving no work queued), the
+    pipeline engages, and each job is its dedicated run."""
+    _, cfg = _configs()
+    srv, params = _port_server(cfg, slots=2, chunk=8)
+    feed = iter(_jobs(SimJob, [(f"k{i}", 60 + i, n, {"nu_scale": nu})
+                               for i, (n, nu) in enumerate(
+                                   [(8, 1.0), (8, 1.5), (9, 0.8), (20, 1.0),
+                                    (3, 1.25), (11, 1.0)])]))
+    jobs = {}
+    for job in (next(feed), next(feed)):
+        jobs[job.job_id] = job
+        srv.submit(job)
+    results = {}
+    for r in srv.drain():
+        results[r.job_id] = r
+        job = next(feed, None)
+        if job is not None:
+            jobs[job.job_id] = job
+            srv.submit(job)
+    assert set(results) == set(jobs) and len(jobs) == 6
+    assert srv.stats["chunks_overlapped"] > 0
+    for jid, job in jobs.items():
+        assert_dedicated(cfg, params, job, results[jid])
+
+
+def test_counters_count_delivered_chunks_and_kept_rasters_own_memory():
+    """While the pipeline runs a chunk ahead, ``stats`` count only the
+    chunks handed out: at every result out of ``drain()`` the tenant-
+    steps counted are the frames the clients got. A ``keep_raster``
+    raster is a copy, so it holds no chunk's block alive, and equals the
+    frames streamed."""
+    _, cfg = _configs()
+    srv, _ = _port_server(cfg, slots=2, chunk=8)
+    streamed = {}
+    for job in _jobs(SimJob, RECYCLE_JOBS):
+        job.on_chunk = lambda jid, t0, fr: streamed.setdefault(
+            jid, []).append(fr)
+        srv.submit(job)
+    for r in srv.drain():
+        seen = sum(len(fr) for frs in streamed.values() for fr in frs)
+        assert srv.stats["tenant_steps"] == seen
+        frames = streamed[r.job_id]
+        assert not any(np.shares_memory(r.raster, fr) for fr in frames)
+        np.testing.assert_array_equal(np.concatenate(frames), r.raster)
+    assert srv.stats["chunks_overlapped"] == srv.stats["chunks"] - 1
